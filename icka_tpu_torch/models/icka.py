@@ -1,0 +1,207 @@
+"""The flagship ICKA model (port of `icka_tpu.models.icka`, inference).
+
+Pipeline: RoBERTa text encoding -> 7x7 visual grid mapped to H -> txt2img
+cross-attention fusion -> CLIP knowledge alignment over the fused text ->
+two prompt prefixes from mapping networks spliced into the prompted
+RoBERTa -> relevance gate -> BiLSTM -> classifier -> CRF Viterbi.
+Visual features arrive NHWC (B, 7, 7, C). Only `mode="test"` is ported
+(the CRF likelihood behind train/dev waits), and the packed path
+`forward_packed` waits too.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from icka_tpu_torch.core.config import ICKAConfig
+from icka_tpu_torch.core.device import generator_for, resolve_device
+from icka_tpu_torch.nn.attention import CrossEncoder
+from icka_tpu_torch.nn.bert import PromptSpliceEncoder, TextEncoder
+from icka_tpu_torch.nn.crf import CRF
+from icka_tpu_torch.nn.layers import Dense, additive_mask
+from icka_tpu_torch.nn.lstm import BiLSTM
+
+
+class MappingNetwork(nn.Module):
+    """Prompt mapping network: Linear(in, W*P) -> Tanh -> Linear(W*P, H*P),
+    reshaped to (B, P, H)."""
+
+    def __init__(self, in_dim: int, prompt_len: int, width: int, hidden: int,
+                 dtype=torch.float32, device="cuda", generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = generator_for(dev, None, generator)
+        self.prompt_len = prompt_len
+        self.hidden = hidden
+        self.wi = Dense(in_dim, width * prompt_len, dtype=dtype, device=dev,
+                        generator=gen)
+        self.wo = Dense(width * prompt_len, hidden * prompt_len, dtype=dtype,
+                        device=dev, generator=gen)
+
+    def forward(self, x):
+        x = self.wo(torch.tanh(self.wi(x)))
+        return x.reshape(x.shape[0], self.prompt_len, self.hidden)
+
+
+class GlobalFusionGate(nn.Module):
+    """LayerNorm(sum of the two global features) -> Linear -> Linear(H, 1)
+    -> sigmoid. The norm is flax's `nn.LayerNorm`, not the TF-style one:
+    variance as max(0, E[x^2] - E[x]^2), then (x - mean) * (rsqrt(var + eps)
+    * scale) + bias, in fp32."""
+
+    def __init__(self, hidden: int, eps: float, dtype=torch.float32,
+                 device="cuda", generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = generator_for(dev, None, generator)
+        self.eps = eps
+        self.norm = nn.Module()
+        self.norm.scale = nn.Parameter(torch.ones(hidden, device=dev))
+        self.norm.bias = nn.Parameter(torch.zeros(hidden, device=dev))
+        self.proj = Dense(hidden, hidden, dtype=dtype, device=dev,
+                          generator=gen)
+        self.aux_head = Dense(hidden, 1, dtype=dtype, device=dev,
+                              generator=gen)
+
+    def _layer_norm(self, x):
+        x = x.float()
+        mean = x.mean(-1, keepdim=True)
+        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.norm.scale
+        return (x - mean) * mul + self.norm.bias
+
+    def forward(self, lang_feat, img_feat):
+        x = self.proj(self._layer_norm(lang_feat + img_feat))
+        return torch.sigmoid(self.aux_head(x))
+
+
+class ICKAModel(nn.Module):
+    """The flagship model. Parameters are fp32 and made on `device` from
+    `generator` (or a new one seeded with `seed`); `dtype` is the compute
+    dtype. Submodule names are the flax names, so
+    `icka_tpu_torch.convert.icka_state_dict` maps JAX weights onto it."""
+
+    def __init__(self, cfg: ICKAConfig, dtype=torch.float32, device="cuda",
+                 seed: int | None = None, generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = generator_for(dev, seed, generator)
+        kw = dict(dtype=dtype, device=dev, generator=gen)
+        self.cfg = cfg
+        self.dtype = dtype
+        H = cfg.embedding.hidden_size
+        # a branch that an ablation flag switches off holds no parameters,
+        # as in the JAX model (flax creates them at first call)
+        self.embedding = TextEncoder(cfg.embedding, with_pooler=False, **kw)
+        self.vismapping = (Dense(cfg.clip_dim, H, **kw)
+                           if cfg.use_alignment else None)
+        self.vismap2text = (Dense(cfg.region_dim, H, **kw)
+                            if cfg.use_txt2img else None)
+        self.txt2img = (CrossEncoder(cfg.embedding, cfg.layer_num1, **kw)
+                        if cfg.use_txt2img else None)
+        self.align_0 = CrossEncoder(cfg.embedding, cfg.layer_num1, **kw)
+        self.align_1 = CrossEncoder(cfg.embedding, cfg.layer_num1, **kw)
+        self.map_alignment = MappingNetwork(H, cfg.prompt_len,
+                                            cfg.prompt_hidden, H, **kw)
+        self.map_vision = MappingNetwork(cfg.region_dim, cfg.prompt_len,
+                                         cfg.prompt_hidden, H, **kw)
+        self.lastproj = (Dense(H, cfg.last_hidden, **kw)
+                         if H != cfg.last_hidden else None)
+        self.last_encoder = PromptSpliceEncoder(cfg.last_encoder, **kw)
+        self.gate = (GlobalFusionGate(H, cfg.embedding.layer_norm_eps, **kw)
+                     if cfg.use_gate else None)
+        self.lstm = BiLSTM(cfg.last_hidden, cfg.last_hidden, **kw)
+        self.classifier = Dense(2 * cfg.last_hidden, cfg.num_labels, **kw)
+        self.crf = CRF(cfg.num_labels, device=dev, generator=gen)
+
+    @property
+    def device(self) -> torch.device:
+        return self.classifier.weight.device
+
+    def emissions(self, *, input_ids, segment_ids, input_mask,
+                  ori_input_ids, ori_input_mask, ori_segment_ids,
+                  img_mask, clip_features, visual_mean, visual_grid,
+                  mask_positions, offset: int):
+        """Everything up to the CRF: returns (emissions, aux dict)."""
+        cfg = self.cfg
+        B = ori_input_ids.shape[0]
+
+        # 1. text encoding
+        seq, _ = self.embedding(ori_input_ids, ori_input_mask,
+                                ori_segment_ids)
+
+        # 2-3. visual grid -> txt2img fusion
+        if cfg.use_txt2img:
+            grid = visual_grid.reshape(B, -1, visual_grid.shape[-1])
+            grid = self.vismap2text(grid)                      # (B, 49, H)
+            cross = self.txt2img(seq, grid, additive_mask(img_mask))
+        else:
+            cross = seq
+
+        # 4. knowledge alignment: CLIP token attends over the fused text
+        text_bias = additive_mask(ori_input_mask)
+        if cfg.use_alignment:
+            clip_tok = self.vismapping(
+                clip_features.reshape(B, -1))[:, None, :]      # (B, 1, H)
+        else:
+            clip_tok = cross[:, 0:1, :]
+        for layer in (self.align_0, self.align_1):
+            clip_tok = layer(clip_tok, cross, text_bias)
+
+        # 5. instruction construction
+        align_prompt = self.map_alignment(clip_tok.reshape(B, -1))
+        vision_prompt = self.map_vision(visual_mean)
+        if not cfg.use_vision_prompt:
+            vision_prompt = align_prompt
+        if not cfg.use_alignment_prompt:
+            align_prompt = vision_prompt
+        prefix = torch.cat([vision_prompt, align_prompt], dim=1)
+        if self.lastproj is not None:
+            prefix = self.lastproj(prefix)
+        prompt_mask = input_mask[:, :1].expand(-1, 2 * cfg.prompt_len)
+        out, _ = self.last_encoder(input_ids, input_mask, segment_ids,
+                                   prefix, prompt_mask, mask_positions)
+        # the sentence starts at offset - 2 + 2P of the spliced layout; its
+        # width is the bare-sentence width (shorter under bucketed serving)
+        tok_start = offset - 2 + 2 * cfg.prompt_len
+        sent_len = ori_input_ids.shape[1]
+        token_embedding = out[:, tok_start:tok_start + sent_len, :]
+
+        # 6. relevance gate
+        if cfg.use_gate:
+            g = self.gate(cross[:, 0, :], token_embedding[:, 0, :])
+            g = g.reshape(B, 1, 1)
+        else:
+            g = torch.full((B, 1, 1), cfg.gate_fixed, dtype=self.dtype,
+                           device=cross.device)
+        fused = g * token_embedding + (1.0 - g) * cross
+
+        # 7. BiLSTM -> emissions
+        x = self.lstm(fused, mask=ori_input_mask if cfg.masked_lstm else None)
+        emissions = self.classifier(x)
+        return emissions, {"gate": g, "cross": cross,
+                           "token_embedding": token_embedding}
+
+    def forward(self, batch, mask_positions, offset: int, mode: str = "test"):
+        """`batch` is a dict of tensors on the model's device (the keys of
+        `icka_tpu.data.features`). Returns (B, L) int32 Viterbi tags."""
+        if mode != "test":
+            raise NotImplementedError(
+                f"mode={mode!r} needs the CRF likelihood, not ported yet")
+        emissions, _ = self.emissions(
+            input_ids=batch["input_ids"],
+            segment_ids=batch["segment_ids"],
+            input_mask=batch["input_mask"],
+            ori_input_ids=batch["ori_input_ids"],
+            ori_input_mask=batch["ori_input_mask"],
+            ori_segment_ids=batch["ori_segment_ids"],
+            img_mask=batch["img_mask"],
+            clip_features=batch["clip_features"],
+            visual_mean=batch["visual_mean"],
+            visual_grid=batch["visual_grid"],
+            mask_positions=mask_positions,
+            offset=offset,
+        )
+        return self.crf.decode(emissions, batch["output_mask"])

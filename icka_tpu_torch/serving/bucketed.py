@@ -1,0 +1,169 @@
+"""Length-bucketed serving of the flagship ICKA model (port of
+`icka_tpu.serving.bucketed`, without the data-parallel `mesh`).
+
+Each request goes to the smallest length bucket that holds it, and bucket
+queues run as fixed-size batches: short tweets pass through a 16- or
+24-token encoder instead of the 128-token reference layout. Partial batches
+are padded by repeating the chunk's first request; padded rows' outputs are
+dropped. With `ICKAConfig.masked_lstm=True` bucketed decode equals the
+128-padded layout at valid positions; with the torch-parity default the
+agreement is statistical (the BiLSTM runs through a shorter padding tail).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from icka_tpu_torch.core.device import resolve_device
+
+
+def pick_bucket(length: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket >= length; longer sequences are truncated to the
+    largest bucket (the reference truncates to max_seq_length too)."""
+    for b in buckets:
+        if length <= b:
+            return b
+    return buckets[-1]
+
+
+@dataclasses.dataclass
+class ServingStats:
+    """Per-request accounting: how many pairs ran in each bucket and how
+    many device batches were dispatched."""
+
+    pairs_per_bucket: dict
+    batches_per_bucket: dict
+
+    @property
+    def total_pairs(self) -> int:
+        return sum(self.pairs_per_bucket.values())
+
+
+class BucketedICKAServer:
+    """Bucketed request-level inference for `ICKAModel` (`mode="test"`).
+
+    Examples are dicts at their TRUE sentence length L:
+
+      - ``ori_input_ids`` (L,): bare-sentence token ids
+      - ``input_ids`` (offset + L,): prompted layout
+      - optional ``ori_segment_ids`` (L,), ``img_mask`` (49,)
+      - ``visual_mean`` (R,), ``visual_grid`` (7, 7, R),
+        ``clip_features`` (C,) or (1, C): numpy arrays or tensors (tensors
+        already on the device are not copied through the host)
+
+    The model's parameters must live on `device`.
+    """
+
+    def __init__(self, model, buckets: Sequence[int] = (16, 24, 32, 48, 64,
+                                                        128),
+                 max_batch: int = 128, offset: int = 14,
+                 mask_positions: tuple = (3, 11), device="cuda"):
+        buckets = tuple(sorted(buckets))
+        if buckets[-1] != model.cfg.max_seq_length:
+            raise ValueError(
+                f"largest bucket {buckets[-1]} must equal "
+                f"max_seq_length {model.cfg.max_seq_length}")
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"model lives on {model.device}, server on "
+                             f"{self.device}")
+        self.model = model
+        self.buckets = buckets
+        self.max_batch = max_batch
+        self.offset = offset
+        self.mask_positions = tuple(mask_positions)
+
+    def _empty_batch(self, b: int):
+        cfg = self.model.cfg
+        B, off = self.max_batch, self.offset
+        pad = cfg.embedding.pad_token_id
+        return {
+            "input_ids": np.full((B, off + b), pad, np.int64),
+            "segment_ids": np.concatenate(
+                [np.zeros((B, off), np.int64), np.ones((B, b), np.int64)], 1),
+            "input_mask": np.zeros((B, off + b), np.int64),
+            "ori_input_ids": np.full((B, b), pad, np.int64),
+            "ori_input_mask": np.zeros((B, b), np.int64),
+            "ori_segment_ids": np.zeros((B, b), np.int64),
+            "img_mask": np.ones((B, cfg.num_regions), np.int64),
+            "output_mask": np.zeros((B, b), np.int64),
+        }
+
+    def _features(self, examples, rows, key, shape):
+        return torch.stack([
+            torch.as_tensor(examples[i][key]).to(
+                self.device, torch.float32).reshape(shape) for i in rows])
+
+    def batches(self, examples: Sequence[dict]):
+        """Yields (bucket, chunk, lens, batch): `chunk` the example indices
+        of one device batch, `lens` their (possibly truncated) lengths, and
+        `batch` the padded tensors on the device, rows padded by repeating
+        `chunk[0]`."""
+        off = self.offset
+        order: dict[int, list[int]] = {b: [] for b in self.buckets}
+        for i, ex in enumerate(examples):
+            L = min(len(ex["ori_input_ids"]), self.buckets[-1])
+            order[pick_bucket(L, self.buckets)].append(i)
+        for b, idxs in order.items():
+            for lo in range(0, len(idxs), self.max_batch):
+                chunk = idxs[lo:lo + self.max_batch]
+                rows = chunk + [chunk[0]] * (self.max_batch - len(chunk))
+                batch = self._empty_batch(b)
+                lens = []
+                for r, i in enumerate(rows):
+                    ex = examples[i]
+                    L = min(len(ex["ori_input_ids"]), b)
+                    lens.append(L)
+                    batch["ori_input_ids"][r, :L] = np.asarray(
+                        ex["ori_input_ids"][:L])
+                    batch["ori_input_mask"][r, :L] = 1
+                    batch["output_mask"][r, :L] = 1
+                    if "ori_segment_ids" in ex:
+                        batch["ori_segment_ids"][r, :L] = np.asarray(
+                            ex["ori_segment_ids"][:L])
+                    pl = min(len(ex["input_ids"]), off + L)
+                    batch["input_ids"][r, :pl] = np.asarray(
+                        ex["input_ids"][:pl])
+                    batch["input_mask"][r, :pl] = 1
+                    if "img_mask" in ex:
+                        batch["img_mask"][r] = np.asarray(ex["img_mask"])
+                batch = {k: torch.from_numpy(v).to(self.device)
+                         for k, v in batch.items()}
+                batch["clip_features"] = self._features(
+                    examples, rows, "clip_features", (1, -1))
+                batch["visual_mean"] = self._features(
+                    examples, rows, "visual_mean", (-1,))
+                batch["visual_grid"] = self._features(
+                    examples, rows, "visual_grid", (7, 7, -1))
+                yield b, chunk, lens, batch
+
+    def predict(self, examples: Sequence[dict]):
+        """Returns (tags, stats): ``tags[i]`` is a 1-D int32 numpy array of
+        decoded labels at the example's true (possibly truncated) length."""
+        results: list = [None] * len(examples)
+        pairs: dict[int, int] = {}
+        batches: dict[int, int] = {}
+        with torch.inference_mode():
+            for b, chunk, lens, batch in self.batches(examples):
+                tags = self.model(batch, self.mask_positions, self.offset,
+                                  mode="test").cpu().numpy()
+                pairs[b] = pairs.get(b, 0) + len(chunk)
+                batches[b] = batches.get(b, 0) + 1
+                for r, i in enumerate(chunk):
+                    results[i] = tags[r, :lens[r]].astype(np.int32)
+        return results, ServingStats(pairs, batches)
+
+
+def sample_tweet_lengths(n: int, rng: np.random.Generator,
+                         max_len: int = 128,
+                         median: float = 22.0) -> np.ndarray:
+    """Synthetic stand-in for the Twitter-2015 subtoken-length distribution:
+    a clipped lognormal with p50 about 22 and p95 about 52 (published tweet
+    statistics after byte-level BPE plus <s>/</s>). The distribution is
+    assumed, not measured; `median` shifts its location."""
+    lens = np.exp(rng.normal(np.log(median), 0.45, n)) + 2
+    return np.clip(lens.astype(np.int64), 5, max_len)
