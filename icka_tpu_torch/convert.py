@@ -12,6 +12,11 @@ parameters with the flax names, so a flax path joined with "." is a
 LayerNorm `scale`/`bias`, embedding tables, BiLSTM `w_ih_*`/`w_hh_*` (torch
 layout already) and CRF transitions pass through unchanged. Load the result
 with `load_state_dict(..., strict=True)`: a missing or extra name fails.
+
+The int8-static backbone tree (`wq` int8 (k*k*Cin, F) tap major, `w_scale`,
+`fused_bias`, 0-d `act_scale` and `out_scale`, no `batch_stats`) goes
+through `backbone_static_state_dict`, which keeps int8 as int8; the port
+stores these leaves in the same layout, as buffers.
 """
 
 from __future__ import annotations
@@ -61,3 +66,22 @@ def backbone_state_dict(variables: Mapping) -> dict:
     sd = state_dict_from_flax(variables["params"])
     sd.update(state_dict_from_flax(variables["batch_stats"]))
     return sd
+
+
+def backbone_static_state_dict(variables: Mapping) -> dict:
+    """`VisualBackbone(quant="int8_static")` variables {"params"} -> the
+    static `VisualBackbone` state_dict: int8 weights stay int8, every other
+    leaf is float32, shapes unchanged (0-d scales stay 0-d)."""
+    if variables.get("batch_stats"):
+        raise ValueError("the int8-static backbone has no batch_stats: they "
+                         "are folded into wq and fused_bias")
+    return {k: torch.from_numpy(np.array(
+        v, np.int8 if v.dtype == np.int8 else np.float32))
+        for k, v in _flatten(variables["params"]).items()}
+
+
+def calib_from_flax(calib: Mapping) -> dict:
+    """The JAX package's "calib" collection ({... {"amax": x}}) -> the
+    port's calibration record {ConvBN path: x}."""
+    return {k[:-len(".amax")]: np.float32(v)
+            for k, v in _flatten(calib).items() if k.endswith(".amax")}

@@ -52,7 +52,8 @@ class EncoderConfig:
     # route self-attention through the fused attention kernel
     # (`icka_tpu_torch.kernels.attention`) instead of the plain core
     use_pallas: bool = False
-    # "none" only in this package so far; the int8 modes are not ported
+    # "none" only in this package so far: the encoders' int8 modes are not
+    # ported (the visual backbone's are arguments of `VisualBackbone`)
     quant: str = "none"
     # training-only in the JAX package (activation rematerialisation);
     # inference here ignores both

@@ -1,0 +1,182 @@
+"""The port's tests that need an NVIDIA GPU: each int8 conv kernel against
+its plain version, bit-equal, and the fused int8-static backbone against the
+same backbone on the plain versions.
+
+This file imports only torch and the port, so it also runs on a machine that
+has a card but not the JAX package's dependencies:
+
+    python -m pytest tests/test_torch_on_card.py -q
+
+Every test carries the `cuda` marker and skips without a card.
+"""
+
+import pytest
+import torch
+
+from icka_tpu_torch.kernels import conv as tconv
+from icka_tpu_torch.models.convert import (calibration_amax,
+                                           static_quantize_backbone)
+from icka_tpu_torch.models.resnet import VisualBackbone
+
+pytestmark = pytest.mark.cuda
+
+LAYERS = (3, 2)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _int8(gen, *shape):
+    return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int32) \
+        .to(torch.int8)
+
+
+def _scales(gen, n):
+    return torch.rand(n, generator=gen) * 9e-4 + 1e-4
+
+
+def _conv3_case(gen, B, H, W, C, F):
+    return [_int8(gen, B, H + 2, W + 2, C), _int8(gen, 9 * C, F),
+            _scales(gen, F), torch.randn(F, generator=gen),
+            torch.randn(B, H, W, F, generator=gen)]
+
+
+def _bottleneck_case(gen, B, H, W, Cw):
+    Cin = 4 * Cw
+    return [_int8(gen, B, H, W, Cin), _int8(gen, Cin, Cw),
+            _int8(gen, 9 * Cw, Cw), _int8(gen, Cw, Cin),
+            _scales(gen, Cw), torch.randn(Cw, generator=gen),
+            _scales(gen, Cw), torch.randn(Cw, generator=gen),
+            _scales(gen, Cin), torch.randn(Cin, generator=gen)]
+
+
+def _stem_case(gen, B, OB, F=64, K=432):
+    return [_int8(gen, B, OB, OB, K), _int8(gen, K, 4 * F),
+            _scales(gen, 4 * F), torch.randn(4 * F, generator=gen) * 0.5]
+
+
+def _held(wrapper, plain, args, dev, **kw):
+    """One launch of `wrapper` on the card, bit-equal to `plain`."""
+    args = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+    before = wrapper.launches
+    got = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = plain(*args, **kw)
+    assert got.dtype == want.dtype and got.is_cuda
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", [
+    dict(), dict(relu=False), dict(out_scale=0.05),
+    dict(out_scale=0.031, relu=False), dict(out_dtype=torch.float32)])
+@pytest.mark.parametrize("residual", [None, torch.float32, torch.bfloat16])
+def test_int8_conv3x3_equals_plain_version(cuda_device, residual, mode):
+    """Ragged tiles: 2*6*5 pixels and 48 channels fill no tile exactly."""
+    gen = torch.Generator().manual_seed(0)
+    *args, res = _conv3_case(gen, B=2, H=6, W=5, C=16, F=48)
+    res = None if residual is None else res.to(residual)
+    _held(tconv.int8_conv3x3, tconv.conv3x3_reference, args + [res],
+          cuda_device, **mode)
+
+
+@pytest.mark.parametrize("padded_io", [False, True])
+@pytest.mark.parametrize("out_bf16", [False, True])
+def test_int8_bottleneck_v2_equals_plain_version(cuda_device, out_bf16,
+                                                 padded_io):
+    gen = torch.Generator().manual_seed(1)
+    args = _bottleneck_case(gen, B=4, H=8, W=8, Cw=16)
+    rs = torch.tensor([0.37])
+    if not padded_io:
+        _held(tconv.int8_bottleneck_v2, tconv.bottleneck_v2_reference,
+              args + [rs], cuda_device, out_bf16=out_bf16)
+        return
+    dev = cuda_device
+    want = tconv.bottleneck_v2_reference(*(a.to(dev) for a in args),
+                                         rs.to(dev), out_bf16)
+    xp = _int8(gen, 4, 10, 32, 64)                  # arbitrary borders
+    xp[:, 1:9, 1:9] = args[0]
+    got = tconv.int8_bottleneck_v2(xp.to(dev), *(a.to(dev) for a in args[1:]),
+                                   rs.to(dev), out_bf16, g=2, padded_io=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 1:9, 1:9], want)
+    got[:, 1:9, 1:9] = 0
+    assert not got.any()
+
+
+@pytest.mark.parametrize("out_bf16", [False, True])
+def test_int8_bottleneck_equals_plain_version(cuda_device, out_bf16):
+    """res_scale a Python float, a non-square grid."""
+    gen = torch.Generator().manual_seed(2)
+    args = _bottleneck_case(gen, B=2, H=6, W=8, Cw=16)
+    _held(tconv.int8_bottleneck, tconv.bottleneck_reference, args + [0.37],
+          cuda_device, out_bf16=out_bf16)
+
+
+@pytest.mark.parametrize("OB", [8, 20])
+def test_int8_stem_pool_equals_plain_version(cuda_device, OB):
+    """8: one ragged tile; 20: ragged tiles in both axes with halos."""
+    gen = torch.Generator().manual_seed(3)
+    _held(tconv.int8_stem_pool, tconv.stem_pool_reference,
+          _stem_case(gen, 3, OB), cuda_device)
+
+
+def test_kernels_refuse_what_they_cannot_take(cuda_device):
+    """A CUDA tensor launches the kernel or raises: no silent plain path."""
+    gen = torch.Generator().manual_seed(4)
+    args = [a.to(cuda_device)
+            for a in _conv3_case(gen, B=1, H=4, W=4, C=8, F=32)[:4]]
+    before = tconv.int8_conv3x3.launches
+    with pytest.raises(ValueError, match="C % 16"):
+        tconv.int8_conv3x3(*args)
+    with pytest.raises(ValueError, match="several devices"):
+        tconv.int8_conv3x3(args[0].cpu(), *args[1:])
+    assert tconv.int8_conv3x3.launches == before
+
+
+def fused_backbones(dev, seed=0):
+    """The port's own flow at a small depth: a float backbone, calibrated in
+    the dynamic int8 mode, quantised offline, loaded into the fused backbone
+    on the kernel wrappers and on their plain versions. Returns both models
+    and the images."""
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(4, 32, 32, 3, generator=gen) * 0.5).to(dev).bfloat16()
+    fp32_sd = VisualBackbone(LAYERS, att_size=2, device=dev,
+                             seed=seed).state_dict()
+    dyn = VisualBackbone(LAYERS, att_size=2, dtype=torch.bfloat16,
+                         quant="int8", device=dev).eval()
+    dyn.load_state_dict(fp32_sd, strict=True)
+    with torch.no_grad():
+        dyn(x)
+    models = [VisualBackbone(LAYERS, att_size=2, dtype=torch.bfloat16,
+                             quant="int8_static", fused_pallas=True,
+                             plain_kernels=plain, device=dev).eval()
+              for plain in (False, True)]
+    sd = static_quantize_backbone(models[0].state_dict().keys(), fp32_sd,
+                                  calibration_amax(dyn))
+    for m in models:
+        m.load_state_dict(sd, strict=True)
+    return models, x
+
+
+def test_fused_backbone_equals_the_backbone_on_plain_versions(cuda_device):
+    """K5 once and K4 once per identity block, and a bit-identical att."""
+    models, x = fused_backbones(cuda_device)
+    outs = []
+    for m, want in zip(models, ((1, 3), (0, 0))):
+        before = (tconv.int8_stem_pool.launches,
+                  tconv.int8_bottleneck_v2.launches)
+        with torch.no_grad():
+            outs.append(m(x)[2])
+        torch.cuda.synchronize()
+        after = (tconv.int8_stem_pool.launches,
+                 tconv.int8_bottleneck_v2.launches)
+        assert (after[0] - before[0], after[1] - before[1]) == want
+    assert outs[0].dtype == torch.bfloat16
+    assert tuple(outs[0].shape) == (4, 2, 2, 512)
+    assert outs[0].float().std() > 0
+    assert torch.equal(*outs)
