@@ -10,8 +10,11 @@ Phases; any failure exits non-zero:
      limit as nvidia-smi gives them;
   2. hold every kernel against its plain PyTorch version on the card at the
      main paths' shapes: K1 `fused_attention` in fp32 (TF32 off) and bf16
-     within a tolerance; K3-K6, the int8 conv kernels, bit-equal at the four
-     ResNet stage shapes in every output mode;
+     within a tolerance, at every head width it is built for; K2
+     `fused_attention_blockwise` against its plain version and against K1
+     over ragged and long shapes, three bias forms, three tilings and a -inf
+     key tile; K3-K6, the int8 conv kernels, bit-equal at the four ResNet
+     stage shapes in every output mode;
   3. serve requests through the flagship at full width (two 24-layer
      RoBERTa-large stacks, ResNet-152, random weights from `--seed`):
      uint8 images -> preprocess_images -> VisualBackbone ->
@@ -24,7 +27,11 @@ Phases; any failure exits non-zero:
      and K4 46 times per backbone call) in front of phase 3's bf16 flagship;
      the same backbone on the kernels' plain versions must give a
      bit-identical `att`, and the fused stem the unfused stem's output;
-  5. time each kernel at its main-path shape beside its plain version, the
+  5. serve the requests of phase 3 sequence-packed
+     (`PackedICKAServer`, `masked_lstm=True`, phase 3's weights): K1 runs 48
+     times per device batch on block-diagonal (B, 1, L, L) masks; tags must
+     agree with the plain-core packed path and with the bucketed server;
+  6. time each kernel at its main-path shape beside its plain version, the
      PyTorch library call for the same function where there is one, and its
      bound; time the served requests end to end.
 
@@ -37,6 +44,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -50,7 +58,9 @@ from icka_tpu_torch.core.device import strict_fp32
 from icka_tpu_torch.data.images import preprocess_images
 from icka_tpu_torch.kernels import build
 from icka_tpu_torch.kernels import conv as kconv
-from icka_tpu_torch.kernels.attention import attention_reference, fused_attention
+from icka_tpu_torch.kernels.attention import (
+    HEAD_DIMS, attention_blockwise_reference, attention_reference,
+    blockwise_tiles, fused_attention, fused_attention_blockwise)
 from icka_tpu_torch.models.convert import (calibration_amax,
                                            static_quantize_backbone)
 from icka_tpu_torch.models.icka import ICKAModel
@@ -58,16 +68,30 @@ from icka_tpu_torch.models.resnet import (Bottleneck, ConvBN, StemPoolS2D,
                                           VisualBackbone)
 from icka_tpu_torch.serving.bucketed import (BucketedICKAServer,
                                              sample_tweet_lengths)
+from icka_tpu_torch.serving.packing import PackedICKAServer
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_INT8_OPS = 1979e12           # int8 tensor cores, dense
-# K1 against its plain version: fp32 differs only in summation order
-# (tests/test_kernels.py holds the TPU kernel to the same 2e-5); bf16
-# outputs are rounded to bf16 (an ulp is 1.6e-2 at 2-4) and probabilities
-# are rounded to bf16 before P.V (tests/test_kernels.py: 6e-2)
-K1_TOL = {torch.float32: 2e-5, torch.bfloat16: 6e-2}
+# An attention kernel against its plain version, and K2 against K1. fp32
+# differs only in summation order (tests/test_kernels.py holds the TPU
+# kernel to the same 2e-5). bf16 outputs are rounded to bf16 and the
+# probabilities are rounded to bf16 before P.V (K2 rounds exp(s - m_running)
+# where K1's plain version rounds the normalised probability), so two right
+# results differ by a few bf16 steps of each output, and the outputs shrink
+# with the number of keys (randn inputs: about sqrt(e / Sk)). So the bf16
+# bound is taken from the data, element by element: BF16_STEPS steps of
+# bf16 at the value's own size (a step is 2^-7 of its power of two), no
+# finer than at the rms of all values, where the rounded probabilities'
+# noise takes over; and the rms of the difference stays below BF16_REL_RMS
+# of the values' rms (two results that each round once differ by 0.003).
+FP32_TOL = 2e-5
+BF16_STEPS = 6
+BF16_REL_RMS = 1e-2
+K2_SOURCE = "icka_tpu_torch/kernels/csrc/blockwise_attention.cu"
+K2_TILINGS = ((32, 32), (16, 128), (128, 128))
+PACKED_TIERS = ((48, 2), (128, 2))
 # full-width emissions, kernel vs plain core in fp32: summation order differs
 # in every self-attention of 48 layers, each product summing 64 terms and
 # each softmax up to 150; LayerNorm keeps the error from compounding
@@ -112,6 +136,48 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def attention_close(out, want, what: str):
+    """Hold `out` to `want` (see FP32_TOL); returns (max_abs_err, the
+    largest share of its bound that any element's error takes)."""
+    diff = (out.float() - want.float()).abs()
+    err = diff.max().item()
+    if want.dtype == torch.float32:
+        check(err <= FP32_TOL, f"{what}: max_abs_err {err} > {FP32_TOL}")
+        return err, err / FP32_TOL
+    size = want.float().abs()
+    rms = size.square().mean().sqrt()
+    step = torch.exp2(torch.floor(torch.log2(torch.maximum(size, rms))) - 7)
+    share = (diff / (BF16_STEPS * step)).max().item()
+    check(share <= 1.0, f"{what}: an element is {share * BF16_STEPS:.2f} bf16 "
+                        f"steps off > {BF16_STEPS} (max_abs_err {err})")
+    rel = (diff.square().mean().sqrt() / rms).item()
+    check(rel <= BF16_REL_RMS, f"{what}: rms of the difference is {rel} of "
+                               f"the values' rms > {BF16_REL_RMS}")
+    return err, share
+
+
+# every kernel's wrapper, by the name of its row in the `kernels` line
+COUNTERS = {
+    "fused_attention": fused_attention,
+    "fused_attention_blockwise": fused_attention_blockwise,
+    "int8_conv3x3": kconv.int8_conv3x3,
+    "int8_bottleneck_v2": kconv.int8_bottleneck_v2,
+    "int8_stem_pool": kconv.int8_stem_pool,
+    "int8_bottleneck": kconv.int8_bottleneck,
+}
+# kernels that no model calls, here as in the JAX package
+NO_CALLER = ("fused_attention_blockwise", "int8_conv3x3", "int8_bottleneck")
+
+
+def zero_counts():
+    for wrapper in COUNTERS.values():
+        wrapper.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: wrapper.launches for name, wrapper in COUNTERS.items()}
+
+
 def attention_inputs(B, Sq, Sk, dtype, bias_kind, gen, N=16, hd=64,
                      masked_tail=5):
     dev = "cuda"
@@ -125,10 +191,36 @@ def attention_inputs(B, Sq, Sk, dtype, bias_kind, gen, N=16, hd=64,
         bias = key_bias[:, None, None, :]
     elif bias_kind == "BSk":
         bias = key_bias
+    elif bias_kind == "packed":
+        # block-diagonal by slot, as `forward_packed` builds it: three
+        # segments of a row and a padding tail that sees only itself
+        def slots(S):
+            return torch.arange(S, device=dev) * 7 // (2 * S)
+        pair = slots(Sq)[None, :, None] == slots(Sk)[None, None, :]
+        bias = ((~pair) * -10000.0).expand(B, Sq, Sk)[:, None]
     else:
         bias = (torch.randn(B, Sq, Sk, device=dev, generator=gen)
                 + key_bias[:, None, :])
     return q, k, v, bias
+
+
+def ptxas_rows(log: str):
+    """(kernel, registers, static shared bytes, spill bytes) of every entry
+    function in nvcc's `-Xptxas -v` output. A kernel is named by its element
+    type and the integers of its template arguments."""
+    rows, name, spill = [], "", 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = (("bf16" if "bfloat16" in mangled else "fp32") + " <"
+                    + ",".join(re.findall(r"Li(\d+)E", mangled)) + ">")
+        elif "spill stores" in line:
+            spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((name, regs, int(smem.group(1)) if smem else 0, spill))
+    return rows
 
 
 def phase_build():
@@ -137,9 +229,14 @@ def phase_build():
     print(f"# phase 1: built {list(build.SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name in build.SOURCES:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"#   {name}: {line.strip()}")
+        rows = ptxas_rows(build.build_log(name))
+        print(f"#   {name}: {len(rows)} kernels, at most "
+              f"{max(r[1] for r in rows)} registers, "
+              f"{sum(r[3] for r in rows)} bytes of spills in all")
+        if name == "blockwise_attention":
+            for what, regs, smem, spill in rows:
+                print(f"#     {what}: {regs} registers, {smem} bytes static "
+                      f"smem, {spill} bytes spilled")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -150,24 +247,126 @@ def phase_build():
     return card
 
 
+BIAS_KINDS = ("B11Sk", "BSk", "BSqSk")
+
+
 def phase_kernel_vs_plain(gen):
     print("# phase 2: K1 fused_attention vs attention_reference "
           "(B=8, 16 heads x 64)")
     for dtype in (torch.float32, torch.bfloat16):
-        for Sq, Sk in ((23, 23), (150, 150), (150, 23)):
-            for kind in ("B11Sk", "BSk", "BSqSk"):
+        # 92 and 172: the packed server's layout-B rows, block-diagonal
+        for Sq, Sk, kinds in (
+                (23, 23, BIAS_KINDS), (150, 150, BIAS_KINDS),
+                (150, 23, BIAS_KINDS), (92, 92, ("packed",)),
+                (172, 172, ("packed",))):
+            for kind in kinds:
                 q, k, v, bias = attention_inputs(8, Sq, Sk, dtype, kind, gen)
                 out = fused_attention(q, k, v, bias, 16)
                 torch.cuda.synchronize()
                 want = attention_reference(q, k, v, bias, 16)
                 check(out.dtype == dtype and out.shape == q.shape,
                       f"K1 output {out.dtype} {tuple(out.shape)}")
-                err = (out.float() - want.float()).abs().max().item()
-                tol = K1_TOL[dtype]
+                err, share = attention_close(
+                    out, want, f"K1 {dtype} Sq={Sq} Sk={Sk} {kind}")
                 print(f"#   {str(dtype)[6:]:8s} Sq={Sq:3d} Sk={Sk:3d} "
-                      f"bias={kind:6s} max_abs_err={err:.3e} tol={tol:.0e}")
-                check(err <= tol, f"K1 {dtype} Sq={Sq} Sk={Sk} {kind}: "
-                                  f"{err} > {tol}")
+                      f"bias={kind:6s} max_abs_err={err:.3e} "
+                      f"({share:.2f} of its bound)")
+
+
+def max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def phase_k1_head_widths(gen):
+    """K1 at every head width it has an instance for, beside the main
+    path's 64 (the JAX package's tests run 16 and 32)."""
+    print("# phase 2: K1 at head widths "
+          f"{[w for w in HEAD_DIMS if w != 64]} (B=8, 16 heads)")
+    for hd in (w for w in HEAD_DIMS if w != 64):
+        worst = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for Sq, Sk in ((23, 23), (150, 150), (150, 23)):
+                for kind in BIAS_KINDS:
+                    q, k, v, bias = attention_inputs(8, Sq, Sk, dtype, kind,
+                                                     gen, hd=hd)
+                    out = fused_attention(q, k, v, bias, 16)
+                    torch.cuda.synchronize()
+                    want = attention_reference(q, k, v, bias, 16)
+                    err, share = attention_close(
+                        out, want, f"K1 head_dim={hd} {dtype} Sq={Sq} "
+                                   f"Sk={Sk} {kind}")
+                    worst[dtype] = max(worst.get(dtype, (0.0, 0.0)),
+                                       (share, err))
+        print(f"#   head_dim {hd:3d}: 9 cases per type, the case nearest its "
+              f"bound: fp32 max_abs_err {worst[torch.float32][1]:.3e} "
+              f"({worst[torch.float32][0]:.2f} of it), bf16 "
+              f"{worst[torch.bfloat16][1]:.3e} "
+              f"({worst[torch.bfloat16][0]:.2f} of it)")
+
+
+def phase_blockwise_vs_plain(gen):
+    """K2 against its plain version and against K1 on the same inputs."""
+    print("# phase 2: K2 fused_attention_blockwise vs "
+          "attention_blockwise_reference and vs K1 (B=8, 16 heads; bias "
+          f"forms key 4-D, key 2-D, full block-diagonal; tilings "
+          f"{K2_TILINGS})")
+    shapes = ((23, 23), (150, 150), (172, 172), (512, 512), (1024, 1024),
+              (48, 256), (150, 23))
+    n = 0
+    for hd in (64, 16, 32):
+        for dtype in (torch.float32, torch.bfloat16):
+            for Sq, Sk in shapes:
+                worst, shares = [0.0, 0.0], [0.0, 0.0]
+                for i, kind in enumerate(("B11Sk", "BSk", "packed")):
+                    q, k, v, bias = attention_inputs(8, Sq, Sk, dtype, kind,
+                                                     gen, hd=hd)
+                    k1 = fused_attention(q, k, v, bias, 16)
+                    # every tiling at the main width, one in turn elsewhere
+                    tilings = (K2_TILINGS if hd == 64 else
+                               (K2_TILINGS[(i + n) % len(K2_TILINGS)],))
+                    for blocks in tilings:
+                        out = fused_attention_blockwise(q, k, v, bias, 16,
+                                                        *blocks)
+                        torch.cuda.synchronize()
+                        check(out.dtype == dtype and out.shape == q.shape,
+                              f"K2 output {out.dtype} {tuple(out.shape)}")
+                        want = attention_blockwise_reference(
+                            q, k, v, bias, 16, *blocks)
+                        what = (f"K2 {dtype} head_dim={hd} Sq={Sq} Sk={Sk} "
+                                f"{kind} tiling {blocks}")
+                        for j, (ref, name) in enumerate((
+                                (want, "the plain version"), (k1, "K1"))):
+                            err, share = attention_close(
+                                out, ref, f"{what} against {name}")
+                            worst[j] = max(worst[j], err)
+                            shares[j] = max(shares[j], share)
+                        n += 1
+                print(f"#   {str(dtype)[6:]:8s} head_dim={hd:2d} Sq={Sq:4d} "
+                      f"Sk={Sk:4d} max_abs_err vs plain {worst[0]:.3e} "
+                      f"({shares[0]:.2f} of its bound) vs K1 {worst[1]:.3e} "
+                      f"({shares[1]:.2f})")
+    # a caller's -inf over the first whole key tile of every second row
+    q, k, v, _ = attention_inputs(8, 150, 300, torch.float32, "BSk", gen)
+    bias = torch.zeros(8, 150, 300, device="cuda")
+    bias[:, ::2, :128] = float("-inf")
+    for blocks in K2_TILINGS:
+        out = fused_attention_blockwise(q, k, v, bias, 16, *blocks)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()),
+              f"K2 -inf key tile, tiling {blocks}: non-finite output")
+        errs = (max_err(out, attention_blockwise_reference(q, k, v, bias, 16,
+                                                           *blocks)),
+                max_err(out, attention_reference(q, k, v, bias, 16)))
+        check(max(errs) <= 2e-5, f"K2 -inf key tile, tiling {blocks}: {errs}")
+        n += 1
+    k1 = fused_attention(q, k, v, bias, 16)
+    torch.cuda.synchronize()
+    err = max_err(k1, attention_reference(q, k, v, bias, 16))
+    check(bool(torch.isfinite(k1).all()) and err <= 2e-5,
+          f"K1 -inf key tiles: max_abs_err {err}")
+    print(f"#   -inf over the first 128 keys of every second row: K2 and K1 "
+          f"finite, within 2e-5 of their plain versions and of the one-shot "
+          f"softmax; {n} K2 comparisons in all")
 
 
 def _int8(gen, *shape, lo=-127):
@@ -428,13 +627,14 @@ def phase_slice(args, card, dev, base, resnet_layers):
                  "kernel_bf16": backbone16}
     runs = {}
     for name in ("kernel", "plain", "kernel_bf16"):
-        fused_attention.launches = 0
+        zero_counts()
         tags, stats, examples, _ = serve(servers[name], backbones[name],
                                          texts, images)
-        launches = fused_attention.launches
+        counts = read_counts()
+        launches = counts["fused_attention"]
         n_batches = sum(stats.batches_per_bucket.values())
         runs[name] = dict(tags=tags, stats=stats, examples=examples,
-                          launches=launches, batches=n_batches)
+                          launches=launches, batches=n_batches, counts=counts)
         print(f"#   {name}: pairs per bucket {stats.pairs_per_bucket}, "
               f"{n_batches} device batches, K1 launches {launches}")
         check(stats.total_pairs == len(texts), f"{name}: pairs lost")
@@ -495,11 +695,97 @@ def phase_slice(args, card, dev, base, resnet_layers):
         for key, ms, calls in rows:
             print(f"#     {ms:9.3f} ms {calls:6d}x {key[:90]}")
     ctx = dict(texts=texts, images=images, backbone=backbone,
+               cfgs=cfgs, weights=model.state_dict(),
                backbone_bf16=backbone16, server_bf16=servers["kernel_bf16"],
                tags_bf16=runs["kernel_bf16"]["tags"],
                max_seq_length=base.max_seq_length,
                num_labels=base.num_labels)
-    return runs["kernel"]["launches"], pairs_per_s, ctx
+    return runs["kernel"]["counts"], pairs_per_s, ctx
+
+
+def phase_packed(args, card, dev, ctx):
+    """Sequence-packed serving of phase 3's requests on phase 3's weights.
+    Returns every kernel's launch count over the fp32 kernel-path run."""
+    print(f"# phase 5: packed flagship serving at full width (PackedICKAServer"
+          f", tiers {PACKED_TIERS}, max_batch {MAX_BATCH}, masked_lstm=True)")
+    texts, images = ctx["texts"], ctx["images"]
+
+    def model_for(pallas, dtype=torch.float32):
+        cfg = dataclasses.replace(ctx["cfgs"][pallas], masked_lstm=True)
+        m = ICKAModel(cfg, dtype=dtype, device=dev, seed=args.seed).eval()
+        m.load_state_dict(ctx["weights"], assign=True)
+        return m
+
+    models = {"kernel": model_for(True), "plain": model_for(False),
+              "kernel_bf16": model_for(True, torch.bfloat16)}
+    backbones = {"kernel": ctx["backbone"], "plain": ctx["backbone"],
+                 "kernel_bf16": ctx["backbone_bf16"]}
+    kw = dict(mask_positions=MASK_POSITIONS, offset=OFFSET,
+              max_batch=MAX_BATCH, device=dev)
+    packed = {name: PackedICKAServer(m, tiers=PACKED_TIERS, **kw)
+              for name, m in models.items()}
+    bucketed = BucketedICKAServer(models["kernel"], **kw)
+    cfg = models["kernel"].cfg
+    for L, S in PACKED_TIERS:
+        print(f"#   tier ({L}, {S}): layout A {L} tokens, layout B "
+              f"{L + S * (OFFSET - 2 + 2 * cfg.prompt_len)} tokens")
+    packed["kernel"].warmup()
+
+    runs = {}
+    for name, server in packed.items():
+        zero_counts()
+        tags, stats, _, _ = serve(server, backbones[name], texts, images)
+        counts = read_counts()
+        runs[name] = dict(tags=tags, stats=stats, counts=counts,
+                          launches=counts["fused_attention"])
+        print(f"#   {name}: {stats}, K1 launches {runs[name]['launches']}")
+        check(stats.pairs == len(texts) and stats.batches >= 2,
+              f"{name}: {stats}")
+        for t, tx in zip(tags, texts):
+            check(t is not None
+                  and len(t) == min(len(tx["ori_input_ids"]),
+                                    PACKED_TIERS[-1][0])
+                  and t.min() >= 0 and t.max() < cfg.num_labels,
+                  f"packed {name}: bad tags {t}")
+    for name in ("kernel", "kernel_bf16"):
+        check(runs[name]["launches"]
+              == LAYERS_PER_BATCH * runs[name]["stats"].batches,
+              f"packed {name}: K1 launched {runs[name]['launches']} times "
+              f"for {runs[name]['stats'].batches} batches")
+    check(runs["plain"]["launches"] == 0, "packed plain path launched K1")
+    bucket_tags, _, _, _ = serve(bucketed, ctx["backbone"], texts, images)
+    agree = agreement(runs["kernel"]["tags"], runs["plain"]["tags"])
+    agree_b = agreement(runs["kernel"]["tags"], bucket_tags)
+    agree16 = agreement(runs["kernel_bf16"]["tags"], runs["kernel"]["tags"])
+    print(f"#   tag agreement packed kernel path vs packed plain-core path "
+          f"(fp32): {agree:.6f}; packed vs bucketed server, same model "
+          f"(fp32): {agree_b:.6f}; packed bf16 vs packed fp32: "
+          f"{agree16:.6f} (random weights)")
+    check(agree >= 0.99, f"packed kernel vs plain tag agreement {agree}")
+    check(agree_b >= 0.99, f"packed vs bucketed tag agreement {agree_b}")
+
+    # smoke figures: 16 requests, not a benchmark
+    for name, server, backbone in (
+            ("packed fp32", packed["kernel"], ctx["backbone"]),
+            ("bucketed fp32 (masked_lstm)", bucketed, ctx["backbone"]),
+            ("packed bf16", packed["kernel_bf16"], ctx["backbone_bf16"])):
+        run = lambda: serve(server, backbone, texts, images)
+        best = min((run()[3] for _ in range(3)), key=sum)
+        print(f"#   {name}: {len(texts) / sum(best):.2f} pairs/s end to end, "
+              f"a smoke figure ({len(texts)} requests, best of 3: visual "
+              f"{best[0] * 1e3:.1f} ms + predict {best[1] * 1e3:.1f} ms) on "
+              f"{card}")
+        try:
+            busy, rows = device_profile(run)
+        except Exception as e:   # the profiler is a report, not a check
+            print(f"#   {name}: device profile not measured ({e!r})")
+            continue
+        print(f"#   {name}: device busy {busy * 1e3:.1f} ms of "
+              f"{sum(best) * 1e3:.1f} ms wall ({busy / sum(best):.3f}); top "
+              f"kernels by device time, then K1 (profiled run):")
+        for key, ms, calls in rows:
+            print(f"#     {ms:9.3f} ms {calls:6d}x {key[:90]}")
+    return runs["kernel"]["counts"]
 
 
 def cosine(a, b):
@@ -536,7 +822,7 @@ def visual_ms(backbone, images, dev, repeats=3):
 
 def phase_int8_visual(args, card, dev, ctx, resnet_layers):
     """The int8-static visual half in front of phase 3's bf16 flagship.
-    Returns the launch counts of K5 and K4 over the main-path run."""
+    Returns every kernel's launch count over the main-path run."""
     print("# phase 4: int8-static ResNet serving (quant=int8_static, bf16, "
           "fused_pallas=True)")
     texts, images, float_backbone = (ctx["texts"], ctx["images"],
@@ -571,12 +857,11 @@ def phase_int8_visual(args, card, dev, ctx, resnet_layers):
           f"{time.perf_counter() - t0:.1f} s")
 
     server = ctx["server_bf16"]
-    counters = (kconv.int8_stem_pool, kconv.int8_bottleneck_v2,
-                fused_attention)
-    for c in counters:
-        c.launches = 0
+    zero_counts()
     tags, stats, _, _ = serve(server, models["fused"], texts, images)
-    k5, k4, k1 = (c.launches for c in counters)
+    counts = read_counts()
+    k5, k4, k1 = (counts[name] for name in (
+        "int8_stem_pool", "int8_bottleneck_v2", "fused_attention"))
     n_batches = sum(stats.batches_per_bucket.values())
     print(f"#   fused: K5 launches {k5}, K4 launches {k4} (one backbone "
           f"call, {identity_blocks} identity blocks), K1 launches {k1} in "
@@ -657,42 +942,130 @@ def phase_int8_visual(args, card, dev, ctx, resnet_layers):
             print(f"#     {ms:9.3f} ms {calls:6d}x {key[:90]}")
     except Exception as e:       # the profiler is a report, not a check
         print(f"#   int8 visual device profile not measured ({e!r})")
-    return {"int8_stem_pool": k5, "int8_bottleneck_v2": k4}
+    return counts
 
 
-def phase_times(gen, launches):
+def attention_bound(q, k, bias, N):
+    """(bound ms, "bytes" | "operations", bytes, flops): Q, K, V and the
+    bias read once, O written once, over the memory rate; the two products
+    over the tensor-core peak of the type."""
+    B, Sq, D = q.shape
+    Sk = k.shape[1]
+    byts = (2 * B * Sq * D + 2 * B * Sk * D) * q.element_size() \
+        + bias.numel() * 4
+    flops = 4 * B * Sq * Sk * D
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            byts, flops)
+
+
+def sdpa_ms(q, k, v, bias, N, iters):
+    B, Sq, D = q.shape
+    q4, k4, v4 = (t.view(B, t.shape[1], N, D // N).transpose(1, 2)
+                  for t in (q, k, v))
+    mask = bias.to(q.dtype)
+    return cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask), iters=iters)
+
+
+def phase_blockwise_times(gen, k1_row, launches):
+    """K2 beside K1, its plain version, SDPA and its bound; fills K1's
+    full-bias time at the packed layout-B shape. `launches` is K2's count
+    over the serving runs. Returns K2's row."""
+    B, N, hd, dtype = 128, 16, 64, torch.bfloat16
+    print(f"# phase 6: K2 at B={B}, {N} heads of {hd}, bf16, asked for "
+          f"tiling (128, 128); bound = max(bytes / 3.35e12, flops / 989e12)")
+    cases = (("s150", 150, "B11Sk", 50), ("s172_full", 172, "packed", 50),
+             ("s512", 512, "B11Sk", 20), ("s1024", 1024, "B11Sk", 10))
+    row = {"name": "fused_attention_blockwise", "route": "cuda",
+           "source": K2_SOURCE,
+           "replaces": "icka_tpu/kernels/attention.py:246",
+           "launches": launches, "on_main_path": launches > 0}
+    for tag, S, kind, iters in cases:
+        q, k, v, bias = attention_inputs(B, S, S, dtype, kind, gen)
+        if kind == "packed":
+            bias = bias.contiguous()     # one mask per row, as the model's
+        out = fused_attention_blockwise(q, k, v, bias, N)
+        want = attention_blockwise_reference(q, k, v, bias, N)
+        k1 = fused_attention(q, k, v, bias, N)
+        torch.cuda.synchronize()
+        err, share = attention_close(out, want,
+                                     f"K2 at the timed shape S={S}")
+        err_k1, share_k1 = attention_close(
+            out, k1, f"K2 vs K1 at the timed shape S={S}")
+        top = want.float().abs().max().item()
+        spread = want.float().std().item()
+        del out, want, k1
+        ms = cuda_time_ms(lambda: fused_attention_blockwise(q, k, v, bias, N),
+                          iters=iters)
+        k1_ms = cuda_time_ms(lambda: fused_attention(q, k, v, bias, N),
+                             iters=iters)
+        plain_ms = cuda_time_ms(lambda: attention_blockwise_reference(
+            q, k, v, bias, N), iters=3, warmup=1)
+        library_ms = sdpa_ms(q, k, v, bias, N, iters)
+        bound_ms, bound_by, byts, flops = attention_bound(q, k, bias, N)
+        tiles = blockwise_tiles(S, S, hd, dtype)
+        others = {blockwise_tiles(S, S, hd, dtype, *blocks): cuda_time_ms(
+            lambda: fused_attention_blockwise(q, k, v, bias, N, *blocks),
+            iters=max(iters // 2, 5))
+            for blocks in ((64, 64), (64, 128), (32, 128), (128, 64))}
+        others.pop(tiles, None)
+        print(f"#   Sq=Sk={S} bias={kind}: max_abs_err vs plain {err:.3e} "
+              f"({share:.2f} of its bound), vs K1 {err_k1:.3e} "
+              f"({share_k1:.2f}); plain output max |value| {top:.3f}, std "
+              f"{spread:.4f}")
+        print(f"#   Sq=Sk={S} bias={kind}: K2 {ms:.4f} ms at tiling {tiles}, "
+              f"K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); other tilings "
+              + ", ".join(f"{b} {t:.4f}" for b, t in others.items()) + " ms")
+        vals = {"shape": f"B={B} Sq=Sk={S} {N}x{hd} bf16 bias={kind}",
+                "max_abs_err": err, "share_of_bound": share, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms,
+                "k1_ms": k1_ms}
+        # the row proper is the longest shape, what the kernel is for
+        row.update(vals if tag == "s1024" else
+                   {f"{tag}_{key}": val for key, val in vals.items()})
+        if kind == "packed":
+            k1_row.update(
+                packed_shape=vals["shape"], packed_ms=k1_ms,
+                packed_plain_ms=cuda_time_ms(lambda: attention_reference(
+                    q, k, v, bias, N), iters=3, warmup=1),
+                packed_bound_ms=bound_ms, packed_bound_by=bound_by,
+                packed_library_ms=library_ms)
+            print(f"#   K1's plain version at this shape: "
+                  f"{k1_row['packed_plain_ms']:.4f} ms")
+    return row
+
+
+def phase_times(gen, launches, packed_launches, k2_launches):
     B, S, N, hd, dtype = 128, 150, 16, 64, torch.bfloat16
-    print(f"# phase 5: K1 at the main-path shape B={B} Sq=Sk={S} {N}x{hd} "
+    print(f"# phase 6: K1 at the main-path shape B={B} Sq=Sk={S} {N}x{hd} "
           f"bf16, key-mask bias")
     q, k, v, bias = attention_inputs(B, S, S, dtype, "B11Sk", gen)
     out = fused_attention(q, k, v, bias, N)
     want = attention_reference(q, k, v, bias, N)
     torch.cuda.synchronize()
-    err = (out.float() - want.float()).abs().max().item()
-    check(err <= K1_TOL[dtype], f"K1 at the timed shape: {err}")
+    err, share = attention_close(out, want, "K1 at the timed shape")
     ms = cuda_time_ms(lambda: fused_attention(q, k, v, bias, N))
     plain_ms = cuda_time_ms(lambda: attention_reference(q, k, v, bias, N))
-    q4, k4, v4 = (t.view(B, S, N, hd).transpose(1, 2) for t in (q, k, v))
-    mask = bias.to(dtype)
-    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask))
-    elt = q.element_size()
-    nbytes = 4 * B * S * N * hd * elt + bias.numel() * 4
-    flops = 4 * B * N * S * S * hd
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    library_ms = sdpa_ms(q, k, v, bias, N, 50)
+    bound_ms, bound_by, byts, flops = attention_bound(q, k, bias, N)
     row = {"name": "fused_attention", "route": "cuda",
            "source": "icka_tpu_torch/kernels/csrc/fused_attention.cu",
            "replaces": "icka_tpu/kernels/attention.py:87",
-           "launches": launches, "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": library_ms, "on_main_path": True}
-    print(f"#   kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-          f"{library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}: {nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP)")
-    return [row]
+           "launches": launches, "packed_launches": packed_launches,
+           "max_abs_err": err, "share_of_bound": share, "ms": ms,
+           "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms, "on_main_path": launches > 0}
+    print(f"#   max_abs_err {err:.3e} ({share:.2f} of its bound); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}: {byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    return [row, phase_blockwise_times(gen, row, k2_launches)]
 
 
 def nbytes(*tensors):
@@ -708,7 +1081,6 @@ def conv_row(name, replaces, shape, launches, err, ms, plain_ms, unfused_ms,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": None, "unfused_ms": unfused_ms, "shape": shape,
-           # K3 and K6 have no caller in the model, here as in the JAX package
            "on_main_path": launches > 0}
     print(f"#   {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"unfused port path {unfused_ms:.4f} ms, bound "
@@ -732,7 +1104,7 @@ def phase_conv_times(gen, launches, errs, B=128):
     """K3-K6 at B=128 beside their plain versions, the unfused port path
     for the same block (ConvBN modules with float64 integer products) and
     their bounds."""
-    print(f"# phase 5: K3-K6 at B={B}; bound = max(bytes / 3.35e12, ops / "
+    print(f"# phase 6: K3-K6 at B={B}; bound = max(bytes / 3.35e12, ops / "
           f"1979e12 int8 dense)")
     dev = torch.device("cuda", 0)
     rows = []
@@ -790,7 +1162,8 @@ def phase_conv_times(gen, launches, errs, B=128):
                       lambda: kconv.bottleneck_reference(*args, 0.37),
                       lambda: block(x16), "int8_bottleneck")
             k6_row = conv_row(
-                "int8_bottleneck", "icka_tpu/kernels/conv.py:204", shape, 0,
+                "int8_bottleneck", "icka_tpu/kernels/conv.py:204", shape,
+                launches["int8_bottleneck"],
                 max(t[0], errs["int8_bottleneck"]), *t[1:], byts, ops)
         del args, x16
     with torch.inference_mode():           # the serving batch, per stage
@@ -821,7 +1194,8 @@ def phase_conv_times(gen, launches, errs, B=128):
               lambda: torch.relu(conv(x16)), "int8_conv3x3")
     rows.append(conv_row(
         "int8_conv3x3", "icka_tpu/kernels/conv.py:107",
-        f"B={B} x_pad ({H + 2},{H + 2},{C}) -> ({H},{H},{C}) bf16", 0,
+        f"B={B} x_pad ({H + 2},{H + 2},{C}) -> ({H},{H},{C}) bf16",
+        launches["int8_conv3x3"],
         max(t[0], errs["int8_conv3x3"]), *t[1:],
         nbytes(*args) + B * H * H * C * 2, 2 * B * H * H * 9 * C * C))
     return rows
@@ -836,20 +1210,35 @@ def main(argv=None) -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 2
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    t_start = time.perf_counter()
     try:
         dev, layers = torch.device("cuda", 0), (3, 8, 36, 3)
         card = phase_build()
         phase_kernel_vs_plain(gen)
+        phase_k1_head_widths(gen)
+        phase_blockwise_vs_plain(gen)
         conv_errs = phase_conv_kernels_vs_plain(gen)
-        launches, _, ctx = phase_slice(args, card, dev, ICKAConfig(), layers)
-        conv_launches = phase_int8_visual(args, card, dev, ctx, layers)
+        counts, _, ctx = phase_slice(args, card, dev, ICKAConfig(), layers)
+        conv_counts = phase_int8_visual(args, card, dev, ctx, layers)
+        packed_counts = phase_packed(args, card, dev, ctx)
         del ctx
         torch.cuda.empty_cache()
-        kernels = phase_times(gen, launches)
-        kernels += phase_conv_times(gen, conv_launches, conv_errs)
+        # over the three serving paths, each driven from counts of 0
+        total = {name: counts[name] + conv_counts[name] + packed_counts[name]
+                 for name in COUNTERS}
+        print(f"#   kernel launches over the three serving paths: {total}")
+        for name in NO_CALLER:
+            check(total[name] == 0, f"{name} has no caller in the model, yet "
+                                    f"serving launched it {total[name]} times")
+        kernels = phase_times(gen, counts["fused_attention"],
+                              packed_counts["fused_attention"],
+                              total["fused_attention_blockwise"])
+        kernels += phase_conv_times(gen, total, conv_errs)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    print(f"# chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,7 +56,9 @@ def state_dict_from_flax(tree: Mapping) -> dict:
 
 
 def icka_state_dict(variables: Mapping) -> dict:
-    """`ICKAModel` variables {"params": ...} -> `ICKAModel` state_dict."""
+    """`ICKAModel` variables {"params": ...} -> `ICKAModel` state_dict.
+    `ICKAModel.forward_packed` uses the parameters of `emissions`, so the
+    packed path needs no further leaf."""
     return state_dict_from_flax(variables["params"])
 
 

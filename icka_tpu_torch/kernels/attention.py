@@ -1,8 +1,11 @@
-"""Fused multi-head attention for short sequences: a hand-written CUDA
-kernel for Hopper (`csrc/fused_attention.cu`) and its plain PyTorch version.
+"""Fused multi-head attention: two hand-written CUDA kernels for Hopper and
+their plain PyTorch versions.
 
-Replaces `icka_tpu/kernels/attention.py::fused_attention` (the Pallas TPU
-kernel). The contract is the TPU kernel's:
+`fused_attention` (`csrc/fused_attention.cu`) replaces
+`icka_tpu/kernels/attention.py::fused_attention`, the Pallas TPU kernel for
+short sequences; `fused_attention_blockwise` (`csrc/blockwise_attention.cu`)
+replaces `fused_attention_blockwise` there, the length-scalable variant. The
+contract of both is the TPU kernels':
 
     out[b] = softmax(Q[b] K[b]^T * head_dim^-0.5 + bias[b]) V[b]   per head
 
@@ -10,11 +13,13 @@ q (B, Sq, D), k/v (B, Sk, D), D = num_heads * head_dim, bias additive fp32
 of shape (B, 1, 1, Sk) (`additive_mask`), (B, Sk) or (B, Sq, Sk). Softmax
 is fp32. fp32 inputs give fp32 math; bf16 inputs give bf16 products with
 fp32 accumulation and probabilities rounded to bf16 before P.V. The output
-has q's dtype.
+has q's dtype. The kernels take every head width that is a multiple of 16
+up to 128 (`HEAD_DIMS`).
 
-`fused_attention` takes the plain version `attention_reference` for tensors
-on the CPU, and only then. For CUDA tensors it launches the kernel or
-raises. `fused_attention.launches` counts kernel launches.
+Each wrapper takes its plain version (`attention_reference`,
+`attention_blockwise_reference`) for tensors on the CPU, and only then. For
+CUDA tensors it launches the kernel or raises. `<wrapper>.launches` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -27,7 +32,10 @@ import torch
 from icka_tpu_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIM = 64                # the one head width the kernel is built for
+HEAD_DIMS = tuple(range(16, 129, 16))   # head widths with a kernel instance
+BLOCK_SIZES = (32, 64, 128)  # query rows and keys per tile of the blockwise
+_SMEM_LIMIT = 232448         # bytes of shared memory a block can use (sm_90)
+_KV_ROW_PAD = 4              # elements of padding per staged K/V row
 _GRID_LIMIT = 65535          # grid.y (heads) and grid.z (batch)
 
 
@@ -68,11 +76,9 @@ def _kernel():
     return fn
 
 
-def fused_attention(q, k, v, bias, num_heads: int):
-    """q (B, Sq, D), k/v (B, Sk, D), bias broadcastable to (B, Sq, Sk)
-    additive fp32. Returns (B, Sq, D) in q.dtype."""
+def _check_shapes(name, q, k, v, num_heads):
     if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
-        raise ValueError(f"fused_attention wants q (B,Sq,D), k = v (B,Sk,D); "
+        raise ValueError(f"{name} wants q (B,Sq,D), k = v (B,Sk,D); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, Sq, D = q.shape
@@ -80,30 +86,47 @@ def fused_attention(q, k, v, bias, num_heads: int):
     if k.shape[0] != B or k.shape[2] != D or D % num_heads:
         raise ValueError(f"shapes {tuple(q.shape)} / {tuple(k.shape)} do not "
                          f"fit {num_heads} heads")
-    bias3 = _normalize_bias(bias, B, Sq, Sk)
-    devices = {t.device for t in (q, k, v, bias3)}
-    if len(devices) != 1:
-        raise ValueError(f"fused_attention inputs on several devices: "
-                         f"{devices}")
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, bias, num_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention runs on CUDA or the CPU, not "
-                         f"{q.device}")
+    return B, Sq, Sk, D
 
-    hd = D // num_heads
+
+def _on_cpu(name, *tensors) -> bool:
+    """True when all tensors lie on the CPU, False when all lie on one CUDA
+    device; anything else raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name} inputs on several devices: {devices}")
+    (device,) = devices
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on CUDA or the CPU, not {device}")
+    return device.type == "cpu"
+
+
+def _check_kernel_inputs(name, q, k, v, num_heads):
+    """What both kernels ask of CUDA tensors; raises before any launch."""
+    B, Sq, D = q.shape
+    Sk, hd = k.shape[1], D // num_heads
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"fused_attention kernel takes float32 or bfloat16 "
-                        f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/"
-                        f"{v.dtype}")
-    if hd != HEAD_DIM:
-        raise ValueError(f"fused_attention kernel takes head_dim "
-                         f"{HEAD_DIM}, got {hd}")
+        raise TypeError(f"{name} kernel takes float32 or bfloat16 q/k/v of "
+                        f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel takes a head_dim that is a multiple "
+                         f"of 16 up to 128, got {hd}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("fused_attention kernel needs contiguous q, k, v")
+        raise ValueError(f"{name} kernel needs contiguous q, k, v")
     if min(B, Sq, Sk) == 0 or max(B, num_heads) > _GRID_LIMIT:
-        raise ValueError(f"fused_attention kernel cannot take B={B}, "
-                         f"Sq={Sq}, Sk={Sk}, num_heads={num_heads}")
+        raise ValueError(f"{name} kernel cannot take B={B}, Sq={Sq}, "
+                         f"Sk={Sk}, num_heads={num_heads}")
+
+
+def fused_attention(q, k, v, bias, num_heads: int):
+    """q (B, Sq, D), k/v (B, Sk, D), bias broadcastable to (B, Sq, Sk)
+    additive fp32. Returns (B, Sq, D) in q.dtype."""
+    B, Sq, Sk, D = _check_shapes("fused_attention", q, k, v, num_heads)
+    bias3 = _normalize_bias(bias, B, Sq, Sk)
+    if _on_cpu("fused_attention", q, k, v, bias3):
+        return attention_reference(q, k, v, bias, num_heads)
+    _check_kernel_inputs("fused_attention", q, k, v, num_heads)
+    hd = D // num_heads
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -119,3 +142,138 @@ def fused_attention(q, k, v, bias, num_heads: int):
 
 
 fused_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Blockwise (flash-style) attention, the length-scalable variant
+# ---------------------------------------------------------------------------
+
+def _snap(want: int, total: int) -> int:
+    """The largest tile size <= want (at least the smallest there is) that
+    the sequence needs: not one whose half already covers `total`."""
+    sizes = [b for b in BLOCK_SIZES if b <= max(want, BLOCK_SIZES[0])]
+    for size in reversed(sizes[1:]):
+        if size // 2 < total:
+            return size
+    return sizes[0]
+
+
+def _smem_bytes(bq: int, bk: int, hd: int, elt: int) -> int:
+    """Shared memory of the kernel at this tiling (`smem_bytes` in
+    `csrc/blockwise_attention.cu`): fp32 query and probability tiles, the
+    key-bias strip, K and V tiles in the input type with padded rows."""
+    return bq * hd * 4 + bq * bk * 4 + bk * 4 + 2 * bk * (hd + _KV_ROW_PAD) * elt
+
+
+def blockwise_tiles(Sq: int, Sk: int, head_dim: int, dtype,
+                    block_q: int = 128, block_k: int = 128):
+    """(bq, bk) the blockwise kernel runs for a request of (block_q,
+    block_k): each snapped down to 32, 64 or 128, no larger than the
+    sequence needs, and both halved (keys first) until the tiles fit a
+    block's shared memory. The sizes need not divide Sq or Sk: the
+    last tile of either dimension is masked."""
+    bq, bk = _snap(block_q, Sq), _snap(block_k, Sk)
+    elt = torch.empty((), dtype=dtype).element_size()
+    while _smem_bytes(bq, bk, head_dim, elt) > _SMEM_LIMIT:
+        if bk > BLOCK_SIZES[0]:
+            bk //= 2
+        elif bq > BLOCK_SIZES[0]:
+            bq //= 2
+        else:
+            raise ValueError(f"no tiling fits head_dim {head_dim}")
+    return bq, bk
+
+
+def _blockwise_bias(bias, B: int, Sq: int, Sk: int):
+    """(key_mode, fp32 view). A key-only bias ((B,1,1,Sk) or (B,Sk)) stays
+    (B, Sk) and is tiled along k; anything else becomes a (B, Sq, Sk)
+    stride view, so a (B, 1, Sq, Sk) mask is not copied."""
+    bias = torch.as_tensor(bias).float()
+    key_mode = (bias.ndim == 4 and bias.shape[1] == 1
+                and bias.shape[2] == 1) or bias.ndim == 2
+    if key_mode:
+        return True, bias.reshape(bias.shape[0], Sk).expand(B, Sk)
+    return False, _normalize_bias(bias, B, Sq, Sk)
+
+
+def attention_blockwise_reference(q, k, v, bias, num_heads: int,
+                                  block_q: int = 128, block_k: int = 128):
+    """Plain PyTorch version of the blockwise kernel: the same online-softmax
+    recurrence, tile by tile at the tiling `blockwise_tiles` gives. The
+    running maximum starts at -1e30 (finite, so a key tile whose scores are
+    all -inf gives p = 0 and alpha = 1), p is cast to the input type before
+    P.V, and acc / l is taken at the end."""
+    B, Sq, D = q.shape
+    Sk = k.shape[1]
+    hd = D // num_heads
+    bq, bk = blockwise_tiles(Sq, Sk, hd, q.dtype, block_q, block_k)
+    key_mode, b = _blockwise_bias(bias, B, Sq, Sk)
+    b = b[:, None, None, :] if key_mode else b[:, None]     # (B,1,1|Sq,Sk)
+    qh = q.reshape(B, Sq, num_heads, hd).permute(0, 2, 1, 3).float()
+    kh = k.reshape(B, Sk, num_heads, hd).permute(0, 2, 3, 1).float()
+    vh = v.reshape(B, Sk, num_heads, hd).permute(0, 2, 1, 3).float()
+    out = torch.empty(B, num_heads, Sq, hd, device=q.device)
+    for q0 in range(0, Sq, bq):
+        q1 = min(q0 + bq, Sq)
+        m = torch.full((B, num_heads, q1 - q0, 1), -1e30, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, num_heads, q1 - q0, hd, device=q.device)
+        for k0 in range(0, Sk, bk):
+            k1 = min(k0 + bk, Sk)
+            s = torch.matmul(qh[:, :, q0:q1], kh[..., k0:k1]) * hd ** -0.5
+            s = s + (b[..., k0:k1] if key_mode else b[:, :, q0:q1, k0:k1])
+            m_new = torch.maximum(m, s.max(dim=-1, keepdim=True).values)
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.matmul(p.to(q.dtype).float(),
+                                             vh[:, :, k0:k1])
+            m = m_new
+        out[:, :, q0:q1] = acc / l
+    return out.permute(0, 2, 1, 3).reshape(B, Sq, D).to(q.dtype)
+
+
+@functools.cache
+def _blockwise_kernel():
+    fn = build.load("blockwise_attention").icka_blockwise_attention
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 3
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_attention_blockwise(q, k, v, bias, num_heads: int,
+                              block_q: int = 128, block_k: int = 128):
+    """Blockwise fused attention, any length. q (B, Sq, D), k/v (B, Sk, D);
+    bias additive fp32, either key-only ((B,1,1,Sk) or (B,Sk): kept (B, Sk),
+    never broadcast to (B, Sq, Sk) in memory) or full ((B,Sq,Sk) or
+    (B,1,Sq,Sk), read through strides). `block_q` / `block_k` ask for a
+    tiling (see `blockwise_tiles`); they change the order of summation and
+    nothing else. Returns (B, Sq, D) in q.dtype."""
+    name = "fused_attention_blockwise"
+    B, Sq, Sk, D = _check_shapes(name, q, k, v, num_heads)
+    key_mode, b = _blockwise_bias(bias, B, Sq, Sk)
+    if _on_cpu(name, q, k, v, b):
+        return attention_blockwise_reference(q, k, v, bias, num_heads,
+                                             block_q, block_k)
+    _check_kernel_inputs(name, q, k, v, num_heads)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name} kernel needs q, k, v aligned to 16 bytes")
+    hd = D // num_heads
+    bq, bk = blockwise_tiles(Sq, Sk, hd, q.dtype, block_q, block_k)
+    strides = (b.stride(0), 0, b.stride(1)) if key_mode else b.stride()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _blockwise_kernel()(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            b.data_ptr(), out.data_ptr(), B, Sq, Sk, num_heads, hd, bq, bk,
+            int(key_mode), *strides, hd ** -0.5, stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    fused_attention_blockwise.launches += 1
+    return out
+
+
+fused_attention_blockwise.launches = 0

@@ -3,8 +3,8 @@
 Each source `csrc/<name>.cu` has a plain C interface and compiles with
 `nvcc` into its own shared library under `build/kernels/` at the root of
 the checkout (listed in `.gitignore`). The library's file name carries a
-hash of the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded. `build()` starts one `nvcc` per source, all
+hash of the source, of every header `csrc/*.cuh` and of the flags, so an
+edited source or header is rebuilt and a stale library is never loaded. `build()` starts one `nvcc` per source, all
 at once, and waits for them. Nothing here runs at import time: the CPU
 tests import every module on a host without `nvcc`.
 """
@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fused_attention", "int8_conv")
+SOURCES = ("fused_attention", "blockwise_attention", "int8_conv")
 
 
 def nvcc_path() -> str:
@@ -40,7 +40,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src + headers
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 
 

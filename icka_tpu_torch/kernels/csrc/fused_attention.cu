@@ -32,70 +32,34 @@
 // rather than to the normalised probability; the error is of the same size
 // (one bf16 rounding per probability).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "attention_common.cuh"
 
 namespace {
+
+using namespace icka_attention;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = 4;
 constexpr int kBlockQ = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int HD = 64;        // head_dim (RoBERTa-large and -base, BERT-base)
-constexpr int BK = 64;        // keys per shared-memory tile
-constexpr int KPL = BK / 32;  // keys scored by each lane
-constexpr int DPL = HD / 32;  // output columns owned by each lane
-
-template <typename T>
-struct Num;
-
-template <>
-struct Num<float> {
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <>
-struct Num<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // grid (ceil(Sq / kBlockQ), num_heads, B); each warp owns kRowsPerWarp
 // query rows; lane j scores keys j, j + 32, ... of a tile and owns output
-// columns j, j + 32, ... of the head.
-template <typename T>
+// columns j, j + 32, ... of the head (those below HD).
+template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v,
                            const float* __restrict__ bias, T* __restrict__ out,
                            int Sq, int Sk, int num_heads, long long bias_sb,
                            long long bias_sq, long long bias_sk, float scale) {
+  constexpr int BK = HD <= 64 ? 64 : 32;  // keys per shared-memory tile
+  constexpr int KPL = BK / 32;            // keys scored by each lane
+  constexpr int DPL = (HD + 31) / 32;     // output columns owned by a lane
+  constexpr int VW = DPL * 32;            // V tile row, padded with zeros
   __shared__ float qs[kBlockQ][HD];
   __shared__ float ks[BK][HD + 1];  // +1: lanes read one column of 32 rows
-  __shared__ float vs[BK][HD];
+  __shared__ float vs[BK][VW];
   __shared__ float ps[kWarps][kRowsPerWarp][BK];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -114,7 +78,7 @@ __global__ void __launch_bounds__(kThreads)
   const float* brow[kRowsPerWarp];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = -INFINITY;
+    m[r] = kMinusBig;
     l[r] = 0.f;
 #pragma unroll
     for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
@@ -125,11 +89,11 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k0 = 0; k0 < Sk; k0 += BK) {
     __syncthreads();  // q tile stored; previous K/V tile consumed
-    for (int i = tid; i < BK * HD; i += kThreads) {
-      const int r = i / HD, d = i % HD;
-      const bool ok = k0 + r < Sk;
-      ks[r][d] = ok ? Num<T>::load(kb + (k0 + r) * D + d) : 0.f;
-      vs[r][d] = ok ? Num<T>::load(vb + (k0 + r) * D + d) : 0.f;
+    for (int i = tid; i < BK * VW; i += kThreads) {
+      const int r = i / VW, d = i % VW;
+      const bool ok = k0 + r < Sk && d < HD;
+      if (d < HD) ks[r][d] = ok ? Num<T>::load(kb + (k0 + r) * D + d) : 0.f;
+      vs[r][d] = ok ? Num<T>::load(vb + (k0 + r) * D + d) : 0.f;  // d >= HD: 0
     }
     __syncthreads();
 
@@ -161,7 +125,7 @@ __global__ void __launch_bounds__(kThreads)
                            : -INFINITY;
         tile_max = fmaxf(tile_max, s[r][j]);
       }
-      // key k0 is always valid, so m_new is finite after the first tile
+      // m starts finite, so m_new is finite whatever the tile's scores
       const float m_new = fmaxf(m[r], warp_max(tile_max));
       const float alpha = expf(m[r] - m_new);
       float psum = 0.f;
@@ -200,28 +164,54 @@ __global__ void __launch_bounds__(kThreads)
       const float inv = 1.f / l[r];
 #pragma unroll
       for (int c = 0; c < DPL; ++c)
-        Num<T>::store(o + lane + 32 * c, acc[r][c] * inv);
+        if (lane + 32 * c < HD)
+          Num<T>::store(o + lane + 32 * c, acc[r][c] * inv);
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* bias, void* out, int B, int Sq, int Sk,
-                   int num_heads, long long sb, long long sq, long long sk,
-                   float scale, cudaStream_t stream) {
+template <typename T, int HD>
+cudaError_t launch_width(const void* q, const void* k, const void* v,
+                         const float* bias, void* out, int B, int Sq, int Sk,
+                         int num_heads, long long sb, long long sq,
+                         long long sk, float scale, cudaStream_t stream) {
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, num_heads, B);
-  fused_attention_kernel<T><<<grid, kThreads, 0, stream>>>(
+  fused_attention_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, static_cast<T*>(out), Sq, Sk, num_heads,
       sb, sq, sk, scale);
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch(int head_dim, const void* q, const void* k, const void* v,
+                   const float* bias, void* out, int B, int Sq, int Sk,
+                   int num_heads, long long sb, long long sq, long long sk,
+                   float scale, cudaStream_t stream) {
+  switch (head_dim) {
+#define ICKA_WIDTH(HD)                                                     \
+  case HD:                                                                 \
+    return launch_width<T, HD>(q, k, v, bias, out, B, Sq, Sk, num_heads,   \
+                               sb, sq, sk, scale, stream);
+    ICKA_WIDTH(16)
+    ICKA_WIDTH(32)
+    ICKA_WIDTH(48)
+    ICKA_WIDTH(64)
+    ICKA_WIDTH(80)
+    ICKA_WIDTH(96)
+    ICKA_WIDTH(112)
+    ICKA_WIDTH(128)
+#undef ICKA_WIDTH
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim must be 64. Returns
-// cudaGetLastError() after the launch (0 on success); the caller checks it.
+// dtype: 0 = float32, 1 = bfloat16; head_dim a multiple of 16 up to 128.
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a type or width without an instance; the caller
+// checks it.
 extern "C" int icka_fused_attention(int dtype, const void* q, const void* k,
                                     const void* v, const void* bias, void* out,
                                     int B, int Sq, int Sk, int num_heads,
@@ -230,12 +220,12 @@ extern "C" int icka_fused_attention(int dtype, const void* q, const void* k,
                                     float scale, void* stream) {
   const float* b = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim != HD) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(q, k, v, b, out, B, Sq, Sk, num_heads, bias_sb,
-                         bias_sq, bias_sk, scale, s);
+    return launch<float>(head_dim, q, k, v, b, out, B, Sq, Sk, num_heads,
+                         bias_sb, bias_sq, bias_sk, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, b, out, B, Sq, Sk, num_heads,
-                                 bias_sb, bias_sq, bias_sk, scale, s);
+    return launch<__nv_bfloat16>(head_dim, q, k, v, b, out, B, Sq, Sk,
+                                 num_heads, bias_sb, bias_sq, bias_sk, scale,
+                                 s);
   return cudaErrorInvalidValue;
 }

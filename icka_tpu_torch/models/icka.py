@@ -5,8 +5,8 @@ cross-attention fusion -> CLIP knowledge alignment over the fused text ->
 two prompt prefixes from mapping networks spliced into the prompted
 RoBERTa -> relevance gate -> BiLSTM -> classifier -> CRF Viterbi.
 Visual features arrive NHWC (B, 7, 7, C). Only `mode="test"` is ported
-(the CRF likelihood behind train/dev waits), and the packed path
-`forward_packed` waits too.
+(the CRF likelihood behind train/dev waits). `forward_packed` is the
+sequence-packed inference path of `icka_tpu_torch.serving.packing`.
 """
 
 from __future__ import annotations
@@ -205,3 +205,137 @@ class ICKAModel(nn.Module):
             offset=offset,
         )
         return self.crf.decode(emissions, batch["output_mask"])
+
+    def forward_packed(self, batch):
+        """Sequence-packed inference (`PackedICKAServer`): each row carries
+        up to S (sentence, image) pairs, isolated exactly from each other.
+
+        A row has two packed token layouts, because the prompted encoder's
+        input is longer than the bare sentence by the spliced prompt head:
+
+          layout A, the concatenated bare sentences (L1 = row_len), feeds
+            the embedding encoder, the txt2img fusion, the gate, the BiLSTM
+            and the CRF;
+          layout B, the concatenated spliced prompted sequences (L2 =
+            row_len + S * (offset - 2 + 2 * prompt_len)), feeds the prompted
+            encoder; prompt-vector positions hold placeholders that
+            `prompt_gather` resolves into the per-slot prefix table.
+
+        `batch` holds tensors on the model's device, integers as int64
+        (B rows, S slots; the sentinel is S for slot ids and the array
+        length for gather indices):
+          ids_a / pos_a / types_a / slot_a / valid_a / seg_start / seg_end
+            (B, L1); ids_b / pos_b / types_b / slot_b / prompt_gather
+            (B, L2); sent_gather (B, L1), the layout-B index of each bare
+            token's counterpart after the splice; seg_first (B, S), the
+            layout-A index of each segment's first token;
+          img_mask (B, S, 49), visual_grid (B, S, 7, 7, R), visual_mean
+            (B, S, R), clip_features (B, S, C).
+
+        Self-attention is block-diagonal by slot in both layouts (a
+        (B, 1, L, L) mask; with `use_pallas` the fused attention kernel
+        takes it as a full bias), visual and alignment keys are per slot,
+        position ids come per segment from the host, the BiLSTM's carries
+        are reset at segment starts and ends (the `masked_lstm=True`
+        semantics: a packed row has no padding tail), and the Viterbi
+        lattice is cut at `seg_start`. It uses the parameters of
+        `emissions` and no others.
+
+        Returns (B, L1) int32 tags in packed order; the server slices each
+        segment's span out."""
+        cfg = self.cfg
+        ids_a, slot_a = batch["ids_a"], batch["slot_a"]
+        B, L1 = ids_a.shape
+        S = batch["img_mask"].shape[1]
+        P = cfg.prompt_len
+        dev = ids_a.device
+        slots = torch.arange(S, device=dev)
+
+        def with_zero_row(x):
+            """x (B, L, H) plus one zero row, the sentinel's target."""
+            return torch.cat([x, x.new_zeros(B, 1, x.shape[-1])], dim=1)
+
+        def take_rows(x, index):
+            """x[b, index[b, i]] for index (B, I) -> (B, I, H)."""
+            return x.gather(1, index[:, :, None].expand(-1, -1, x.shape[-1]))
+
+        # 1. bare sentences, block-diagonal by slot (the padding's sentinel
+        # slot sees only padding)
+        pair_a = slot_a[:, :, None] == slot_a[:, None, :]
+        seq, _ = self.embedding(ids_a, pair_a[:, None].int(),
+                                batch["types_a"], position_ids=batch["pos_a"])
+
+        # 2-3. txt2img with per-slot visual keys: token i may read region
+        # (s, r) iff slot_a[i] == s and img_mask[s, r]
+        if cfg.use_txt2img:
+            grid = batch["visual_grid"].reshape(
+                B, S * cfg.num_regions, batch["visual_grid"].shape[-1])
+            grid = self.vismap2text(grid)
+            slot_onehot = slot_a[:, :, None] == slots[None, None, :]
+            kv_ok = (slot_onehot[:, :, :, None]
+                     & (batch["img_mask"][:, None, :, :] > 0)
+                     ).reshape(B, L1, S * cfg.num_regions)
+            cross = self.txt2img(seq, grid,
+                                 additive_mask(kv_ok[:, None].int()))
+        else:
+            cross = seq
+        crossw = with_zero_row(cross)
+
+        # 4. knowledge alignment: one CLIP query per slot attends over its
+        # own segment's fused text (an empty slot sees a uniform softmax
+        # over masked keys; its prompt vectors are never consumed)
+        q_ok = slots[None, :, None] == slot_a[:, None, :]      # (B, S, L1)
+        align_bias = additive_mask(q_ok[:, None].int())
+        if cfg.use_alignment:
+            clip_tok = self.vismapping(
+                batch["clip_features"].reshape(B, S, -1))      # (B, S, H)
+        else:
+            clip_tok = take_rows(crossw, batch["seg_first"])
+        for layer in (self.align_0, self.align_1):
+            clip_tok = layer(clip_tok, cross, align_bias)
+
+        # 5. instruction construction per slot -> flat prefix table
+        align_prompt = self.map_alignment(
+            clip_tok.reshape(B * S, clip_tok.shape[-1]))       # (B*S, P, H)
+        vision_prompt = self.map_vision(
+            batch["visual_mean"].reshape(B * S, -1))
+        if not cfg.use_vision_prompt:
+            vision_prompt = align_prompt
+        if not cfg.use_alignment_prompt:
+            align_prompt = vision_prompt
+        prefix = torch.cat([vision_prompt, align_prompt], dim=1)
+        if self.lastproj is not None:
+            prefix = self.lastproj(prefix)
+        prefix = prefix.reshape(B, S * 2 * P, prefix.shape[-1])
+
+        slot_b = batch["slot_b"]
+        pair_b = slot_b[:, :, None] == slot_b[:, None, :]
+        out, _ = self.last_encoder(
+            batch["ids_b"], pair_b[:, None].int(), batch["types_b"], prefix,
+            None, (0, 0), position_ids=batch["pos_b"],
+            prompt_gather=batch["prompt_gather"])
+        token_embedding = take_rows(with_zero_row(out),
+                                    batch["sent_gather"])     # (B, L1, Hl)
+
+        # 6. relevance gate per slot, handed to tokens by owning slot
+        if cfg.use_gate:
+            cross0 = take_rows(crossw, batch["seg_first"])
+            te0 = take_rows(with_zero_row(token_embedding),
+                            batch["seg_first"])
+            g = self.gate(cross0.reshape(B * S, -1),
+                          te0.reshape(B * S, -1)).reshape(B, S)
+        else:
+            g = torch.full((B, S), cfg.gate_fixed, dtype=self.dtype,
+                           device=dev)
+        g_tok = torch.cat([g, g.new_zeros(B, 1)], dim=1).gather(
+            1, slot_a.clamp(max=S))                            # (B, L1)
+        fused = (g_tok[:, :, None] * token_embedding
+                 + (1.0 - g_tok)[:, :, None] * cross)
+
+        # 7. BiLSTM with carry resets at segment boundaries -> CRF with the
+        # lattice cut at segment starts
+        x = self.lstm(fused, mask=batch["valid_a"],
+                      reset_fwd=batch["seg_start"],
+                      reset_bwd=batch["seg_end"])
+        return self.crf.decode(self.classifier(x), batch["valid_a"],
+                               reset=batch["seg_start"])

@@ -62,11 +62,13 @@ class TextEmbeddings(nn.Module):
              + F.embedding(token_type_ids, self.token_type_embeddings))
         return self.norm(x.to(self.dtype))
 
-    def forward(self, input_ids, token_type_ids=None):
+    def forward(self, input_ids, token_type_ids=None, position_ids=None):
         cfg = self.cfg
         B, S = input_ids.shape
         dev = input_ids.device
-        if cfg.position_offset > 0:
+        if position_ids is not None:
+            pass                       # the caller's (packed segments)
+        elif cfg.position_offset > 0:
             position_ids = roberta_position_ids(input_ids, cfg.pad_token_id)
         else:
             position_ids = torch.arange(S, device=dev).expand(B, S)
@@ -78,8 +80,10 @@ class TextEmbeddings(nn.Module):
 
 class TextEncoder(nn.Module):
     """Embeddings + transformer stack (+ optional pooler); returns
-    (sequence_output, pooled_output or None). (The JAX module's
-    `position_ids`/`inputs_embeds` inputs are not ported.)"""
+    (sequence_output, pooled_output or None). `attention_mask` is a (B, S)
+    key mask or a (B, 1, S, S) mask (packed rows: block-diagonal by
+    segment); `position_ids` override the dialect's own. (The JAX module's
+    `inputs_embeds` input is not ported.)"""
 
     def __init__(self, cfg: EncoderConfig, with_pooler: bool = True,
                  dtype=torch.float32, device="cuda", generator=None):
@@ -92,10 +96,11 @@ class TextEncoder(nn.Module):
         self.pooler = (Pooler(cfg.hidden_size, dtype=dtype, device=dev,
                               generator=gen) if with_pooler else None)
 
-    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                position_ids=None):
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
-        x = self.embeddings(input_ids, token_type_ids)
+        x = self.embeddings(input_ids, token_type_ids, position_ids)
         x = self.encoder(x, additive_mask(attention_mask))
         pooled = self.pooler(x) if self.pooler is not None else None
         return x, pooled
@@ -116,8 +121,15 @@ class PromptSpliceEncoder(nn.Module):
     giving output length L - 2 + 2*prompt_len. Position ids are assigned
     RoBERTa-style over the spliced layout; prompt slots take the token type
     of the placeholder they replace. Returns (sequence_output,
-    spliced_attention_mask). (The JAX module's packed `prompt_gather` path
-    is not ported.)"""
+    spliced_attention_mask).
+
+    With `prompt_gather` (sequence-packed rows) the host has already laid
+    the row out in spliced form: `input_ids` carries pad placeholders at the
+    prompt-vector positions, `prompt_embeddings` is a flat (B, K, H) table
+    (K = slots x 2 x prompt_len), `prompt_gather` (B, L) int64 indexes it per
+    position (K = not a prompt slot), `attention_mask` is the (B, 1, L, L)
+    block-diagonal mask, and `position_ids` / `token_type_ids` come from the
+    host per segment; `prompt_mask` and `mask_positions` are unused."""
 
     def __init__(self, cfg: EncoderConfig, dtype=torch.float32,
                  device="cuda", generator=None):
@@ -130,11 +142,21 @@ class PromptSpliceEncoder(nn.Module):
         self.encoder = Encoder(cfg, dtype=dtype, device=dev, generator=gen)
 
     def forward(self, input_ids, attention_mask, token_type_ids,
-                prompt_embeddings, prompt_mask, mask_positions):
-        m1, m2 = mask_positions
-        P = prompt_embeddings.shape[1] // 2
+                prompt_embeddings, prompt_mask, mask_positions,
+                position_ids=None, prompt_gather=None):
         emb = self.embeddings
         tok = emb.embed_tokens(input_ids)
+        if prompt_gather is not None:
+            B, K, H = prompt_embeddings.shape
+            table = torch.cat([prompt_embeddings.to(tok.dtype),
+                               tok.new_zeros(B, 1, H)], dim=1)
+            pv = table.gather(1, prompt_gather[:, :, None].expand(-1, -1, H))
+            spliced = torch.where((prompt_gather < K)[:, :, None], pv, tok)
+            x = emb.finalize(spliced, position_ids, token_type_ids)
+            return (self.encoder(x, additive_mask(attention_mask)),
+                    attention_mask)
+        m1, m2 = mask_positions
+        P = prompt_embeddings.shape[1] // 2
         spliced = splice_prompt(tok, prompt_embeddings.to(tok.dtype), m1, m2)
         spliced_mask = splice_prompt(attention_mask.long(),
                                      prompt_mask.long(), m1, m2)

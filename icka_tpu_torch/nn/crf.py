@@ -1,7 +1,7 @@
 """Linear-chain CRF decoding (port of `icka_tpu.nn.crf`, torchcrf
-semantics). Only the Viterbi decode is ported; the log-likelihood,
-marginals, the log-depth parallel decode and the packed `reset` lattice cut
-wait for a later slice.
+semantics). Only the Viterbi decode is ported, with the `reset` lattice cut
+of packed serving; the log-likelihood, marginals and the log-depth parallel
+decode wait for a later slice.
 """
 
 from __future__ import annotations
@@ -12,16 +12,25 @@ from torch import nn
 from icka_tpu_torch.core.device import generator_for, resolve_device
 
 
-def crf_decode(emissions, mask, start, end, trans):
+def crf_decode(emissions, mask, start, end, trans, reset=None):
     """Batched masked Viterbi, fp32. Returns (B, L) int32 best-path tags.
 
     Masked steps carry scores unchanged and record identity backpointers,
     so the backward trace passes through padding; positions past a
     sequence's end hold the tag at its last valid step. Ties go to the
-    first maximum, as `jnp.argmax` does."""
+    first maximum, as `jnp.argmax` does.
+
+    `reset` (B, L) {0,1}, optional, for sequence packing: a set bit at
+    position t > 0 marks the first token of a new packed segment. The
+    lattice is cut there: the score restarts as `start + emissions[t]`, and
+    the backpointer at t re-seeds the backward trace with the previous
+    segment's best final tag, argmax(score + end). One (B, L) decode then
+    gives every segment the path it would get alone. `reset[:, 0]` is
+    ignored (position 0 always starts a segment)."""
     em = emissions.float()
     B, L, T = em.shape
     maskb = mask.bool()
+    resetb = None if reset is None else reset.bool()
     score = start[None, :] + em[:, 0]                          # (B, T)
     ident = torch.arange(T, device=em.device).expand(B, T)
     history = []
@@ -29,8 +38,15 @@ def crf_decode(emissions, mask, start, end, trans):
         cand = score[:, :, None] + trans[None] + em[:, t, None, :]
         best_score, best_prev = cand.max(dim=1)                # (B, next)
         m_t = maskb[:, t, None]
-        score = torch.where(m_t, best_score, score)
-        history.append(torch.where(m_t, best_prev, ident))
+        new_score = torch.where(m_t, best_score, score)
+        bp = torch.where(m_t, best_prev, ident)
+        if resetb is not None:
+            r_t = resetb[:, t, None]
+            seg_last = torch.argmax(score + end[None, :], dim=1)
+            new_score = torch.where(r_t, start[None, :] + em[:, t], new_score)
+            bp = torch.where(r_t, seg_last[:, None].expand(B, T), bp)
+        score = new_score
+        history.append(bp)
     tag = torch.argmax(score + end[None, :], dim=1)
     tags = [tag]
     for bp in reversed(history):
@@ -53,6 +69,6 @@ class CRF(nn.Module):
             nn.init.uniform_(p, -0.1, 0.1, generator=gen)
             self.register_parameter(name, p)
 
-    def decode(self, emissions, mask):
+    def decode(self, emissions, mask, reset=None):
         return crf_decode(emissions, mask, self.start_transitions,
-                          self.end_transitions, self.transitions)
+                          self.end_transitions, self.transitions, reset=reset)

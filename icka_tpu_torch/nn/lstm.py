@@ -31,8 +31,14 @@ class BiLSTM(nn.Module):
     `mask` (B, L) {0,1}, optional: padding timesteps hold the recurrent
     state (h, c), so the backward direction enters each row's valid region
     with the zero state whatever the padding (`ICKAConfig.masked_lstm`).
-    None = torch nn.LSTM over the padded sequence. (The JAX module's
-    `reset_fwd`/`reset_bwd` packing resets and int8 modes are not ported.)
+    None = torch nn.LSTM over the padded sequence.
+
+    `reset_fwd` / `reset_bwd` (B, L) {0,1}, optional, for sequence packing:
+    the forward carry is zeroed before a token with `reset_fwd` set (a
+    segment's first token), the backward carry before a token with
+    `reset_bwd` set (a segment's last token), so each packed segment runs
+    the recurrence it would run alone. (The JAX module's int8 modes are not
+    ported.)
     """
 
     def __init__(self, in_dim: int, hidden: int, dtype=torch.float32,
@@ -52,7 +58,7 @@ class BiLSTM(nn.Module):
                 nn.init.uniform_(p, -k, k, generator=gen)
                 self.register_parameter(name, p)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, reset_fwd=None, reset_bwd=None):
         H, dt = self.hidden, self.dtype
         B, L, _ = x.shape
         w_ih = torch.cat([self.w_ih_fwd.T, self.w_ih_bwd.T], dim=1)
@@ -66,11 +72,20 @@ class BiLSTM(nn.Module):
         if mask is not None:
             m = mask.float()
             hold = torch.stack([m, m.flip(1)], dim=0)[..., None] > 0
+        reset = None
+        if reset_fwd is not None or reset_bwd is not None:
+            rf, rb = (torch.zeros(B, L, device=x.device) if r is None
+                      else r.float() for r in (reset_fwd, reset_bwd))
+            # the backward direction scans the flipped sequence
+            reset = torch.stack([rf, rb.flip(1)], dim=0)[..., None] > 0
 
         h = torch.zeros(2, B, H, device=x.device)
         c = torch.zeros(2, B, H, device=x.device)
         hs = []
         for t in range(L):
+            if reset is not None:
+                h = h.masked_fill(reset[:, :, t], 0.0)
+                c = c.masked_fill(reset[:, :, t], 0.0)
             gates = x_proj[:, :, t] + torch.bmm(h.to(dt).float(), w_hh) + b_hh
             i, f, g, o = gates.chunk(4, dim=-1)
             i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)

@@ -15,7 +15,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from icka_tpu.kernels.attention import fused_attention as jax_fused_attention  # noqa: E402
 from icka_tpu_torch.kernels.attention import (  # noqa: E402
-    _normalize_bias, attention_reference, fused_attention)
+    HEAD_DIMS, _check_kernel_inputs, _normalize_bias, attention_reference,
+    fused_attention)
 
 # fp32: summation order only (the TPU kernel's own test bound,
 # tests/test_kernels.py); bf16: outputs and probabilities rounded to bf16
@@ -57,6 +58,38 @@ def test_plain_version_matches_pallas_kernel(bias_kind, dtype):
     assert got.dtype == td
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 32])
+def test_plain_version_matches_pallas_kernel_at_head_width(hd, dtype):
+    """The head widths of the JAX package's own kernel tests, full bias."""
+    rng = np.random.default_rng(hd)
+    q, k, v = (rng.standard_normal((B, s, N * hd)).astype(np.float32)
+               for s in (SQ, SK, SK))
+    bias = rng.standard_normal((B, SQ, SK)).astype(np.float32)
+    jd, td = jnp.dtype(dtype), getattr(torch, dtype)
+    want = jax_fused_attention(jnp.asarray(q, jd), jnp.asarray(k, jd),
+                               jnp.asarray(v, jd), jnp.asarray(bias),
+                               num_heads=N, interpret=True)
+    got = attention_reference(*(torch.from_numpy(a).to(td) for a in (q, k, v)),
+                              torch.from_numpy(bias), N)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("hd", [8, 24, 144])
+def test_kernel_refuses_other_head_widths(hd):
+    """The kernels have an instance for every multiple of 16 up to 128; any
+    other width raises before a launch (checked on CPU tensors through the
+    wrapper's own gate, which CUDA tensors pass through)."""
+    assert HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128)
+    q = torch.zeros(1, 4, 2 * hd)
+    with pytest.raises(ValueError, match="multiple of 16 up to 128"):
+        _check_kernel_inputs("fused_attention", q, q, q, 2)
+    _check_kernel_inputs("fused_attention", torch.zeros(1, 4, 2 * 48),
+                         torch.zeros(1, 4, 2 * 48), torch.zeros(1, 4, 2 * 48),
+                         2)
 
 
 def test_wrapper_takes_plain_version_on_cpu():

@@ -1,6 +1,8 @@
 """The port's tests that need an NVIDIA GPU: each int8 conv kernel against
-its plain version, bit-equal, and the fused int8-static backbone against the
-same backbone on the plain versions.
+its plain version, bit-equal, the fused int8-static backbone against the
+same backbone on the plain versions, and the two attention kernels against
+their plain versions and against each other, within a stated tolerance. All
+six kernels are covered.
 
 This file imports only torch and the port, so it also runs on a machine that
 has a card but not the JAX package's dependencies:
@@ -13,6 +15,7 @@ Every test carries the `cuda` marker and skips without a card.
 import pytest
 import torch
 
+from icka_tpu_torch.kernels import attention as tattn
 from icka_tpu_torch.kernels import conv as tconv
 from icka_tpu_torch.models.convert import (calibration_amax,
                                            static_quantize_backbone)
@@ -180,3 +183,134 @@ def test_fused_backbone_equals_the_backbone_on_plain_versions(cuda_device):
     assert tuple(outs[0].shape) == (4, 2, 2, 512)
     assert outs[0].float().std() > 0
     assert torch.equal(*outs)
+
+
+# -- the attention kernels ----------------------------------------------------
+
+def _assert_attn_close(got, want):
+    """fp32: summation order only, max |got - want| <= 2e-5. bf16: outputs
+    and probabilities are rounded to bf16 (in K2 at exp(s - m_running), where
+    K1's plain version rounds the normalised p), so two right results differ
+    by a few bf16 steps of each output, and the outputs shrink with the
+    number of keys: every element within 6 steps of bf16 at its own size (a
+    step is 2^-7 of its power of two; no finer than at the rms of all
+    values), and an rms difference below 1e-2 of the values' rms (one
+    rounding each gives about 0.003)."""
+    diff = (got.float() - want.float()).abs()
+    if want.dtype == torch.float32:
+        assert diff.max().item() <= 2e-5
+        return
+    size = want.float().abs()
+    rms = size.square().mean().sqrt()
+    step = torch.exp2(torch.floor(torch.log2(torch.maximum(size, rms))) - 7)
+    assert (diff / step).max().item() <= 6
+    assert diff.square().mean().sqrt() <= 1e-2 * rms
+
+
+def _attn_case(dev, dtype, B, Sq, Sk, N, hd, bias_kind, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, s, N * hd, generator=gen).to(dev, dtype)
+               for s in (Sq, Sk, Sk))
+    key = torch.zeros(B, Sk)
+    key[:, Sk - 3:] = -10000.0
+    if bias_kind == "B11Sk":
+        bias = key[:, None, None, :]
+    elif bias_kind == "BSk":
+        bias = key
+    else:                    # block-diagonal, as the packed server's masks
+        slot = torch.arange(Sq)[:, None] * 3 // Sq
+        slot_k = torch.arange(Sk)[None, :] * 3 // Sk
+        bias = ((slot != slot_k) * -10000.0).expand(B, 1, Sq, Sk)
+    return q, k, v, bias.to(dev)
+
+
+def _max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 128])
+def test_fused_attention_at_other_head_widths(cuda_device, hd, dtype):
+    """K1 at the widths beside the main path's 64; ragged key tiles."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for kind in ("B11Sk", "full"):
+        q, k, v, bias = _attn_case(cuda_device, dtype, 3, 45, 70, 4, hd, kind)
+        before = tattn.fused_attention.launches
+        got = tattn.fused_attention(q, k, v, bias, 4)
+        torch.cuda.synchronize()
+        assert tattn.fused_attention.launches == before + 1
+        want = tattn.attention_reference(q, k, v, bias, 4)
+        _assert_attn_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias_kind", ["B11Sk", "BSk", "full"])
+@pytest.mark.parametrize("shape,hd,blocks", [
+    ((23, 23), 64, (128, 128)), ((150, 150), 64, (32, 32)),
+    ((172, 172), 64, (128, 128)), ((48, 256), 16, (16, 128)),
+    ((150, 23), 32, (64, 64)), ((300, 300), 128, (128, 128))])
+def test_blockwise_kernel_matches_plain_version_and_k1(
+        cuda_device, shape, hd, blocks, bias_kind, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, bias = _attn_case(cuda_device, dtype, 2, *shape, 4, hd,
+                               bias_kind)
+    before = tattn.fused_attention_blockwise.launches
+    got = tattn.fused_attention_blockwise(q, k, v, bias, 4, *blocks)
+    torch.cuda.synchronize()
+    assert tattn.fused_attention_blockwise.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = tattn.attention_blockwise_reference(q, k, v, bias, 4, *blocks)
+    _assert_attn_close(got, want)
+    _assert_attn_close(got, tattn.fused_attention(q, k, v, bias, 4))
+
+
+def test_blockwise_tilings_agree_on_card(cuda_device):
+    q, k, v, bias = _attn_case(cuda_device, torch.float32, 2, 150, 300, 4, 64,
+                               "BSk")
+    outs = [tattn.fused_attention_blockwise(q, k, v, bias, 4, bq, bk)
+            for bq, bk in ((32, 32), (16, 128), (128, 128))]
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        assert _max_err(outs[0], other) <= 2e-5
+
+
+def test_minus_inf_key_tiles_stay_finite(cuda_device):
+    """-inf over the first whole key tiles of every second row: both kernels
+    start the running maximum at -1e30, so p = 0 and alpha = 1 there."""
+    q, k, v, _ = _attn_case(cuda_device, torch.float32, 2, 40, 256, 2, 64,
+                            "BSk")
+    bias = torch.zeros(2, 40, 256, device=cuda_device)
+    bias[:, ::2, :128] = float("-inf")
+    k1 = tattn.fused_attention(q, k, v, bias, 2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(k1).all())
+    assert _max_err(k1, tattn.attention_reference(q, k, v, bias, 2)) <= 2e-5
+    for blocks in ((32, 128), (32, 32)):
+        got = tattn.fused_attention_blockwise(q, k, v, bias, 2, *blocks)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        want = tattn.attention_blockwise_reference(q, k, v, bias, 2, *blocks)
+        assert _max_err(got, want) <= 2e-5
+        assert _max_err(got, tattn.attention_reference(q, k, v, bias, 2)) \
+            <= 2e-5
+
+
+def test_attention_kernels_refuse_what_they_cannot_take(cuda_device):
+    """A CUDA tensor launches the kernel or raises: no silent plain path."""
+    q = torch.zeros(1, 8, 2 * 24, device=cuda_device)        # head width 24
+    bias = torch.zeros(1, 8, device=cuda_device)
+    counts = (tattn.fused_attention.launches,
+              tattn.fused_attention_blockwise.launches)
+    for fn in (tattn.fused_attention, tattn.fused_attention_blockwise):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            fn(q, q, q, bias, 2)
+        with pytest.raises(ValueError, match="several devices"):
+            fn(q, q, q, bias.cpu(), 2)
+        with pytest.raises(TypeError):
+            fn(q.half(), q.half(), q.half(), bias, 2)
+    strided = torch.zeros(1, 8, 64, device=cuda_device)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        tattn.fused_attention_blockwise(strided, strided, strided,
+                                        bias[:, ::2], 2)
+    assert counts == (tattn.fused_attention.launches,
+                      tattn.fused_attention_blockwise.launches)
