@@ -6,15 +6,18 @@
 Phases; any failure exits non-zero:
 
   1. build every CUDA kernel from `icka_tpu_torch/kernels/csrc` (one nvcc
-     per source, all started together) and print the card's name and power
-     limit as nvidia-smi gives them;
+     per source, all started together), count the tensor-core (HMMA)
+     instructions in the blockwise library, and print the card's name and
+     power limit as nvidia-smi gives them;
   2. hold every kernel against its plain PyTorch version on the card at the
-     main paths' shapes: K1 `fused_attention` in fp32 (TF32 off) and bf16
-     within a tolerance, at every head width it is built for; K2
-     `fused_attention_blockwise` against its plain version and against K1
-     over ragged and long shapes, three bias forms, three tilings and a -inf
-     key tile; K3-K6, the int8 conv kernels, bit-equal at the four ResNet
-     stage shapes in every output mode;
+     main paths' shapes: K1 `fused_attention` and K2
+     `fused_attention_blockwise` in fp32 (TF32 off) and bf16 within a
+     tolerance, at every head width they are built for and at three widths
+     they zero-pad (8, 24, 40; 144 must raise before any launch); K2 against
+     its plain version and against K1 over ragged and long shapes, three
+     bias forms, three tilings and a -inf key tile in both types; K3-K6, the
+     int8 conv kernels, bit-equal at the four ResNet stage shapes in every
+     output mode;
   3. serve requests through the flagship at full width (two 24-layer
      RoBERTa-large stacks, ResNet-152, random weights from `--seed`):
      uint8 images -> preprocess_images -> VisualBackbone ->
@@ -48,6 +51,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -91,6 +95,13 @@ BF16_STEPS = 6
 BF16_REL_RMS = 1e-2
 K2_SOURCE = "icka_tpu_torch/kernels/csrc/blockwise_attention.cu"
 K2_TILINGS = ((32, 32), (16, 128), (128, 128))
+# K2's times before its bf16 body moved to the tensor cores, B=128, 16x64
+# bf16, asked for (128, 128), by Sq=Sk (chip_smoke.py phase 6 as of the
+# third slice of the port, NVIDIA H100 80GB HBM3, 700.00 W). Recorded, not
+# measured here: printed on a comment line for comparison, never put in the
+# `kernels` line.
+K2_CUDA_CORE_MS = {150: 0.8847, 172: 1.3611, 512: 5.6154, 1024: 21.4974}
+PADDED_HEAD_DIMS = (8, 24, 40)    # widths the wrappers zero-pad
 PACKED_TIERS = ((48, 2), (128, 2))
 # full-width emissions, kernel vs plain core in fp32: summation order differs
 # in every self-attention of 48 layers, each product summing 64 terms and
@@ -223,11 +234,24 @@ def ptxas_rows(log: str):
     return rows
 
 
+def hmma_count(name: str) -> int:
+    """Tensor-core (HMMA) instructions in the SASS of a built library."""
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                           str(build.library_path(name))],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-500:]}")
+    return sum("HMMA" in line for line in sass.stdout.splitlines())
+
+
 def phase_build():
     t0 = time.perf_counter()
     build.build()
     print(f"# phase 1: built {list(build.SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s")
+    hmma = hmma_count("blockwise_attention")
+    print(f"#   blockwise_attention: {hmma} HMMA instructions in its SASS")
+    check(hmma > 0, "the blockwise library has no tensor-core instruction")
     for name in build.SOURCES:
         rows = ptxas_rows(build.build_log(name))
         print(f"#   {name}: {len(rows)} kernels, at most "
@@ -273,35 +297,55 @@ def phase_kernel_vs_plain(gen):
                       f"({share:.2f} of its bound)")
 
 
-def max_err(a, b):
-    return (a.float() - b.float()).abs().max().item()
-
-
-def phase_k1_head_widths(gen):
-    """K1 at every head width it has an instance for, beside the main
-    path's 64 (the JAX package's tests run 16 and 32)."""
-    print("# phase 2: K1 at head widths "
-          f"{[w for w in HEAD_DIMS if w != 64]} (B=8, 16 heads)")
-    for hd in (w for w in HEAD_DIMS if w != 64):
+def phase_head_widths(gen):
+    """K1 and K2 at every head width they have an instance for, beside the
+    main path's 64 (the JAX package's tests run 16 and 32), and at widths
+    the wrappers zero-pad to the next instance, each call one launch of its
+    kernel; a width above 128 raises before any launch."""
+    widths = [w for w in HEAD_DIMS if w != 64] + list(PADDED_HEAD_DIMS)
+    print(f"# phase 2: K1 and K2 at head widths {widths} (B=8, 16 heads; "
+          f"{list(PADDED_HEAD_DIMS)} zero-padded)")
+    for hd in widths:
         worst = {}
         for dtype in (torch.float32, torch.bfloat16):
             for Sq, Sk in ((23, 23), (150, 150), (150, 23)):
                 for kind in BIAS_KINDS:
                     q, k, v, bias = attention_inputs(8, Sq, Sk, dtype, kind,
                                                      gen, hd=hd)
-                    out = fused_attention(q, k, v, bias, 16)
-                    torch.cuda.synchronize()
-                    want = attention_reference(q, k, v, bias, 16)
-                    err, share = attention_close(
-                        out, want, f"K1 head_dim={hd} {dtype} Sq={Sq} "
-                                   f"Sk={Sk} {kind}")
-                    worst[dtype] = max(worst.get(dtype, (0.0, 0.0)),
-                                       (share, err))
-        print(f"#   head_dim {hd:3d}: 9 cases per type, the case nearest its "
-              f"bound: fp32 max_abs_err {worst[torch.float32][1]:.3e} "
-              f"({worst[torch.float32][0]:.2f} of it), bf16 "
-              f"{worst[torch.bfloat16][1]:.3e} "
-              f"({worst[torch.bfloat16][0]:.2f} of it)")
+                    for name, fn, plain in (
+                            ("K1", fused_attention, attention_reference),
+                            ("K2", fused_attention_blockwise,
+                             attention_blockwise_reference)):
+                        before = fn.launches
+                        out = fn(q, k, v, bias, 16)
+                        torch.cuda.synchronize()
+                        check(fn.launches == before + 1 and
+                              out.shape == q.shape and out.dtype == dtype,
+                              f"{name} head_dim={hd}: {fn.launches - before} "
+                              f"launches, {out.dtype} {tuple(out.shape)}")
+                        want = plain(q, k, v, bias, 16)
+                        err, share = attention_close(
+                            out, want, f"{name} head_dim={hd} {dtype} "
+                                       f"Sq={Sq} Sk={Sk} {kind}")
+                        key = (name, dtype)
+                        worst[key] = max(worst.get(key, (0.0, 0.0)),
+                                         (share, err))
+        print(f"#   head_dim {hd:3d}: 9 cases per kernel and type, the case "
+              f"nearest its bound: " + ", ".join(
+                  f"{name} {str(dt)[6:]} {worst[name, dt][1]:.3e} "
+                  f"({worst[name, dt][0]:.2f})"
+                  for name in ("K1", "K2")
+                  for dt in (torch.float32, torch.bfloat16)))
+    q = torch.zeros(1, 8, 2 * 144, device="cuda", dtype=torch.bfloat16)
+    before = read_counts()
+    for fn in (fused_attention, fused_attention_blockwise):
+        try:
+            fn(q, q, q, torch.zeros(1, 8, device="cuda"), 2)
+        except ValueError:
+            continue
+        raise SmokeFailure(f"{fn.__name__} took head_dim 144")
+    check(read_counts() == before, "head_dim 144 launched a kernel")
+    print("#   head_dim 144: K1 and K2 raise ValueError before any launch")
 
 
 def phase_blockwise_vs_plain(gen):
@@ -346,27 +390,31 @@ def phase_blockwise_vs_plain(gen):
                       f"({shares[0]:.2f} of its bound) vs K1 {worst[1]:.3e} "
                       f"({shares[1]:.2f})")
     # a caller's -inf over the first whole key tile of every second row
-    q, k, v, _ = attention_inputs(8, 150, 300, torch.float32, "BSk", gen)
     bias = torch.zeros(8, 150, 300, device="cuda")
     bias[:, ::2, :128] = float("-inf")
-    for blocks in K2_TILINGS:
-        out = fused_attention_blockwise(q, k, v, bias, 16, *blocks)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, _ = attention_inputs(8, 150, 300, dtype, "BSk", gen)
+        for blocks in K2_TILINGS:
+            out = fused_attention_blockwise(q, k, v, bias, 16, *blocks)
+            torch.cuda.synchronize()
+            what = f"K2 {dtype} -inf key tile, tiling {blocks}"
+            check(bool(torch.isfinite(out).all()),
+                  f"{what}: non-finite output")
+            attention_close(out, attention_blockwise_reference(
+                q, k, v, bias, 16, *blocks), f"{what} against its plain "
+                                             f"version")
+            attention_close(out, attention_reference(q, k, v, bias, 16),
+                            f"{what} against the one-shot softmax")
+            n += 1
+        k1 = fused_attention(q, k, v, bias, 16)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()),
-              f"K2 -inf key tile, tiling {blocks}: non-finite output")
-        errs = (max_err(out, attention_blockwise_reference(q, k, v, bias, 16,
-                                                           *blocks)),
-                max_err(out, attention_reference(q, k, v, bias, 16)))
-        check(max(errs) <= 2e-5, f"K2 -inf key tile, tiling {blocks}: {errs}")
-        n += 1
-    k1 = fused_attention(q, k, v, bias, 16)
-    torch.cuda.synchronize()
-    err = max_err(k1, attention_reference(q, k, v, bias, 16))
-    check(bool(torch.isfinite(k1).all()) and err <= 2e-5,
-          f"K1 -inf key tiles: max_abs_err {err}")
-    print(f"#   -inf over the first 128 keys of every second row: K2 and K1 "
-          f"finite, within 2e-5 of their plain versions and of the one-shot "
-          f"softmax; {n} K2 comparisons in all")
+        check(bool(torch.isfinite(k1).all()),
+              f"K1 {dtype} -inf key tiles: non-finite output")
+        attention_close(k1, attention_reference(q, k, v, bias, 16),
+                        f"K1 {dtype} -inf key tiles")
+    print(f"#   -inf over the first 128 keys of every second row: K2 and K1, "
+          f"fp32 and bf16, finite and within their bounds of their plain "
+          f"versions and of the one-shot softmax; {n} K2 comparisons in all")
 
 
 def _int8(gen, *shape, lo=-127):
@@ -1015,16 +1063,20 @@ def phase_blockwise_times(gen, k1_row, launches):
               f"({share:.2f} of its bound), vs K1 {err_k1:.3e} "
               f"({share_k1:.2f}); plain output max |value| {top:.3f}, std "
               f"{spread:.4f}")
-        print(f"#   Sq=Sk={S} bias={kind}: K2 {ms:.4f} ms at tiling {tiles}, "
-              f"K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        print(f"#   Sq=Sk={S} bias={kind}: K2 {ms:.4f} ms at tiling {tiles} "
+              f"(recorded CUDA-core time of the third slice "
+              f"{K2_CUDA_CORE_MS[S]:.4f} ms, {K2_CUDA_CORE_MS[S] / ms:.2f}x), "
+              f"{flops / ms / 1e9:.1f} "
+              f"TFLOP/s, K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+              f"{library_ms:.4f} ms ({ms / library_ms:.2f}x), bound "
+              f"{bound_ms:.4f} ms ({ms / bound_ms:.1f}x; {bound_by}: "
               f"{byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); other tilings "
               + ", ".join(f"{b} {t:.4f}" for b, t in others.items()) + " ms")
         vals = {"shape": f"B={B} Sq=Sk={S} {N}x{hd} bf16 bias={kind}",
                 "max_abs_err": err, "share_of_bound": share, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms,
-                "k1_ms": k1_ms}
+                "k1_ms": k1_ms, "tflops": flops / ms / 1e9}
         # the row proper is the longest shape, what the kernel is for
         row.update(vals if tag == "s1024" else
                    {f"{tag}_{key}": val for key, val in vals.items()})
@@ -1215,7 +1267,7 @@ def main(argv=None) -> int:
         dev, layers = torch.device("cuda", 0), (3, 8, 36, 3)
         card = phase_build()
         phase_kernel_vs_plain(gen)
-        phase_k1_head_widths(gen)
+        phase_head_widths(gen)
         phase_blockwise_vs_plain(gen)
         conv_errs = phase_conv_kernels_vs_plain(gen)
         counts, _, ctx = phase_slice(args, card, dev, ICKAConfig(), layers)

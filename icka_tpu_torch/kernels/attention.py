@@ -13,8 +13,11 @@ q (B, Sq, D), k/v (B, Sk, D), D = num_heads * head_dim, bias additive fp32
 of shape (B, 1, 1, Sk) (`additive_mask`), (B, Sk) or (B, Sq, Sk). Softmax
 is fp32. fp32 inputs give fp32 math; bf16 inputs give bf16 products with
 fp32 accumulation and probabilities rounded to bf16 before P.V. The output
-has q's dtype. The kernels take every head width that is a multiple of 16
-up to 128 (`HEAD_DIMS`).
+has q's dtype. The kernels have an instance for every head width that is a
+multiple of 16 up to 128 (`HEAD_DIMS`); the wrappers take every width up to
+128 and zero-pad each head of q, k and v to the next instance, with the
+unpadded width's scale (zero columns add exact zeros to every product), and
+drop the padded output columns. Wider heads raise.
 
 Each wrapper takes its plain version (`attention_reference`,
 `attention_blockwise_reference`) for tensors on the CPU, and only then. For
@@ -28,14 +31,17 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from icka_tpu_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = tuple(range(16, 129, 16))   # head widths with a kernel instance
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 BLOCK_SIZES = (32, 64, 128)  # query rows and keys per tile of the blockwise
 _SMEM_LIMIT = 232448         # bytes of shared memory a block can use (sm_90)
-_KV_ROW_PAD = 4              # elements of padding per staged K/V row
+_KV_ROW_PAD = 4              # fp32 body: elements of padding per K/V row
+_MMA_ROW_PAD = 8             # bf16 body: elements of padding per staged row
 _GRID_LIMIT = 65535          # grid.y (heads) and grid.z (batch)
 
 
@@ -108,14 +114,39 @@ def _check_kernel_inputs(name, q, k, v, num_heads):
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} kernel takes float32 or bfloat16 q/k/v of "
                         f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name} kernel takes a head_dim that is a multiple "
-                         f"of 16 up to 128, got {hd}")
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"{name} kernel takes a head_dim up to "
+                         f"{MAX_HEAD_DIM}, got {hd}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name} kernel needs contiguous q, k, v")
     if min(B, Sq, Sk) == 0 or max(B, num_heads) > _GRID_LIMIT:
         raise ValueError(f"{name} kernel cannot take B={B}, Sq={Sq}, "
                          f"Sk={Sk}, num_heads={num_heads}")
+
+
+def kernel_width(hd: int) -> int:
+    """The instance a head width runs on: the next multiple of 16."""
+    return -(-hd // 16) * 16
+
+
+def pad_heads(x, num_heads: int, width: int):
+    """(B, S, num_heads * hd) -> (B, S, num_heads * width): each head's
+    columns followed by width - hd zeros. x itself when width == hd."""
+    B, S, D = x.shape
+    hd = D // num_heads
+    if width == hd:
+        return x
+    return F.pad(x.view(B, S, num_heads, hd),
+                 (0, width - hd)).view(B, S, num_heads * width)
+
+
+def crop_heads(x, num_heads: int, hd: int):
+    """The inverse of `pad_heads`: the first hd columns of each head."""
+    B, S, D = x.shape
+    if D == num_heads * hd:
+        return x
+    return x.view(B, S, num_heads, D // num_heads)[..., :hd].reshape(
+        B, S, num_heads * hd)
 
 
 def fused_attention(q, k, v, bias, num_heads: int):
@@ -127,18 +158,20 @@ def fused_attention(q, k, v, bias, num_heads: int):
         return attention_reference(q, k, v, bias, num_heads)
     _check_kernel_inputs("fused_attention", q, k, v, num_heads)
     hd = D // num_heads
+    width = kernel_width(hd)
+    q, k, v = (pad_heads(t, num_heads, width) for t in (q, k, v))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            bias3.data_ptr(), out.data_ptr(), B, Sq, Sk, num_heads, hd,
+            bias3.data_ptr(), out.data_ptr(), B, Sq, Sk, num_heads, width,
             *bias3.stride(), hd ** -0.5, stream)
     if err:
         raise RuntimeError(f"fused_attention kernel launch failed: CUDA "
                            f"error {err}")
     fused_attention.launches += 1
-    return out
+    return crop_heads(out, num_heads, hd)
 
 
 fused_attention.launches = 0
@@ -158,10 +191,17 @@ def _snap(want: int, total: int) -> int:
     return sizes[0]
 
 
-def _smem_bytes(bq: int, bk: int, hd: int, elt: int) -> int:
-    """Shared memory of the kernel at this tiling (`smem_bytes` in
-    `csrc/blockwise_attention.cu`): fp32 query and probability tiles, the
-    key-bias strip, K and V tiles in the input type with padded rows."""
+def _smem_bytes(bq: int, bk: int, hd: int, dtype) -> int:
+    """Shared memory of the kernel at this tiling. bf16, the tensor-core
+    body (`mma_smem_bytes` in `csrc/blockwise_attention.cu`): the query
+    tile, two stages of K and V tiles with padded rows and two of the
+    key-bias strip. Otherwise the CUDA-core body (`smem_bytes` there): fp32
+    query and probability tiles, the key-bias strip, K and V tiles in the
+    input type with padded rows."""
+    if dtype == torch.bfloat16:
+        row = (hd + _MMA_ROW_PAD) * 2
+        return bq * row + 2 * (2 * bk * row + bk * 4)
+    elt = torch.empty((), dtype=dtype).element_size()
     return bq * hd * 4 + bq * bk * 4 + bk * 4 + 2 * bk * (hd + _KV_ROW_PAD) * elt
 
 
@@ -170,11 +210,12 @@ def blockwise_tiles(Sq: int, Sk: int, head_dim: int, dtype,
     """(bq, bk) the blockwise kernel runs for a request of (block_q,
     block_k): each snapped down to 32, 64 or 128, no larger than the
     sequence needs, and both halved (keys first) until the tiles fit a
-    block's shared memory. The sizes need not divide Sq or Sk: the
-    last tile of either dimension is masked."""
+    block's shared memory at the instance's width (`kernel_width`). The
+    sizes need not divide Sq or Sk: the last tile of either dimension is
+    masked."""
     bq, bk = _snap(block_q, Sq), _snap(block_k, Sk)
-    elt = torch.empty((), dtype=dtype).element_size()
-    while _smem_bytes(bq, bk, head_dim, elt) > _SMEM_LIMIT:
+    width = kernel_width(head_dim)
+    while _smem_bytes(bq, bk, width, dtype) > _SMEM_LIMIT:
         if bk > BLOCK_SIZES[0]:
             bk //= 2
         elif bq > BLOCK_SIZES[0]:
@@ -258,9 +299,11 @@ def fused_attention_blockwise(q, k, v, bias, num_heads: int,
         return attention_blockwise_reference(q, k, v, bias, num_heads,
                                              block_q, block_k)
     _check_kernel_inputs(name, q, k, v, num_heads)
+    hd = D // num_heads
+    width = kernel_width(hd)
+    q, k, v = (pad_heads(t, num_heads, width) for t in (q, k, v))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name} kernel needs q, k, v aligned to 16 bytes")
-    hd = D // num_heads
     bq, bk = blockwise_tiles(Sq, Sk, hd, q.dtype, block_q, block_k)
     strides = (b.stride(0), 0, b.stride(1)) if key_mode else b.stride()
     out = torch.empty_like(q)
@@ -268,12 +311,12 @@ def fused_attention_blockwise(q, k, v, bias, num_heads: int,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _blockwise_kernel()(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            b.data_ptr(), out.data_ptr(), B, Sq, Sk, num_heads, hd, bq, bk,
-            int(key_mode), *strides, hd ** -0.5, stream)
+            b.data_ptr(), out.data_ptr(), B, Sq, Sk, num_heads, width, bq,
+            bk, int(key_mode), *strides, hd ** -0.5, stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     fused_attention_blockwise.launches += 1
-    return out
+    return crop_heads(out, num_heads, hd)
 
 
 fused_attention_blockwise.launches = 0

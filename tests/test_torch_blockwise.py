@@ -20,8 +20,8 @@ import jax.numpy as jnp  # noqa: E402
 from icka_tpu.kernels.attention import (  # noqa: E402
     fused_attention_blockwise as jax_blockwise)
 from icka_tpu_torch.kernels.attention import (  # noqa: E402
-    _blockwise_bias, attention_blockwise_reference, attention_reference,
-    blockwise_tiles, fused_attention_blockwise)
+    BLOCK_SIZES, _blockwise_bias, _smem_bytes, attention_blockwise_reference,
+    attention_reference, blockwise_tiles, fused_attention_blockwise)
 
 TOL = {"float32": 2e-5, "bfloat16": 6e-2}
 
@@ -135,6 +135,19 @@ def test_tiles_snap_and_fit_shared_memory():
     assert blockwise_tiles(64, 65, 64, bf16) == (64, 128)
     # fp32 at head width 128: (128, 128) needs 267 KB, so keys are halved
     assert blockwise_tiles(1024, 1024, 128, f32) == (128, 64)
+
+
+@pytest.mark.parametrize("hd", [8, 40, 64, 128])
+def test_every_bf16_tiling_fits_at_every_head_width(hd):
+    """The tensor-core body stages bf16 rows (query tile, two stages of K
+    and V) and keeps the scores in registers: every (block_q, block_k) it
+    is asked for fits shared memory as asked, at every width up to 128
+    (padded widths at the instance's width)."""
+    for bq in BLOCK_SIZES:
+        for bk in BLOCK_SIZES:
+            assert blockwise_tiles(1024, 1024, hd, torch.bfloat16,
+                                   bq, bk) == (bq, bk)
+    assert _smem_bytes(128, 128, 128, torch.bfloat16) <= 232448
 
 
 def test_key_bias_stays_unbroadcast():

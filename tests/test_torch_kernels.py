@@ -14,9 +14,10 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from icka_tpu.kernels.attention import fused_attention as jax_fused_attention  # noqa: E402
+from icka_tpu_torch.kernels import attention as kattn  # noqa: E402
 from icka_tpu_torch.kernels.attention import (  # noqa: E402
-    HEAD_DIMS, _check_kernel_inputs, _normalize_bias, attention_reference,
-    fused_attention)
+    HEAD_DIMS, MAX_HEAD_DIM, _check_kernel_inputs, _normalize_bias,
+    attention_reference, crop_heads, fused_attention, kernel_width, pad_heads)
 
 # fp32: summation order only (the TPU kernel's own test bound,
 # tests/test_kernels.py); bf16: outputs and probabilities rounded to bf16
@@ -78,18 +79,53 @@ def test_plain_version_matches_pallas_kernel_at_head_width(hd, dtype):
                                np.asarray(want, np.float32), atol=TOL[dtype])
 
 
-@pytest.mark.parametrize("hd", [8, 24, 144])
+@pytest.mark.parametrize("hd", [8, 24, 40, 130, 144, 256])
 def test_kernel_refuses_other_head_widths(hd):
-    """The kernels have an instance for every multiple of 16 up to 128; any
-    other width raises before a launch (checked on CPU tensors through the
-    wrapper's own gate, which CUDA tensors pass through)."""
+    """The kernels have an instance for every multiple of 16 up to 128; a
+    narrower width in between runs on the next instance, zero-padded, and a
+    width above 128 raises before a launch (checked on CPU tensors through
+    the wrapper's own gate, which CUDA tensors pass through)."""
     assert HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128)
+    assert MAX_HEAD_DIM == 128
     q = torch.zeros(1, 4, 2 * hd)
-    with pytest.raises(ValueError, match="multiple of 16 up to 128"):
+    if hd > MAX_HEAD_DIM:
+        with pytest.raises(ValueError, match="head_dim up to 128"):
+            _check_kernel_inputs("fused_attention", q, q, q, 2)
+    else:
         _check_kernel_inputs("fused_attention", q, q, q, 2)
+        assert kernel_width(hd) in HEAD_DIMS
+        assert 0 < kernel_width(hd) - hd < 16
     _check_kernel_inputs("fused_attention", torch.zeros(1, 4, 2 * 48),
                          torch.zeros(1, 4, 2 * 48), torch.zeros(1, 4, 2 * 48),
                          2)
+
+
+@pytest.mark.parametrize("plain", ["attention_reference",
+                                   "attention_blockwise_reference"])
+@pytest.mark.parametrize("hd", [8, 24, 40])
+def test_zero_padded_heads_are_the_same_function(hd, plain):
+    """What the wrappers do for a width without an instance: each head of
+    q, k and v zero-padded to the next multiple of 16, the unpadded width's
+    scale, the padded output columns dropped. Zero columns add exact zeros to
+    every product, so the plain version on the padded tensors equals the
+    plain version on the unpadded ones. The plain version scales by the
+    padded width, so q is scaled by (width / hd) ** 0.5 to give it hd's."""
+    fn = getattr(kattn, plain)
+    rng = np.random.default_rng(hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, s, N * hd))
+                                .astype(np.float32)) for s in (SQ, SK, SK))
+    bias = torch.from_numpy(rng.standard_normal((B, SQ, SK))
+                            .astype(np.float32))
+    width = kernel_width(hd)
+    padded = [pad_heads(t, N, width) for t in (q, k, v)]
+    assert padded[0].shape == (B, SQ, N * width)
+    assert torch.equal(crop_heads(padded[1], N, hd), k)
+    assert not padded[2].view(B, SK, N, width)[..., hd:].any()
+    padded[0] = padded[0] * (width / hd) ** 0.5
+    got = crop_heads(fn(*padded, bias, N), N, hd)
+    want = fn(q, k, v, bias, N)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-6
 
 
 def test_wrapper_takes_plain_version_on_cpu():

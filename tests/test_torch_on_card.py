@@ -274,35 +274,35 @@ def test_blockwise_tilings_agree_on_card(cuda_device):
         assert _max_err(outs[0], other) <= 2e-5
 
 
-def test_minus_inf_key_tiles_stay_finite(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_minus_inf_key_tiles_stay_finite(cuda_device, dtype):
     """-inf over the first whole key tiles of every second row: both kernels
-    start the running maximum at -1e30, so p = 0 and alpha = 1 there."""
-    q, k, v, _ = _attn_case(cuda_device, torch.float32, 2, 40, 256, 2, 64,
-                            "BSk")
+    (K2 in bf16 on its tensor-core body) start the running maximum at
+    -1e30, so p = 0 and alpha = 1 there."""
+    q, k, v, _ = _attn_case(cuda_device, dtype, 2, 40, 256, 2, 64, "BSk")
     bias = torch.zeros(2, 40, 256, device=cuda_device)
     bias[:, ::2, :128] = float("-inf")
     k1 = tattn.fused_attention(q, k, v, bias, 2)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(k1).all())
-    assert _max_err(k1, tattn.attention_reference(q, k, v, bias, 2)) <= 2e-5
-    for blocks in ((32, 128), (32, 32)):
+    _assert_attn_close(k1, tattn.attention_reference(q, k, v, bias, 2))
+    for blocks in ((32, 128), (32, 32), (64, 64)):
         got = tattn.fused_attention_blockwise(q, k, v, bias, 2, *blocks)
         torch.cuda.synchronize()
         assert bool(torch.isfinite(got).all())
-        want = tattn.attention_blockwise_reference(q, k, v, bias, 2, *blocks)
-        assert _max_err(got, want) <= 2e-5
-        assert _max_err(got, tattn.attention_reference(q, k, v, bias, 2)) \
-            <= 2e-5
+        _assert_attn_close(got, tattn.attention_blockwise_reference(
+            q, k, v, bias, 2, *blocks))
+        _assert_attn_close(got, tattn.attention_reference(q, k, v, bias, 2))
 
 
 def test_attention_kernels_refuse_what_they_cannot_take(cuda_device):
     """A CUDA tensor launches the kernel or raises: no silent plain path."""
-    q = torch.zeros(1, 8, 2 * 24, device=cuda_device)        # head width 24
+    q = torch.zeros(1, 8, 2 * 144, device=cuda_device)       # head width 144
     bias = torch.zeros(1, 8, device=cuda_device)
     counts = (tattn.fused_attention.launches,
               tattn.fused_attention_blockwise.launches)
     for fn in (tattn.fused_attention, tattn.fused_attention_blockwise):
-        with pytest.raises(ValueError, match="multiple of 16"):
+        with pytest.raises(ValueError, match="head_dim up to 128"):
             fn(q, q, q, bias, 2)
         with pytest.raises(ValueError, match="several devices"):
             fn(q, q, q, bias.cpu(), 2)
@@ -314,3 +314,76 @@ def test_attention_kernels_refuse_what_they_cannot_take(cuda_device):
                                         bias[:, ::2], 2)
     assert counts == (tattn.fused_attention.launches,
                       tattn.fused_attention_blockwise.launches)
+
+
+@pytest.mark.parametrize("hd", [8, 24, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padded_head_widths_run_both_kernels(cuda_device, dtype, hd):
+    """A width without an instance runs on the next one, zero-padded: one
+    launch of each kernel, the plain versions' result on the unpadded
+    tensors."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for kind in ("B11Sk", "full"):
+        q, k, v, bias = _attn_case(cuda_device, dtype, 2, 45, 70, 4, hd, kind)
+        for fn, plain in ((tattn.fused_attention, tattn.attention_reference),
+                          (tattn.fused_attention_blockwise,
+                           tattn.attention_blockwise_reference)):
+            before = fn.launches
+            got = fn(q, k, v, bias, 4)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1
+            assert got.dtype == dtype and got.shape == q.shape
+            _assert_attn_close(got, plain(q, k, v, bias, 4))
+
+
+@pytest.mark.parametrize("hd", list(tattn.HEAD_DIMS) + [8, 40])
+def test_blockwise_bf16_at_every_head_width(cuda_device, hd):
+    """K2's tensor-core body at every instance's width and two padded ones,
+    a ragged last tile in both dimensions, key and full bias."""
+    for kind, blocks in (("BSk", (64, 128)), ("full", (128, 64))):
+        q, k, v, bias = _attn_case(cuda_device, torch.bfloat16, 2, 150, 200,
+                                   4, hd, kind, seed=hd)
+        before = tattn.fused_attention_blockwise.launches
+        got = tattn.fused_attention_blockwise(q, k, v, bias, 4, *blocks)
+        torch.cuda.synchronize()
+        assert tattn.fused_attention_blockwise.launches == before + 1
+        _assert_attn_close(got, tattn.attention_blockwise_reference(
+            q, k, v, bias, 4, *blocks))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sk,blocks", [(129, (128, 128)), (65, (32, 64)),
+                                       (33, (64, 32))])
+def test_blockwise_last_key_tile_of_one_key(cuda_device, Sk, blocks, dtype):
+    """Sk one past a multiple of the key tile: the last tile holds one key,
+    its other rows arrive as zeros and score -inf."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, bias = _attn_case(cuda_device, dtype, 2, 70, Sk, 4, 64, "BSk")
+    got = tattn.fused_attention_blockwise(q, k, v, bias, 4, *blocks)
+    torch.cuda.synchronize()
+    assert tattn.blockwise_tiles(70, Sk, 64, dtype, *blocks)[1] == Sk - 1
+    assert bool(torch.isfinite(got).all())
+    _assert_attn_close(got, tattn.attention_blockwise_reference(
+        q, k, v, bias, 4, *blocks))
+
+
+def test_bf16_blockwise_raises_rather_than_launch_another_body(cuda_device):
+    """A bf16 CUDA tensor reaches the tensor-core body or raises: a view two
+    bytes past a 16-byte boundary (cp.async needs 16) is refused before any
+    launch at an instance's width; at a padded width the kernel reads the
+    padded copies, fresh aligned allocations, and launches."""
+    bias = torch.zeros(1, 8, device=cuda_device)
+    before = tattn.fused_attention_blockwise.launches
+    for hd in (64, 40):
+        flat = torch.zeros(8 * 2 * hd + 1, device=cuda_device,
+                           dtype=torch.bfloat16)
+        q = flat[1:].view(1, 8, 2 * hd)
+        assert q.is_contiguous() and q.data_ptr() % 16 == 2
+        if hd % 16 == 0:
+            with pytest.raises(ValueError, match="aligned to 16 bytes"):
+                tattn.fused_attention_blockwise(q, q, q, bias, 2)
+        else:       # the padded copies are fresh, aligned allocations
+            tattn.fused_attention_blockwise(q, q, q, bias, 2)
+            before += 1
+    torch.cuda.synchronize()
+    assert tattn.fused_attention_blockwise.launches == before
