@@ -6,14 +6,17 @@
 Phases; any failure exits non-zero:
 
   1. build every CUDA kernel from `icka_tpu_torch/kernels/csrc` (one nvcc
-     per source, all started together), count the tensor-core (HMMA)
-     instructions in the blockwise library, and print the card's name and
+     per source, all started together), count the tensor-core instructions
+     in the blockwise library (HMMA) and in the int8 library (IMMA, and no
+     dp4a left), check that K1's own source has no bf16 instance, print
+     registers and spills of every instance, and print the card's name and
      power limit as nvidia-smi gives them;
   2. hold every kernel against its plain PyTorch version on the card at the
-     main paths' shapes: K1 `fused_attention` and K2
-     `fused_attention_blockwise` in fp32 (TF32 off) and bf16 within a
-     tolerance, at every head width they are built for and at three widths
-     they zero-pad (8, 24, 40; 144 must raise before any launch); K2 against
+     main paths' shapes: K1 `fused_attention` (bf16 on the blockwise
+     kernel's tensor-core body) and K2 `fused_attention_blockwise` in fp32
+     (TF32 off) and bf16 within a tolerance, at every head width they are
+     built for (up to 256) and at four widths they zero-pad (8, 24, 40,
+     144; 272 must raise before any launch); K2 against
      its plain version and against K1 over ragged and long shapes, three
      bias forms, three tilings and a -inf key tile in both types; K3-K6, the
      int8 conv kernels, bit-equal at the four ResNet stage shapes in every
@@ -35,8 +38,10 @@ Phases; any failure exits non-zero:
      times per device batch on block-diagonal (B, 1, L, L) masks; tags must
      agree with the plain-core packed path and with the bucketed server;
   6. time each kernel at its main-path shape beside its plain version, the
-     PyTorch library call for the same function where there is one, and its
-     bound; time the served requests end to end.
+     PyTorch library call for the same function where there is one, its
+     bound and its recorded time before this slice's redesign (comment lines
+     only); K1's tensor-core tilings; K1 and K2 in fp32 at K1's two shapes;
+     time the served requests end to end.
 
 The line before the last is the `{"kernels": [...]}` JSON object; the last
 line is `{"ok": true, "device": {...}}`. Needs CUDA; imports nothing of JAX.
@@ -63,7 +68,7 @@ from icka_tpu_torch.data.images import preprocess_images
 from icka_tpu_torch.kernels import build
 from icka_tpu_torch.kernels import conv as kconv
 from icka_tpu_torch.kernels.attention import (
-    HEAD_DIMS, attention_blockwise_reference, attention_reference,
+    HEAD_DIMS, K1_TILES, attention_blockwise_reference, attention_reference,
     blockwise_tiles, fused_attention, fused_attention_blockwise)
 from icka_tpu_torch.models.convert import (calibration_amax,
                                            static_quantize_backbone)
@@ -101,7 +106,15 @@ K2_TILINGS = ((32, 32), (16, 128), (128, 128))
 # measured here: printed on a comment line for comparison, never put in the
 # `kernels` line.
 K2_CUDA_CORE_MS = {150: 0.8847, 172: 1.3611, 512: 5.6154, 1024: 21.4974}
-PADDED_HEAD_DIMS = (8, 24, 40)    # widths the wrappers zero-pad
+# K1's bf16 times on its CUDA-core body, B=128, 16x64, key bias at 150,
+# full block-diagonal bias at 172 (chip_smoke.py phase 6 as of the fifth
+# slice of the port, NVIDIA H100 80GB HBM3, 700.00 W): recorded, printed on
+# comment lines for comparison only. And the tilings of its tensor-core body
+# timed beside K1_TILES.
+K1_CUDA_CORE_MS = {150: 1.0643, 172: 1.2439}
+K1_TILINGS = ((64, 64), (128, 64), (64, 32), (32, 64))
+PADDED_HEAD_DIMS = (8, 24, 40, 144)    # widths the wrappers zero-pad
+TOO_WIDE = 272                    # the first width the wrappers refuse
 PACKED_TIERS = ((48, 2), (128, 2))
 # full-width emissions, kernel vs plain core in fp32: summation order differs
 # in every self-attention of 48 layers, each product summing 64 terms and
@@ -114,6 +127,12 @@ OFFSET, MASK_POSITIONS, MAX_BATCH, REQUESTS = 14, (3, 11), 8, 16
 CONV_STAGES = ((56, 64), (28, 128), (14, 256), (7, 512))    # (H, Cw)
 CONV_SOURCE = "icka_tpu_torch/kernels/csrc/int8_conv.cu"
 CHECK_CONV_LAUNCHES = True        # a CPU rehearsal launches no kernel
+# K3-K6 at B=128 with their main loop on dp4a (chip_smoke.py phase 6 as of
+# the fifth slice of the port, NVIDIA H100 80GB HBM3, 700.00 W): recorded,
+# printed on comment lines for comparison only
+CONV_DP4A_MS = {"int8_stem_pool": 1.5628, "int8_bottleneck_v2 H=14": 0.7419,
+                "int8_bottleneck_v2 H=56": 1.2492, "int8_bottleneck": 0.7461,
+                "int8_conv3x3": 0.3133}
 # att of the int8-static ResNet-152 (50 blocks, random weights, BatchNorm
 # statistics calibrated on the request images), as cosines. The JAX
 # package's test holds a 2-stage net to 0.995 (fused vs unfused) and 0.99
@@ -217,13 +236,22 @@ def attention_inputs(B, Sq, Sk, dtype, bias_kind, gen, N=16, hd=64,
 
 def ptxas_rows(log: str):
     """(kernel, registers, static shared bytes, spill bytes) of every entry
-    function in nvcc's `-Xptxas -v` output. A kernel is named by its element
-    type and the integers of its template arguments."""
+    function in nvcc's `-Xptxas -v` output. A kernel is named by its
+    function, its element type where it has one and the integers of its
+    template arguments."""
     rows, name, spill = [], "", 0
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            name = (("bf16" if "bfloat16" in mangled else "fp32") + " <"
+            # the nested name's length-prefixed parts; the kernel's is last
+            base, pos = mangled, 3 if mangled.startswith("_ZN") else 2
+            while (m := re.match(r"\d+", mangled[pos:])):
+                pos += m.end()
+                base = mangled[pos:pos + int(m.group())]
+                pos += len(base)
+            dtype = ("bf16 " if "bfloat16" in mangled else
+                     "fp32 " if re.search(r"IfL", mangled) else "")
+            name = (f"{base} {dtype}<"
                     + ",".join(re.findall(r"Li(\d+)E", mangled)) + ">")
         elif "spill stores" in line:
             spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
@@ -234,14 +262,19 @@ def ptxas_rows(log: str):
     return rows
 
 
-def hmma_count(name: str) -> int:
-    """Tensor-core (HMMA) instructions in the SASS of a built library."""
+def sass_counts(name: str, opcodes) -> dict:
+    """How many instructions of each opcode prefix (HMMA: bf16/fp16 tensor
+    cores, IMMA: int8 tensor cores, IDP: dp4a on the CUDA cores) the SASS
+    of a built library holds."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass",
                            str(build.library_path(name))],
                           capture_output=True, text=True, timeout=300)
     check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-500:]}")
-    return sum("HMMA" in line for line in sass.stdout.splitlines())
+    ops = [line.split(";")[0].split() for line in sass.stdout.splitlines()
+           if "*/" in line and ";" in line]
+    words = [w for op in ops for w in op]
+    return {code: sum(w.startswith(code) for w in words) for code in opcodes}
 
 
 def phase_build():
@@ -249,18 +282,25 @@ def phase_build():
     build.build()
     print(f"# phase 1: built {list(build.SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s")
-    hmma = hmma_count("blockwise_attention")
+    hmma = sass_counts("blockwise_attention", ("HMMA",))["HMMA"]
     print(f"#   blockwise_attention: {hmma} HMMA instructions in its SASS")
     check(hmma > 0, "the blockwise library has no tensor-core instruction")
+    conv = sass_counts("int8_conv", ("IMMA", "IDP"))
+    print(f"#   int8_conv: {conv['IMMA']} IMMA instructions in its SASS, "
+          f"{conv['IDP']} IDP (dp4a)")
+    check(conv["IMMA"] > 0, "the int8 library has no tensor-core instruction")
+    check(conv["IDP"] == 0, "the int8 library still multiplies with dp4a")
     for name in build.SOURCES:
         rows = ptxas_rows(build.build_log(name))
         print(f"#   {name}: {len(rows)} kernels, at most "
               f"{max(r[1] for r in rows)} registers, "
               f"{sum(r[3] for r in rows)} bytes of spills in all")
-        if name == "blockwise_attention":
-            for what, regs, smem, spill in rows:
-                print(f"#     {what}: {regs} registers, {smem} bytes static "
-                      f"smem, {spill} bytes spilled")
+        if name == "fused_attention":
+            check(not any("bf16" in r[0] for r in rows),
+                  "fused_attention.cu still has a bf16 instance")
+        for what, regs, smem, spill in rows:
+            print(f"#     {what}: {regs} registers, {smem} bytes static "
+                  f"smem, {spill} bytes spilled")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -301,7 +341,7 @@ def phase_head_widths(gen):
     """K1 and K2 at every head width they have an instance for, beside the
     main path's 64 (the JAX package's tests run 16 and 32), and at widths
     the wrappers zero-pad to the next instance, each call one launch of its
-    kernel; a width above 128 raises before any launch."""
+    kernel; a width above 256 raises before any launch."""
     widths = [w for w in HEAD_DIMS if w != 64] + list(PADDED_HEAD_DIMS)
     print(f"# phase 2: K1 and K2 at head widths {widths} (B=8, 16 heads; "
           f"{list(PADDED_HEAD_DIMS)} zero-padded)")
@@ -336,16 +376,17 @@ def phase_head_widths(gen):
                   f"({worst[name, dt][0]:.2f})"
                   for name in ("K1", "K2")
                   for dt in (torch.float32, torch.bfloat16)))
-    q = torch.zeros(1, 8, 2 * 144, device="cuda", dtype=torch.bfloat16)
+    q = torch.zeros(1, 8, 2 * TOO_WIDE, device="cuda", dtype=torch.bfloat16)
     before = read_counts()
     for fn in (fused_attention, fused_attention_blockwise):
         try:
             fn(q, q, q, torch.zeros(1, 8, device="cuda"), 2)
         except ValueError:
             continue
-        raise SmokeFailure(f"{fn.__name__} took head_dim 144")
-    check(read_counts() == before, "head_dim 144 launched a kernel")
-    print("#   head_dim 144: K1 and K2 raise ValueError before any launch")
+        raise SmokeFailure(f"{fn.__name__} took head_dim {TOO_WIDE}")
+    check(read_counts() == before, f"head_dim {TOO_WIDE} launched a kernel")
+    print(f"#   head_dim {TOO_WIDE}: K1 and K2 raise ValueError before any "
+          f"launch")
 
 
 def phase_blockwise_vs_plain(gen):
@@ -618,7 +659,7 @@ def device_profile(fn, top=8):
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     rows = sorted(kernels, key=dev_us, reverse=True)[:top]
     rows += [e for e in kernels
-             if "fused_attention_kernel" in e.key and e not in rows]
+             if "attention" in e.key and "kernel" in e.key and e not in rows]
     return (sum(dev_us(e) for e in kernels) / 1e6,
             [(e.key, dev_us(e) / 1e3, e.count) for e in rows])
 
@@ -1087,15 +1128,29 @@ def phase_blockwise_times(gen, k1_row, launches):
                     q, k, v, bias, N), iters=3, warmup=1),
                 packed_bound_ms=bound_ms, packed_bound_by=bound_by,
                 packed_library_ms=library_ms)
-            print(f"#   K1's plain version at this shape: "
-                  f"{k1_row['packed_plain_ms']:.4f} ms")
+            tilings = k1_tiling_ms(q, k, v, bias, N, iters)
+            print(f"#   K1 at this shape: {k1_ms:.4f} ms "
+                  f"({k1_ms / library_ms:.2f}x SDPA; recorded CUDA-core "
+                  f"time of the fifth slice "
+                  f"{K1_CUDA_CORE_MS[S]:.4f} ms, "
+                  f"{K1_CUDA_CORE_MS[S] / k1_ms:.2f}x), its plain version "
+                  f"{k1_row['packed_plain_ms']:.4f} ms; tilings "
+                  + ", ".join(f"{b} {t:.4f}" for b, t in tilings.items())
+                  + " ms")
     return row
+
+
+def k1_tiling_ms(q, k, v, bias, N, iters):
+    """The tensor-core body at each of `K1_TILINGS` on K1's inputs, through
+    K2's wrapper (the same kernel; K1 runs `K1_TILES`)."""
+    return {blocks: cuda_time_ms(lambda: fused_attention_blockwise(
+        q, k, v, bias, N, *blocks), iters=iters) for blocks in K1_TILINGS}
 
 
 def phase_times(gen, launches, packed_launches, k2_launches):
     B, S, N, hd, dtype = 128, 150, 16, 64, torch.bfloat16
     print(f"# phase 6: K1 at the main-path shape B={B} Sq=Sk={S} {N}x{hd} "
-          f"bf16, key-mask bias")
+          f"bf16, key-mask bias (the tensor-core body at {K1_TILES})")
     q, k, v, bias = attention_inputs(B, S, S, dtype, "B11Sk", gen)
     out = fused_attention(q, k, v, bias, N)
     want = attention_reference(q, k, v, bias, N)
@@ -1105,8 +1160,9 @@ def phase_times(gen, launches, packed_launches, k2_launches):
     plain_ms = cuda_time_ms(lambda: attention_reference(q, k, v, bias, N))
     library_ms = sdpa_ms(q, k, v, bias, N, 50)
     bound_ms, bound_by, byts, flops = attention_bound(q, k, bias, N)
-    row = {"name": "fused_attention", "route": "cuda",
-           "source": "icka_tpu_torch/kernels/csrc/fused_attention.cu",
+    tilings = k1_tiling_ms(q, k, v, bias, N, 50)
+    row = {"name": "fused_attention", "route": "cuda", "source": K2_SOURCE,
+           "fp32_source": "icka_tpu_torch/kernels/csrc/fused_attention.cu",
            "replaces": "icka_tpu/kernels/attention.py:87",
            "launches": launches, "packed_launches": packed_launches,
            "max_abs_err": err, "share_of_bound": share, "ms": ms,
@@ -1114,10 +1170,56 @@ def phase_times(gen, launches, packed_launches, k2_launches):
            "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": library_ms, "on_main_path": launches > 0}
     print(f"#   max_abs_err {err:.3e} ({share:.2f} of its bound); kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+          f"{ms:.4f} ms ({ms / library_ms:.2f}x SDPA; recorded CUDA-core "
+          f"time of the fifth slice {K1_CUDA_CORE_MS[S]:.4f} ms, "
+          f"{K1_CUDA_CORE_MS[S] / ms:.2f}x), plain {plain_ms:.4f} ms, SDPA "
           f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}: {byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-    return [row, phase_blockwise_times(gen, row, k2_launches)]
+          f"({bound_by}: {byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+          f"tilings " + ", ".join(f"{b} {t:.4f}" for b, t in tilings.items())
+          + " ms")
+    rows = [row, phase_blockwise_times(gen, row, k2_launches)]
+    phase_fp32_times(gen, *rows)
+    return rows
+
+
+def phase_fp32_times(gen, k1_row, k2_row):
+    """K1 and K2 in fp32 at K1's two serving shapes beside their plain
+    versions, SDPA in fp32 (TF32 off) and the fp32 bound (bytes / 3.35 TB/s
+    against FLOPs / 67 TFLOP/s); adds `fp32_*` keys to both rows."""
+    B, N, hd, dtype = 128, 16, 64, torch.float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"# phase 6: K1 and K2 in fp32 at B={B}, {N} heads of {hd} (TF32 "
+          f"off); bound = max(bytes / 3.35e12, flops / 67e12)")
+    for tag, S, kind in (("s150", 150, "B11Sk"), ("s172_full", 172,
+                                                  "packed")):
+        q, k, v, bias = attention_inputs(B, S, S, dtype, kind, gen)
+        if kind == "packed":
+            bias = bias.contiguous()
+        want = attention_reference(q, k, v, bias, N)
+        bound_ms, bound_by, byts, flops = attention_bound(q, k, bias, N)
+        library_ms = sdpa_ms(q, k, v, bias, N, 20)
+        plain = {"K1": lambda: attention_reference(q, k, v, bias, N),
+                 "K2": lambda: attention_blockwise_reference(q, k, v, bias,
+                                                             N)}
+        for name, fn, row in (("K1", fused_attention, k1_row),
+                              ("K2", fused_attention_blockwise, k2_row)):
+            out = fn(q, k, v, bias, N)
+            torch.cuda.synchronize()
+            err, _ = attention_close(out, want, f"{name} fp32 S={S} {kind}")
+            del out
+            ms = cuda_time_ms(lambda: fn(q, k, v, bias, N), iters=20)
+            plain_ms = cuda_time_ms(plain[name], iters=3, warmup=1)
+            row.update({f"fp32_{tag}_{key}": val for key, val in (
+                ("shape", f"B={B} Sq=Sk={S} {N}x{hd} fp32 bias={kind}"),
+                ("max_abs_err", err), ("ms", ms), ("plain_ms", plain_ms),
+                ("bound_ms", bound_ms), ("bound_by", bound_by),
+                ("library_ms", library_ms))})
+            print(f"#   {name} fp32 Sq=Sk={S} bias={kind}: max_abs_err "
+                  f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"SDPA {library_ms:.4f} ms ({ms / library_ms:.2f}x), bound "
+                  f"{bound_ms:.4f} ms ({ms / bound_ms:.1f}x; {bound_by}: "
+                  f"{byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        del q, k, v, bias, want
 
 
 def nbytes(*tensors):
@@ -1125,7 +1227,7 @@ def nbytes(*tensors):
 
 
 def conv_row(name, replaces, shape, launches, err, ms, plain_ms, unfused_ms,
-             byts, ops):
+             byts, ops, dp4a_ms):
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_INT8_OPS * 1e3
     row = {"name": name, "route": "cuda", "source": CONV_SOURCE,
@@ -1137,7 +1239,9 @@ def conv_row(name, replaces, shape, launches, err, ms, plain_ms, unfused_ms,
     print(f"#   {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"unfused port path {unfused_ms:.4f} ms, bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {byts / 1e6:.1f} MB,"
-          f" {ops / 1e9:.2f} GOP); no single PyTorch call computes it")
+          f" {ops / 1e9:.2f} GOP); no single PyTorch call computes it; "
+          f"recorded dp4a time of the fifth slice {dp4a_ms:.4f} ms "
+          f"({dp4a_ms / ms:.2f}x)")
     return row
 
 
@@ -1186,7 +1290,8 @@ def phase_conv_times(gen, launches, errs, B=128):
         f"B={B} patches (56,56,{K}) -> (56,56,{N // 4}) bf16",
         launches["int8_stem_pool"],
         max(err, errs["int8_stem_pool"]), ms, plain_ms, unfused_ms,
-        nbytes(*args) + out_bytes, 2 * B * 56 * 56 * K * N))
+        nbytes(*args) + out_bytes, 2 * B * 56 * 56 * K * N,
+        CONV_DP4A_MS["int8_stem_pool"]))
     del args, pixels
 
     # K4 at layer3 and layer1, K6 at layer3
@@ -1208,7 +1313,8 @@ def phase_conv_times(gen, launches, errs, B=128):
         k4_rows[H] = conv_row(
             "int8_bottleneck_v2", "icka_tpu/kernels/conv.py:377", shape,
             launches["int8_bottleneck_v2"],
-            max(t[0], errs["int8_bottleneck_v2"]), *t[1:], byts, ops)
+            max(t[0], errs["int8_bottleneck_v2"]), *t[1:], byts, ops,
+            CONV_DP4A_MS[f"int8_bottleneck_v2 H={H}"])
         if H == 14:
             t = timed(lambda: kconv.int8_bottleneck(*args, 0.37),
                       lambda: kconv.bottleneck_reference(*args, 0.37),
@@ -1216,7 +1322,8 @@ def phase_conv_times(gen, launches, errs, B=128):
             k6_row = conv_row(
                 "int8_bottleneck", "icka_tpu/kernels/conv.py:204", shape,
                 launches["int8_bottleneck"],
-                max(t[0], errs["int8_bottleneck"]), *t[1:], byts, ops)
+                max(t[0], errs["int8_bottleneck"]), *t[1:], byts, ops,
+                CONV_DP4A_MS["int8_bottleneck"])
         del args, x16
     with torch.inference_mode():           # the serving batch, per stage
         per_stage = []
@@ -1249,7 +1356,8 @@ def phase_conv_times(gen, launches, errs, B=128):
         f"B={B} x_pad ({H + 2},{H + 2},{C}) -> ({H},{H},{C}) bf16",
         launches["int8_conv3x3"],
         max(t[0], errs["int8_conv3x3"]), *t[1:],
-        nbytes(*args) + B * H * H * C * 2, 2 * B * H * H * 9 * C * C))
+        nbytes(*args) + B * H * H * C * 2, 2 * B * H * H * 9 * C * C,
+        CONV_DP4A_MS["int8_conv3x3"]))
     return rows
 
 

@@ -1,11 +1,10 @@
 """Fused multi-head attention: two hand-written CUDA kernels for Hopper and
 their plain PyTorch versions.
 
-`fused_attention` (`csrc/fused_attention.cu`) replaces
-`icka_tpu/kernels/attention.py::fused_attention`, the Pallas TPU kernel for
-short sequences; `fused_attention_blockwise` (`csrc/blockwise_attention.cu`)
-replaces `fused_attention_blockwise` there, the length-scalable variant. The
-contract of both is the TPU kernels':
+`fused_attention` replaces `icka_tpu/kernels/attention.py::fused_attention`,
+the Pallas TPU kernel for short sequences; `fused_attention_blockwise`
+(`csrc/blockwise_attention.cu`) replaces `fused_attention_blockwise` there,
+the length-scalable variant. The contract of both is the TPU kernels':
 
     out[b] = softmax(Q[b] K[b]^T * head_dim^-0.5 + bias[b]) V[b]   per head
 
@@ -13,15 +12,21 @@ q (B, Sq, D), k/v (B, Sk, D), D = num_heads * head_dim, bias additive fp32
 of shape (B, 1, 1, Sk) (`additive_mask`), (B, Sk) or (B, Sq, Sk). Softmax
 is fp32. fp32 inputs give fp32 math; bf16 inputs give bf16 products with
 fp32 accumulation and probabilities rounded to bf16 before P.V. The output
-has q's dtype. The kernels have an instance for every head width that is a
-multiple of 16 up to 128 (`HEAD_DIMS`); the wrappers take every width up to
-128 and zero-pad each head of q, k and v to the next instance, with the
-unpadded width's scale (zero columns add exact zeros to every product), and
-drop the padded output columns. Wider heads raise.
+has q's dtype.
+
+Which body runs (`HEAD_DIMS` lists the instance widths): up to head width
+128, fp32 `fused_attention` runs `csrc/fused_attention.cu` (CUDA cores) and
+bf16 runs the blockwise kernel's tensor-core body at `K1_TILES`; K2 runs its
+CUDA-core body in fp32 and its tensor-core body in bf16. From 129 to 256
+both wrappers run K2's CUDA-core body in either type, at one key tile of 32.
+Every width without an instance is zero-padded per head of q, k and v to
+the next instance, with the unpadded width's scale (zero columns add exact
+zeros to every product), and the padded output columns are dropped. Wider
+heads raise.
 
 Each wrapper takes its plain version (`attention_reference`,
 `attention_blockwise_reference`) for tensors on the CPU, and only then. For
-CUDA tensors it launches the kernel or raises. `<wrapper>.launches` counts
+CUDA tensors it launches a kernel or raises. `<wrapper>.launches` counts
 kernel launches.
 """
 
@@ -36,9 +41,19 @@ import torch.nn.functional as F
 from icka_tpu_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = tuple(range(16, 129, 16))   # head widths with a kernel instance
+NARROW_MAX_HEAD_DIM = 128    # widest head of every body but the wide one
+# head widths with a kernel instance: the multiples of 16 up to 128, then
+# those of the wide CUDA-core body (one output column per lane and 32)
+HEAD_DIMS = (tuple(range(16, NARROW_MAX_HEAD_DIM + 1, 16))
+             + (160, 192, 224, 256))
 MAX_HEAD_DIM = HEAD_DIMS[-1]
 BLOCK_SIZES = (32, 64, 128)  # query rows and keys per tile of the blockwise
+WIDE_BLOCK_K = 32            # the one key tile above NARROW_MAX_HEAD_DIM
+WIDE_MAX_BLOCK_Q = 64        # ... and its largest query tile
+# the tiling `fused_attention` asks of the tensor-core body in bf16: the
+# fastest of (64, 64), (128, 64), (64, 32) and (32, 64) at K1's serving
+# shapes (S = 150 and 172, 16 heads of 64; PERF.md)
+K1_TILES = (64, 32)
 _SMEM_LIMIT = 232448         # bytes of shared memory a block can use (sm_90)
 _KV_ROW_PAD = 4              # fp32 body: elements of padding per K/V row
 _MMA_ROW_PAD = 8             # bf16 body: elements of padding per staged row
@@ -125,8 +140,9 @@ def _check_kernel_inputs(name, q, k, v, num_heads):
 
 
 def kernel_width(hd: int) -> int:
-    """The instance a head width runs on: the next multiple of 16."""
-    return -(-hd // 16) * 16
+    """The instance a head width runs on: the narrowest of `HEAD_DIMS` that
+    holds it."""
+    return next(w for w in HEAD_DIMS if w >= hd)
 
 
 def pad_heads(x, num_heads: int, width: int):
@@ -152,12 +168,17 @@ def crop_heads(x, num_heads: int, hd: int):
 def fused_attention(q, k, v, bias, num_heads: int):
     """q (B, Sq, D), k/v (B, Sk, D), bias broadcastable to (B, Sq, Sk)
     additive fp32. Returns (B, Sq, D) in q.dtype."""
-    B, Sq, Sk, D = _check_shapes("fused_attention", q, k, v, num_heads)
+    name = "fused_attention"
+    B, Sq, Sk, D = _check_shapes(name, q, k, v, num_heads)
     bias3 = _normalize_bias(bias, B, Sq, Sk)
-    if _on_cpu("fused_attention", q, k, v, bias3):
+    if _on_cpu(name, q, k, v, bias3):
         return attention_reference(q, k, v, bias, num_heads)
-    _check_kernel_inputs("fused_attention", q, k, v, num_heads)
+    _check_kernel_inputs(name, q, k, v, num_heads)
     hd = D // num_heads
+    if q.dtype == torch.bfloat16 or hd > NARROW_MAX_HEAD_DIM:
+        out = _blockwise_launch(name, q, k, v, bias, num_heads, *K1_TILES)
+        fused_attention.launches += 1
+        return out
     width = kernel_width(hd)
     q, k, v = (pad_heads(t, num_heads, width) for t in (q, k, v))
     out = torch.empty_like(q)
@@ -168,8 +189,7 @@ def fused_attention(q, k, v, bias, num_heads: int):
             bias3.data_ptr(), out.data_ptr(), B, Sq, Sk, num_heads, width,
             *bias3.stride(), hd ** -0.5, stream)
     if err:
-        raise RuntimeError(f"fused_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     fused_attention.launches += 1
     return crop_heads(out, num_heads, hd)
 
@@ -192,13 +212,13 @@ def _snap(want: int, total: int) -> int:
 
 
 def _smem_bytes(bq: int, bk: int, hd: int, dtype) -> int:
-    """Shared memory of the kernel at this tiling. bf16, the tensor-core
-    body (`mma_smem_bytes` in `csrc/blockwise_attention.cu`): the query
-    tile, two stages of K and V tiles with padded rows and two of the
-    key-bias strip. Otherwise the CUDA-core body (`smem_bytes` there): fp32
-    query and probability tiles, the key-bias strip, K and V tiles in the
-    input type with padded rows."""
-    if dtype == torch.bfloat16:
+    """Shared memory of the kernel at this tiling. bf16 up to width 128, the
+    tensor-core body (`mma_smem_bytes` in `csrc/blockwise_attention.cu`):
+    the query tile, two stages of K and V tiles with padded rows and two of
+    the key-bias strip. Otherwise the CUDA-core body (`smem_bytes` there):
+    fp32 query and probability tiles, the key-bias strip, K and V tiles in
+    the input type with padded rows."""
+    if dtype == torch.bfloat16 and hd <= NARROW_MAX_HEAD_DIM:
         row = (hd + _MMA_ROW_PAD) * 2
         return bq * row + 2 * (2 * bk * row + bk * 4)
     elt = torch.empty((), dtype=dtype).element_size()
@@ -210,11 +230,14 @@ def blockwise_tiles(Sq: int, Sk: int, head_dim: int, dtype,
     """(bq, bk) the blockwise kernel runs for a request of (block_q,
     block_k): each snapped down to 32, 64 or 128, no larger than the
     sequence needs, and both halved (keys first) until the tiles fit a
-    block's shared memory at the instance's width (`kernel_width`). The
-    sizes need not divide Sq or Sk: the last tile of either dimension is
-    masked."""
+    block's shared memory at the instance's width (`kernel_width`). Above
+    width 128 the keys take `WIDE_BLOCK_K` and the rows at most
+    `WIDE_MAX_BLOCK_Q`, the wide body's one tiling. The sizes need not
+    divide Sq or Sk: the last tile of either dimension is masked."""
     bq, bk = _snap(block_q, Sq), _snap(block_k, Sk)
     width = kernel_width(head_dim)
+    if width > NARROW_MAX_HEAD_DIM:
+        bq, bk = min(bq, WIDE_MAX_BLOCK_Q), WIDE_BLOCK_K
     while _smem_bytes(bq, bk, width, dtype) > _SMEM_LIMIT:
         if bk > BLOCK_SIZES[0]:
             bk //= 2
@@ -284,21 +307,14 @@ def _blockwise_kernel():
     return fn
 
 
-def fused_attention_blockwise(q, k, v, bias, num_heads: int,
-                              block_q: int = 128, block_k: int = 128):
-    """Blockwise fused attention, any length. q (B, Sq, D), k/v (B, Sk, D);
-    bias additive fp32, either key-only ((B,1,1,Sk) or (B,Sk): kept (B, Sk),
-    never broadcast to (B, Sq, Sk) in memory) or full ((B,Sq,Sk) or
-    (B,1,Sq,Sk), read through strides). `block_q` / `block_k` ask for a
-    tiling (see `blockwise_tiles`); they change the order of summation and
-    nothing else. Returns (B, Sq, D) in q.dtype."""
-    name = "fused_attention_blockwise"
-    B, Sq, Sk, D = _check_shapes(name, q, k, v, num_heads)
+def _blockwise_launch(name, q, k, v, bias, num_heads: int, block_q: int,
+                      block_k: int):
+    """One launch of `csrc/blockwise_attention.cu` on CUDA tensors that
+    passed `_check_kernel_inputs`; returns the output. Raises before the
+    launch when q, k or v (after padding) are not aligned to 16 bytes."""
+    B, Sq, D = q.shape
+    Sk = k.shape[1]
     key_mode, b = _blockwise_bias(bias, B, Sq, Sk)
-    if _on_cpu(name, q, k, v, b):
-        return attention_blockwise_reference(q, k, v, bias, num_heads,
-                                             block_q, block_k)
-    _check_kernel_inputs(name, q, k, v, num_heads)
     hd = D // num_heads
     width = kernel_width(hd)
     q, k, v = (pad_heads(t, num_heads, width) for t in (q, k, v))
@@ -315,8 +331,28 @@ def fused_attention_blockwise(q, k, v, bias, num_heads: int,
             bk, int(key_mode), *strides, hd ** -0.5, stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    fused_attention_blockwise.launches += 1
     return crop_heads(out, num_heads, hd)
+
+
+def fused_attention_blockwise(q, k, v, bias, num_heads: int,
+                              block_q: int = 128, block_k: int = 128):
+    """Blockwise fused attention, any length. q (B, Sq, D), k/v (B, Sk, D);
+    bias additive fp32, either key-only ((B,1,1,Sk) or (B,Sk): kept (B, Sk),
+    never broadcast to (B, Sq, Sk) in memory) or full ((B,Sq,Sk) or
+    (B,1,Sq,Sk), read through strides). `block_q` / `block_k` ask for a
+    tiling (see `blockwise_tiles`); they change the order of summation and
+    nothing else. Returns (B, Sq, D) in q.dtype."""
+    name = "fused_attention_blockwise"
+    B, Sq, Sk, D = _check_shapes(name, q, k, v, num_heads)
+    _, b = _blockwise_bias(bias, B, Sq, Sk)
+    if _on_cpu(name, q, k, v, b):
+        return attention_blockwise_reference(q, k, v, bias, num_heads,
+                                             block_q, block_k)
+    _check_kernel_inputs(name, q, k, v, num_heads)
+    out = _blockwise_launch(name, q, k, v, bias, num_heads, block_q,
+                            block_k)
+    fused_attention_blockwise.launches += 1
+    return out
 
 
 fused_attention_blockwise.launches = 0

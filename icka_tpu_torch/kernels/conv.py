@@ -200,8 +200,8 @@ def int8_conv3x3(x_pad, w_q, scale, bias, residual=None, relu: bool = True,
     if residual is not None and residual.dtype not in _RES_KIND:
         raise TypeError(f"{name} kernel takes a bfloat16 or float32 "
                         f"residual, not {residual.dtype}")
-    if min(B, H, W) < 1 or C % 16 or F % 4:
-        raise ValueError(f"{name} kernel needs C % 16 == 0 and F % 4 == 0, "
+    if min(B, H, W) < 1 or C % 16 or F % 16:
+        raise ValueError(f"{name} kernel needs C % 16 == 0 and F % 16 == 0, "
                          f"got B={B} H={H} W={W} C={C} F={F}")
     out = torch.empty((B, H, W, F), dtype=out_dt, device=x_pad.device)
     _launch(name, _lib().icka_int8_conv3x3, x_pad,

@@ -54,7 +54,12 @@
 // scores keys j, j + 32, ... of the tile and owns output columns j, j + 32,
 // ... of the head, the query tile is converted to fp32 once, p goes through
 // shared memory. Tensor cores in fp32 would mean TF32, which does not hold
-// the fp32 contract (2e-5 against the plain version).
+// the fp32 contract (2e-5 against the plain version). 12 instances, (block_k,
+// ceil(head_dim / 32)) up to head_dim 128. The same body, in fp32 and bf16,
+// also takes head widths 160, 192, 224 and 256 (8 more instances, one key
+// tile of 32, at most 64 query rows): the bf16 tensor-core body would hold
+// 128 output registers a lane at 256, and no model of the repo has such a
+// width, so these are a simple body that is right rather than a fast one.
 //
 // Bias: in key mode ((B, Sk), one row for all queries) the block stages the
 // tile's strip in shared memory once per K tile, for every row and warp. In
@@ -67,10 +72,12 @@
 // reads each warp's (8, block_k) part.
 
 #include "attention_common.cuh"
+#include "ptx.cuh"
 
 namespace {
 
 using namespace icka_attention;
+using namespace icka_ptx;
 
 // ---------------------------------------------------------------------------
 // fp32: the CUDA-core body
@@ -78,6 +85,10 @@ using namespace icka_attention;
 
 constexpr int kRows = 8;         // query rows per warp
 constexpr int kMaxThreads = 512; // block_q = 128
+// Head widths 129..256 (DPL 5..8) run this body in both types, at one key
+// tile of 32 and at most 64 query rows, so that a thread may hold its
+// 8 x DPL accumulators in up to 255 registers.
+constexpr int kWideMaxThreads = 256;
 constexpr int kVec = 4;          // elements per staged chunk
 constexpr int kPad = 4;          // K/V tile row padding, in elements
 
@@ -93,7 +104,7 @@ inline size_t smem_bytes(int bq, int bk, int hd, size_t elt) {
 // grid (ceil(Sq / bq), num_heads, B), bq = 8 * warps of the block. KPL keys
 // per lane (block_k = 32 * KPL), DPL = ceil(hd / 32) output columns per lane.
 template <typename T, int KPL, int DPL>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(DPL > 4 ? kWideMaxThreads : kMaxThreads, 1)
     blockwise_attention_kernel(const T* __restrict__ q,
                                const T* __restrict__ k,
                                const T* __restrict__ v,
@@ -330,6 +341,29 @@ cudaError_t launch(int bk, const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
+// widths 129..256: one key tile of 32, bq <= 64
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        const float* bias, void* out, int B, int Sq, int Sk,
+                        int num_heads, int hd, int bq, int key_mode,
+                        long long sb, long long sq, long long sk, float scale,
+                        cudaStream_t stream) {
+  if (bq > kWideMaxThreads / 32 * kRows) return cudaErrorInvalidValue;
+  switch ((hd + 31) / 32) {
+#define ICKA_COLS(DPL)                                                      \
+  case DPL:                                                                 \
+    return launch_tile<T, 1, DPL>(q, k, v, bias, out, B, Sq, Sk, num_heads, \
+                                  hd, bq, key_mode, sb, sq, sk, scale,      \
+                                  stream);
+    ICKA_COLS(5)
+    ICKA_COLS(6)
+    ICKA_COLS(7)
+    ICKA_COLS(8)
+#undef ICKA_COLS
+  }
+  return cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core body
 // ---------------------------------------------------------------------------
@@ -347,53 +381,6 @@ constexpr int kRowPad = 8;            // bf16 elements of padding per row
 inline size_t mma_smem_bytes(int bq, int bk, int hd) {
   const size_t row = (size_t)(hd + kRowPad) * sizeof(bf16);
   return bq * row + 2 * (2 * bk * row + (size_t)bk * sizeof(float));
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from device to shared memory, past L1; zeros when !valid (the
-// source is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 4 bytes, for a bias strip read through its stride
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
 }
 
 // c (16x8, fp32) += a (16x16, bf16, row) * b (16x8, bf16, col)
@@ -747,9 +734,11 @@ cudaError_t launch_mma(int bk, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32 (the CUDA-core body), 1 = bfloat16 (the tensor-core
-// body). head_dim a multiple of 16 up to 128, block_q in {32, 64, 128},
-// block_k in {32, 64, 128}; q, k and v aligned to 16 bytes; key_mode != 0
+// dtype: 0 = float32, 1 = bfloat16. Up to head_dim 128 fp32 runs the
+// CUDA-core body and bf16 the tensor-core body, head_dim a multiple of 16,
+// block_q and block_k in {32, 64, 128}; head_dim 160, 192, 224 or 256 runs
+// the CUDA-core body in both types at block_k 32 and block_q 32 or 64. q, k
+// and v aligned to 16 bytes; key_mode != 0
 // reads `bias` as (B, Sk) through (bias_sb, bias_sk), else as (B, Sq, Sk)
 // through all three strides. Returns cudaGetLastError() after the launch (0
 // on success), or cudaErrorInvalidValue for arguments without an instance or
@@ -761,10 +750,22 @@ extern "C" int icka_blockwise_attention(
     long long bias_sq, long long bias_sk, float scale, void* stream) {
   const float* b = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim <= 0 || head_dim % 16 || head_dim > 128)
+  if (head_dim <= 0 || head_dim % 16 || head_dim > 256)
     return cudaErrorInvalidValue;
   if (block_q != 32 && block_q != 64 && block_q != 128)
     return cudaErrorInvalidValue;
+  if (head_dim > 128) {
+    if (head_dim % 32 || block_k != 32) return cudaErrorInvalidValue;
+    if (dtype == 0)
+      return launch_wide<float>(q, k, v, b, out, B, Sq, Sk, num_heads,
+                                head_dim, block_q, key_mode, bias_sb, bias_sq,
+                                bias_sk, scale, s);
+    if (dtype == 1)
+      return launch_wide<bf16>(q, k, v, b, out, B, Sq, Sk, num_heads,
+                               head_dim, block_q, key_mode, bias_sb, bias_sq,
+                               bias_sk, scale, s);
+    return cudaErrorInvalidValue;
+  }
   if (dtype == 0)
     return launch<float>(block_k, q, k, v, b, out, B, Sq, Sk, num_heads,
                          head_dim, block_q, key_mode, bias_sb, bias_sq,

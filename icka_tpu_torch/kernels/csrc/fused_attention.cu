@@ -1,7 +1,10 @@
-// Fused multi-head attention for short sequences, fp32 and bf16, sm_90a.
+// Fused multi-head attention for short sequences in fp32, sm_90a.
 //
 // Replaces icka_tpu/kernels/attention.py::fused_attention, the Pallas TPU
-// kernel `_attn_kernel`. For every batch element b and head h:
+// kernel `_attn_kernel`, for float32 inputs at head widths up to 128. (bf16
+// inputs, and every width from 129 to 256, run the blockwise kernel's bodies
+// in blockwise_attention.cu at a short-sequence tiling; the Python wrapper
+// chooses.) For every batch element b and head h:
 //
 //     out[b, :, h] = softmax(Q_h K_h^T * head_dim^-0.5 + bias[b]) V_h
 //
@@ -9,28 +12,21 @@
 // additive fp32 bias read through strides (sb, sq, sk): a (B, 1, 1, Sk) key
 // mask reaches the kernel with sq = 0 and is never broadcast to (B, Sq, Sk)
 // in device memory. Order of operations as in the TPU kernel: scores * scale,
-// then + bias, then softmax in fp32. fp32 inputs give fp32 math. bf16 inputs
-// give exact bf16 products summed in fp32, the probabilities rounded to bf16
-// before P.V as `p.astype(v.dtype)` does, fp32 accumulation, output in q's
-// type.
+// then + bias, then softmax in fp32; fp32 math throughout.
 //
 // What bounds it: at the main-path shape (B=128, Sq=Sk=150, 16 heads of 64,
-// bf16) the function must move Q+K+V+O, about 157 MB, about 47 us at
+// fp32) the function must move Q+K+V+O, about 315 MB, about 94 us at
 // 3.35 TB/s, against 11.8 GFLOP (two products of 2*B*N*Sq*Sk*64), about
-// 12 us at the 989 TFLOP/s bf16 tensor-core peak: it is bound by bytes.
-// The design answers that by reading Q, K and V once per (query tile, head)
-// and writing O once, with no score or probability tensor in device
-// memory: a block owns 16 query rows of one head, stages K/V tiles of that
-// head in shared memory and keeps an online softmax (the running max m, sum
-// l and the output accumulator) in registers, so any Sk works, ragged last
-// tile included. K and V are re-read once per 16-row
-// query tile, which L2 absorbs at these lengths. The products run on the
-// CUDA cores in fp32; that, and not the bytes, limits this first version.
-// Tensor cores (mma/wgmma), TMA and tuning are later work.
-//
-// With the online softmax the bf16 rounding applies to exp(s - m_running)
-// rather than to the normalised probability; the error is of the same size
-// (one bf16 rounding per probability).
+// 176 us at the 67 TFLOP/s fp32 rate of the CUDA cores: bound by operations.
+// The design reads Q, K and V once per (query tile, head) and writes O once,
+// with no score or probability tensor in device memory: a block owns 16
+// query rows of one head, stages K/V tiles of that head in shared memory and
+// keeps an online softmax (the running max m, sum l and the output
+// accumulator) in registers, so any Sk works, ragged last tile included. K
+// and V are re-read once per 16-row query tile, which L2 absorbs at these
+// lengths. The products run on the CUDA cores with fmaf: tensor cores in
+// fp32 would mean TF32, which does not hold the fp32 contract (2e-5 against
+// the plain version); 3xTF32 is later work.
 
 #include "attention_common.cuh"
 
@@ -208,10 +204,10 @@ cudaError_t launch(int head_dim, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim a multiple of 16 up to 128.
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a type or width without an instance; the caller
-// checks it.
+// dtype: 0 = float32 (the only type with an instance); head_dim a multiple
+// of 16 up to 128. Returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue for a type or width without an
+// instance; the caller checks it.
 extern "C" int icka_fused_attention(int dtype, const void* q, const void* k,
                                     const void* v, const void* bias, void* out,
                                     int B, int Sq, int Sk, int num_heads,
@@ -223,9 +219,5 @@ extern "C" int icka_fused_attention(int dtype, const void* q, const void* k,
   if (dtype == 0)
     return launch<float>(head_dim, q, k, v, b, out, B, Sq, Sk, num_heads,
                          bias_sb, bias_sq, bias_sk, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(head_dim, q, k, v, b, out, B, Sq, Sk,
-                                 num_heads, bias_sb, bias_sq, bias_sk, scale,
-                                 s);
   return cudaErrorInvalidValue;
 }

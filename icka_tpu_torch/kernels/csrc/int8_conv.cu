@@ -26,42 +26,56 @@
 // What bounds them: at the serving shapes the functions are bound by
 // operations once a batch fills the card (K4 at layer3, B=128: 52.5 MB and
 // 55.9 GOP, 0.028 ms at the int8 tensor-core peak against 0.016 ms for the
-// bytes), except the stem (224.8 MB against 88.8 GOP: bytes, 0.067 ms).
-// This first version answers neither bound: the products run as __dp4a on
-// the CUDA cores, and the bottleneck keeps its two narrow intermediates
-// (a1q, a2q: Cw channels against the 4Cw of x and out) in a device scratch
-// between three launches of one implicit-GEMM kernel, where L2 holds them at
-// serving batch sizes. Tiling over pixels and channels is also what fills
-// the card at a serving batch: 16 images of 14 x 14 pixels are 16 tiles for a
-// kernel that keeps one image per block, against 196 tiles here. Tensor cores
-// (mma.sync / wgmma int8), TMA and a single-launch bottleneck on spatial
-// tiles with a halo are later work.
+// bytes), except the stem (224.8 MB against 88.8 GOP: bytes, 0.067 ms). So
+// the products run on the int8 tensor cores (mma.sync m16n8k32, s8 x s8 ->
+// s32). The bottleneck keeps its two narrow intermediates (a1q, a2q: Cw
+// channels against the 4Cw of x and out) in a device scratch between three
+// launches of one implicit-GEMM kernel, where L2 holds them at serving batch
+// sizes. Tiling over pixels and channels is also what fills the card at a
+// serving batch: 16 images of 14 x 14 pixels are 16 tiles for a kernel that
+// keeps one image per block, against 196 tiles here. wgmma, TMA and a
+// single-launch bottleneck on spatial tiles with a halo are later work.
 //
-// The design is one implicit-GEMM tile kernel. A block of 256 threads owns a
+// The design is one implicit-GEMM tile kernel. A block of 8 warps owns a
 // tile of BM output pixels x BN output channels and walks K = ks*ks*C in
-// chunks of 64 bytes. The activation tile is gathered tap by tap from the
-// NHWC image in 16-byte units (one tap and 16 channels each; a tap outside
-// the image reads as zero, so no padded copy of an intermediate exists). The
-// (K, F) weight chunk is transposed on its way into shared memory, 4x4 bytes
-// at a time with __byte_perm, so that one 32-bit word holds four consecutive
-// k of one output channel, which is what __dp4a wants. Each thread keeps a
-// TM x TN register tile of int32 sums and reads both operands as 128-bit
-// shared-memory loads (16 dp4a per load). The next chunk's global loads are
-// started before the current chunk's products. The stem kernel runs the same
-// main loop over a spatial tile of 7 x 14 outputs plus the one-pixel halo
-// above and to the left that the pool needs, keeps the four ReLU'd planes of
-// the tile in shared memory as bf16 and pools from there; pixels outside the
-// image are stored as zero, which is exact because the planes are >= 0.
+// chunks of 64 bytes, each warp a (BM / WM) x (BN / WN) part of the tile
+// as m16 x n8 accumulators. The activation chunk (pixels x k, row-major) is
+// gathered tap by tap from the NHWC image in 16-byte units (one tap and 16
+// channels each) by cp.async; a tap outside the image, and k past K (the
+// stem's K = 432 is no multiple of 64), arrive as zeros (source size 0), so
+// no padded copy of an intermediate exists. The (K, F) weight chunk lands
+// as stored, rows of channels, by the same cp.async (zeros past K and F).
+// Both ride a ring of four stages, so that while chunk c's products run,
+// chunks c + 2 and c + 3 are in flight. Then each thread reads 16 k of two
+// channels of chunk c + 1's weights from shared memory and transposes them
+// with __byte_perm into 16 bytes of k per channel, the "col" operand the mma
+// wants, staged as [channel][k]. The activation chunk and the transposed
+// weights sit in shared memory as rows of 64 bytes whose four 16-byte units
+// are XOR-swizzled by the row, so that the ldmatrix.x4 loads of the
+// fragments (16 int8 read as 8 b16) and the stores of a quarter-warp each
+// touch every bank once. One barrier a chunk. The accumulators are staged
+// through shared memory so that the epilogue reads four consecutive
+// channels of one pixel, as the plain version's order wants and the stores
+// coalesce. The stem kernel runs the same main loop over a spatial tile of
+// 7 x 14 outputs plus the one-pixel halo above and to the left that the
+// pool needs, writes its four ReLU'd planes from the fragments into shared
+// memory as bf16, element by element in the same arithmetic, and pools from
+// there; pixels outside the image are stored as zero, which is exact
+// because the planes are >= 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;    // 16 (channels) x 16 (pixels) register tiles
-constexpr int BK = 64;           // bytes of K per chunk
-constexpr int BKW = BK / 4;      // the same in 32-bit words
+using namespace icka_ptx;
+
+constexpr int kThreads = 256;    // 8 warps; the epilogue: 16 x 16 threads
+constexpr int kWarps = kThreads / 32;
+constexpr int BK = 64;           // bytes of K per chunk: two mma k-steps
 constexpr int kSMs = 132;        // H100 SXM; only steers the tile choice
 
 // An NHWC tensor whose logical (H, W) grid sits at (oy, ox) inside storage
@@ -105,110 +119,198 @@ struct ConvArgs {
   int out_kind;
 };
 
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+constexpr int kStages = 4;       // chunks of the cp.async ring
+
+// A tile of BM = 16 TM pixels x BN = 16 TN channels. Its 8 warps form a
+// WM x WN grid, each warp MT m16 tiles by NT n8 tiles of accumulators.
+// Shared memory: kStages stages of (activation chunk, BM x 64 bytes; weight
+// chunk as stored, 64 x BN bytes), then two weight chunks transposed to
+// BN x 64; the epilogue reuses it for the (BM, BN) int32 tile.
 template <int TM, int TN>
 struct Cfg {
   static constexpr int BM = 16 * TM;
   static constexpr int BN = 16 * TN;
-  static constexpr int AJ = BM * (BK / 16) / kThreads;   // 16-byte units
-  static constexpr int BJ = BKW * (BN / 4) / kThreads;   // 4x4 byte blocks
-  static constexpr int A_INT4 = BM * (BK / 16);
-  static constexpr int B_INT4 = BKW * (BN / 4);
+  static constexpr int AU = BM * (BK / 16) / kThreads;   // 16-byte units
+  static constexpr int BU = BK * (BN / 16) / kThreads;   // of A and of B
+  static constexpr int WN = TN == 8 ? 4 : 2;
+  static constexpr int WM = kWarps / WN;
+  static constexpr int MT = BM / WM / 16;
+  static constexpr int NT = BN / WN / 8;
+  static constexpr int STAGE = (BM + BN) * BK;
+  static constexpr int PIPE = kStages * STAGE + 2 * BN * BK;
+  static constexpr int CS = BN + 8;              // staged int32 row
+  static constexpr int SMEM = cmax(PIPE, BM * CS * 4);
+  // conv_kernel adds the tile of an int8 residual, (BM, BN) bytes
+  static constexpr int CONV_SMEM = SMEM + BM * BN;
+  static_assert(MT >= 1 && NT % 2 == 0, "warp tile of m16 x 2n8 steps");
+  static __device__ __forceinline__ int wm0(int warp) {
+    return warp / WN * (BM / WM);
+  }
+  static __device__ __forceinline__ int wn0(int warp) {
+    return warp % WN * (BN / WN);
+  }
 };
 
-__device__ __forceinline__ int4 load_a_unit(const ASrc& a, int b, int y,
-                                            int x, int k) {
-  int4 val = make_int4(0, 0, 0, 0);
-  if (b >= 0 && k < a.K) {
-    const int tap = k / a.C;            // 0 for a 1x1 conv (K == C)
-    const int c = k - tap * a.C;
-    const int dy = tap / 3, dx = tap - dy * 3;
-    const int yy = y + dy - a.pad, xx = x + dx - a.pad;
-    if ((unsigned)yy < (unsigned)a.Hin && (unsigned)xx < (unsigned)a.Win)
-      val = __ldg(reinterpret_cast<const int4*>(
-          a.in + pixel(a.v, b, yy, xx) * a.C + c));
-  }
-  return val;
+// Byte offset of 16-byte unit u (0..3) of staged row r: rows of 64 bytes,
+// units XOR-swizzled by (r >> 1) & 3. The 8 rows one ldmatrix matrix reads
+// (consecutive, from a multiple of 8) and the 8 units a quarter-warp stores
+// (two rows of four units, or eight rows of both parities) then fill the
+// 32 banks once.
+__device__ __forceinline__ int swz(int r, int u) {
+  return r * BK + ((u ^ ((r >> 1) & 3)) << 4);
 }
 
-// acc[i][j] += sum_k A[pixel i][k] * W[k][channel j] over all of K, for the
-// pixels (rb, ry, rx) this thread stages and the channels n0.. of the block.
+// c (16x8, s32) += a (16x32, s8, row) * b (32x8, s8, col)
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The 16 bytes of k .. k + 15 of pixel (b, y, x) in the activation operand,
+// or null where they read as zero (b < 0: a row past the tile's pixels; k
+// past K; a tap outside the image).
+__device__ __forceinline__ const int8_t* a_unit(const ASrc& a, int b, int y,
+                                                int x, int k) {
+  if (b < 0 || k >= a.K) return nullptr;
+  const int tap = k / a.C;              // 0 for a 1x1 conv (K == C)
+  const int c = k - tap * a.C;
+  const int dy = tap / 3, dx = tap - dy * 3;
+  const int yy = y + dy - a.pad, xx = x + dx - a.pad;
+  if ((unsigned)yy >= (unsigned)a.Hin || (unsigned)xx >= (unsigned)a.Win)
+    return nullptr;
+  return a.in + pixel(a.v, b, yy, xx) * a.C + c;
+}
+
+// acc[mt][nt] += sum_k A[pixel][k] * W[k][channel] over all of K, for the
+// pixels (rb, ry, rx) this thread stages and the channels n0.. of the block;
+// each warp's m16 x n8 tiles at (wm0 + 16 mt, wn0 + 8 nt) of the block
+// tile, in the m16n8 accumulator layout (thread (g, t) = (lane / 4,
+// lane % 4) holds rows g and g + 8, columns 2t and 2t + 1). `smem` holds
+// Cfg::PIPE bytes; the loop ends on a barrier, so the caller may reuse them.
+//
+// Chunk c goes to stage c % kStages by cp.async; at step c the products of
+// chunk c run while chunks c + 2 .. c + kStages - 1 are in flight, and then
+// chunk c + 1's weights, landed, are transposed for step c + 1. One barrier
+// a step.
 template <int TM, int TN>
 __device__ __forceinline__ void mainloop(
-    const ASrc& a, const int (&rb)[Cfg<TM, TN>::AJ],
-    const int (&ry)[Cfg<TM, TN>::AJ], const int (&rx)[Cfg<TM, TN>::AJ],
-    const int8_t* __restrict__ w, int F, int n0, int (&acc)[TM][TN],
-    int4* As, int4* Bs) {
+    const ASrc& a, const int (&rb)[Cfg<TM, TN>::AU],
+    const int (&ry)[Cfg<TM, TN>::AU], const int (&rx)[Cfg<TM, TN>::AU],
+    const int8_t* __restrict__ w, int F, int n0,
+    int (&acc)[Cfg<TM, TN>::MT][Cfg<TM, TN>::NT][4], unsigned char* smem) {
   using C = Cfg<TM, TN>;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int a_row = tid >> 2, a_kq = tid & 3;
-  int4 ra[C::AJ];
-  uint32_t rw[C::BJ][4];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm0 = C::wm0(warp), wn0 = C::wn0(warp);
+  const int a_row = tid >> 2, a_u = tid & 3;
+  // the transposition: channels 2 bp and 2 bp + 1, k unit bu (BN = 64
+  // leaves half the threads without one)
+  const int bp = tid % (C::BN / 2), bu = tid / (C::BN / 2);
+  const int nchunks = (a.K + BK - 1) / BK;
 
-  auto load_chunk = [&](int k0) {
+  auto a_tile = [&](int c) { return smem + c % kStages * C::STAGE; };
+  auto b_raw = [&](int c) { return a_tile(c) + C::BM * BK; };
+  auto b_t = [&](int c) {
+    return smem + kStages * C::STAGE + (c & 1) * C::BN * BK;
+  };
+
+  // chunk c: the activation units (zeros where they read as zero) into
+  // swizzled rows, the weight rows k0.. as stored (zeros past K and F)
+  auto load_chunk = [&](int c) {
+    if (c < nchunks) {
+      const int k0 = c * BK;
+      unsigned char* As = a_tile(c);
 #pragma unroll
-    for (int j = 0; j < C::AJ; ++j)
-      ra[j] = load_a_unit(a, rb[j], ry[j], rx[j], k0 + a_kq * 16);
+      for (int j = 0; j < C::AU; ++j) {
+        const int8_t* src = a_unit(a, rb[j], ry[j], rx[j], k0 + a_u * 16);
+        cp_async16(As + swz(a_row + (kThreads / 4) * j, a_u),
+                   src ? src : a.in, src != nullptr);
+      }
+      unsigned char* Bs = b_raw(c);
 #pragma unroll
-    for (int j = 0; j < C::BJ; ++j) {
-      const int id = tid + kThreads * j;
-      const int k4 = id / (C::BN / 4), ng = id % (C::BN / 4);
-      const int n = n0 + ng * 4;
+      for (int j = 0; j < C::BU; ++j) {
+        const int id = tid + kThreads * j;
+        const int kr = id / (C::BN / 16), u = id % (C::BN / 16);
+        const int k = k0 + kr, n = n0 + 16 * u;
+        const bool ok = k < a.K && n < F;
+        cp_async16(Bs + kr * C::BN + 16 * u, ok ? w + (size_t)k * F + n : w,
+                   ok);
+      }
+    }
+    cp_async_commit();   // possibly empty: one group per chunk
+  };
+  // chunk c's weights, 16 k of two channels a thread, -> one 16-byte unit
+  // of k per channel (four k of one channel per word, the mma's "col"
+  // operand). Half the quarter-warp stores its even channel first, half
+  // its odd, so that the quarter-warp's 8 units fall in 8 bank groups.
+  auto transpose = [&](int c) {
+    if (bu >= BK / 16) return;
+    const unsigned char* raw = b_raw(c) + bu * 16 * C::BN + 2 * bp;
+    unsigned rw[16];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = k0 + k4 * 4 + i;
-        rw[j][i] = (k < a.K && n < F)
-            ? __ldg(reinterpret_cast<const uint32_t*>(w + (size_t)k * F + n))
-            : 0u;
+    for (int r = 0; r < 16; ++r)
+      rw[r] = *reinterpret_cast<const unsigned short*>(raw + r * C::BN);
+    unsigned lo[4], hi[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const unsigned x01 = rw[4 * q] | (rw[4 * q + 1] << 16);
+      const unsigned x23 = rw[4 * q + 2] | (rw[4 * q + 3] << 16);
+      lo[q] = __byte_perm(x01, x23, 0x6420);   // k 4q..4q+3, channel 2bp
+      hi[q] = __byte_perm(x01, x23, 0x7531);   // the same, channel 2bp + 1
+    }
+    const int first = (bp >> 2) & 1;
+    unsigned char* Bt = b_t(c);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int par = first ^ s;
+      const unsigned* v = par ? hi : lo;
+      *reinterpret_cast<uint4*>(Bt + swz(2 * bp + par, bu)) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  };
+  auto compute = [&](const unsigned char* As, const unsigned char* Bs) {
+#pragma unroll
+    for (int ks = 0; ks < BK / 32; ++ks) {
+      unsigned af[C::MT][4];
+#pragma unroll
+      for (int mt = 0; mt < C::MT; ++mt)
+        ldmatrix_x4(af[mt], As + swz(wm0 + mt * 16 + (lane & 15),
+                                     2 * ks + (lane >> 4)));
+#pragma unroll
+      for (int np = 0; np < C::NT / 2; ++np) {
+        unsigned bf[4];   // b0, b1 of n8 tile 2 np, then of 2 np + 1
+        ldmatrix_x4(bf, Bs + swz(wn0 + np * 16 + (lane & 7) +
+                                     ((lane >> 4) << 3),
+                                 2 * ks + ((lane >> 3) & 1)));
+#pragma unroll
+        for (int mt = 0; mt < C::MT; ++mt) {
+          mma_s8(acc[mt][2 * np], af[mt], bf[0], bf[1]);
+          mma_s8(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+        }
       }
     }
   };
 
-  const int nchunks = (a.K + BK - 1) / BK;
-  load_chunk(0);
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) load_chunk(c);
+  cp_async_wait<kStages - 2>();   // chunk 0 has landed
+  __syncthreads();
+  transpose(0);
   for (int c = 0; c < nchunks; ++c) {
-#pragma unroll
-    for (int j = 0; j < C::AJ; ++j)
-      As[(a_row + (kThreads / 4) * j) * 4 + a_kq] = ra[j];
-#pragma unroll
-    for (int j = 0; j < C::BJ; ++j) {
-      // rows k..k+3 of four channels -> one word of four k per channel
-      const uint32_t t0 = __byte_perm(rw[j][0], rw[j][1], 0x5140);
-      const uint32_t t1 = __byte_perm(rw[j][2], rw[j][3], 0x5140);
-      const uint32_t t2 = __byte_perm(rw[j][0], rw[j][1], 0x7362);
-      const uint32_t t3 = __byte_perm(rw[j][2], rw[j][3], 0x7362);
-      Bs[tid + kThreads * j] = make_int4(
-          (int)__byte_perm(t0, t1, 0x5410), (int)__byte_perm(t0, t1, 0x7632),
-          (int)__byte_perm(t2, t3, 0x5410), (int)__byte_perm(t2, t3, 0x7632));
-    }
+    cp_async_wait<kStages - 3>();   // chunks c and c + 1 have landed
+    // ... for every thread, chunk c's weights are transposed, and every
+    // warp is done with chunk c - 1, so its stage takes chunk c + S - 1
     __syncthreads();
-    if (c + 1 < nchunks) load_chunk((c + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      int4 av[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[(ty + 16 * i) * 4 + kk];
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        int4 bv[TN / 4];
-#pragma unroll
-        for (int h = 0; h < TN / 4; ++h)
-          bv[h] = Bs[(kk * 4 + s) * (C::BN / 4) + tx + 16 * h];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const int aw = s == 0 ? av[i].x : s == 1 ? av[i].y
-                       : s == 2 ? av[i].z : av[i].w;
-#pragma unroll
-          for (int h = 0; h < TN / 4; ++h) {
-            acc[i][4 * h + 0] = __dp4a(aw, bv[h].x, acc[i][4 * h + 0]);
-            acc[i][4 * h + 1] = __dp4a(aw, bv[h].y, acc[i][4 * h + 1]);
-            acc[i][4 * h + 2] = __dp4a(aw, bv[h].z, acc[i][4 * h + 2]);
-            acc[i][4 * h + 3] = __dp4a(aw, bv[h].w, acc[i][4 * h + 3]);
-          }
-        }
-      }
-    }
-    __syncthreads();
+    load_chunk(c + kStages - 1);
+    compute(a_tile(c), b_t(c));
+    if (c + 1 < nchunks) transpose(c + 1);
   }
+  __syncthreads();
 }
 
 __device__ __forceinline__ int requant(float v, float qmul) {
@@ -216,12 +318,30 @@ __device__ __forceinline__ int requant(float v, float qmul) {
   return (int)fminf(fmaxf(q, -127.0f), 127.0f);
 }
 
-// Epilogue of four consecutive channels n..n+3 of output pixel (b, y, x).
+// A bf16 or fp32 residual of channels n..n+3 of output pixel (b, y, x) as
+// stored, 8 or 16 bytes (an int8 one comes through shared memory, see
+// conv_kernel). Loaded apart from the arithmetic, so that a thread has all
+// of its loads in flight at once (a store to `out` might alias `res` for
+// the compiler).
+__device__ __forceinline__ uint4 load_res4(const ConvArgs& p, int b, int y,
+                                           int x, int n) {
+  const size_t at = pixel(p.res_v, b, y, x) * p.F + n;
+  if (p.res_kind == RES_BF16) {
+    const uint2 t = *reinterpret_cast<const uint2*>(
+        static_cast<const __nv_bfloat16*>(p.res) + at);
+    return make_uint4(t.x, t.y, 0u, 0u);
+  }
+  return *reinterpret_cast<const uint4*>(static_cast<const float*>(p.res)
+                                         + at);
+}
+
+// Epilogue of four consecutive channels n..n+3 of output pixel (b, y, x):
+// their scale and bias, their residual's bytes as stored (4 int8, 4 bf16
+// or 4 fp32; unused without a residual).
 __device__ __forceinline__ void epilogue4(const ConvArgs& p, int b, int y,
                                           int x, int n, const int* acc4,
-                                          float rs) {
-  const float4 s4 = __ldg(reinterpret_cast<const float4*>(p.scale + n));
-  const float4 b4 = __ldg(reinterpret_cast<const float4*>(p.bias + n));
+                                          float rs, float4 s4, float4 b4,
+                                          uint4 raw) {
   const float s[4] = {s4.x, s4.y, s4.z, s4.w};
   const float bi[4] = {b4.x, b4.y, b4.z, b4.w};
   float v[4];
@@ -229,23 +349,21 @@ __device__ __forceinline__ void epilogue4(const ConvArgs& p, int b, int y,
   for (int j = 0; j < 4; ++j)
     v[j] = __fadd_rn(__fmul_rn((float)acc4[j], s[j]), bi[j]);
   if (p.res_kind != RES_NONE) {
-    const size_t at = pixel(p.res_v, b, y, x) * p.F + n;
     float r[4];
     if (p.res_kind == RES_INT8_SCALED) {
-      const char4 c = *reinterpret_cast<const char4*>(
-          static_cast<const int8_t*>(p.res) + at);
-      r[0] = __fmul_rn((float)c.x, rs);
-      r[1] = __fmul_rn((float)c.y, rs);
-      r[2] = __fmul_rn((float)c.z, rs);
-      r[3] = __fmul_rn((float)c.w, rs);
-    } else if (p.res_kind == RES_BF16) {
-      const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.res) + at;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) r[j] = __bfloat162float(q[j]);
+      for (int j = 0; j < 4; ++j)
+        r[j] = __fmul_rn((float)(int8_t)(raw.x >> (8 * j)), rs);
+    } else if (p.res_kind == RES_BF16) {
+      r[0] = __uint_as_float(raw.x << 16);
+      r[1] = __uint_as_float(raw.x & 0xffff0000u);
+      r[2] = __uint_as_float(raw.y << 16);
+      r[3] = __uint_as_float(raw.y & 0xffff0000u);
     } else {
-      const float4 f = *reinterpret_cast<const float4*>(
-          static_cast<const float*>(p.res) + at);
-      r[0] = f.x; r[1] = f.y; r[2] = f.z; r[3] = f.w;
+      r[0] = __uint_as_float(raw.x);
+      r[1] = __uint_as_float(raw.y);
+      r[2] = __uint_as_float(raw.z);
+      r[3] = __uint_as_float(raw.w);
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) v[j] = __fadd_rn(v[j], r[j]);
@@ -274,19 +392,22 @@ __device__ __forceinline__ void epilogue4(const ConvArgs& p, int b, int y,
   }
 }
 
+// Two blocks an SM for the 128 x 128 tile (127 registers a thread), three
+// for the narrower ones.
 template <int TM, int TN>
-__global__ void __launch_bounds__(kThreads) conv_kernel(const ConvArgs p) {
+__global__ void __launch_bounds__(kThreads, TN == 8 ? 2 : 3)
+    conv_kernel(const ConvArgs p) {
   using C = Cfg<TM, TN>;
-  __shared__ int4 As[C::A_INT4];
-  __shared__ int4 Bs[C::B_INT4];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int warp = tid >> 5, lane = tid & 31;
   const int HW = p.H * p.W;
   const int M = p.B * HW;
   const int m0 = blockIdx.x * C::BM, n0 = blockIdx.y * C::BN;
 
-  int rb[C::AJ], ry[C::AJ], rx[C::AJ];
+  int rb[C::AU], ry[C::AU], rx[C::AU];
 #pragma unroll
-  for (int j = 0; j < C::AJ; ++j) {
+  for (int j = 0; j < C::AU; ++j) {
     const int m = m0 + (tid >> 2) + (kThreads / 4) * j;
     rb[j] = -1; ry[j] = 0; rx[j] = 0;
     if (m < M) {
@@ -296,26 +417,87 @@ __global__ void __launch_bounds__(kThreads) conv_kernel(const ConvArgs p) {
       rx[j] = rem - ry[j] * p.W;
     }
   }
-  int acc[TM][TN];
+  int acc[C::MT][C::NT][4];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < C::MT; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
+    for (int j = 0; j < C::NT; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
 
-  mainloop<TM, TN>(p.a, rb, ry, rx, p.w, p.F, n0, acc, As, Bs);
+  // An int8 residual (the bottleneck's x) rides in by cp.async beside the
+  // first chunks: row r of the tile is pixel m0 + r, channels n0.. . Its
+  // group is committed first, so the main loop's waits cover it.
+  unsigned char* res_tile = smem + C::SMEM;
+  const bool res_int8 = p.res_kind == RES_INT8_SCALED;
+  if (res_int8) {
+    const int8_t* res = static_cast<const int8_t*>(p.res);
+#pragma unroll
+    for (int j = 0; j < C::BM * C::BN / 16 / kThreads; ++j) {
+      const int id = tid + kThreads * j;
+      const int r = id / (C::BN / 16), u = id % (C::BN / 16);
+      const int m = m0 + r, n = n0 + 16 * u;
+      const bool ok = m < M && n < p.F;
+      const int8_t* src = res;
+      if (ok) {
+        const int b = m / HW, rem = m - b * HW, y = rem / p.W;
+        src = res + pixel(p.res_v, b, y, rem - y * p.W) * p.F + n;
+      }
+      cp_async16(res_tile + r * C::BN + 16 * u, src, ok);
+    }
+  }
+  cp_async_commit();   // empty without an int8 residual
 
+  mainloop<TM, TN>(p.a, rb, ry, rx, p.w, p.F, n0, acc, smem);
+
+  // the accumulators, through shared memory, as a (BM, BN) int32 tile
+  int* cs = reinterpret_cast<int*>(smem);
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < C::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<int2*>(
+            cs + (C::wm0(warp) + mt * 16 + g + 8 * r) * C::CS +
+            C::wn0(warp) + nt * 8 + 2 * t4) =
+            make_int2(acc[mt][nt][2 * r], acc[mt][nt][2 * r + 1]);
+  __syncthreads();
+
+  // thread (tx, ty): pixels ty + 16 i, channels tx * 4 + 64 h (+ 0..3)
   const float rs = p.rs_ptr ? __ldg(p.rs_ptr) : p.rs_val;
+  int pb[TM], py[TM], px[TM];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-    const int b = m / HW;
-    const int rem = m - b * HW;
-    const int y = rem / p.W, x = rem - y * p.W;
+    pb[i] = m < M ? m / HW : -1;
+    const int rem = m - pb[i] * HW;
+    py[i] = rem / p.W;
+    px[i] = rem - py[i] * p.W;
+  }
 #pragma unroll
-    for (int h = 0; h < TN / 4; ++h) {
-      const int n = n0 + tx * 4 + 64 * h;
-      if (n < p.F) epilogue4(p, b, y, x, n, &acc[i][4 * h], rs);
+  for (int h = 0; h < TN / 4; ++h) {
+    const int nl = tx * 4 + 64 * h, n = n0 + nl;
+    if (n >= p.F) continue;
+    const float4 s4 = __ldg(reinterpret_cast<const float4*>(p.scale + n));
+    const float4 b4 = __ldg(reinterpret_cast<const float4*>(p.bias + n));
+    uint4 raw[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      raw[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (res_int8)
+        raw[i].x = *reinterpret_cast<const uint32_t*>(
+            res_tile + (ty + 16 * i) * C::BN + nl);
+      else if (p.res_kind != RES_NONE && pb[i] >= 0)
+        raw[i] = load_res4(p, pb[i], py[i], px[i], n);
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      if (pb[i] < 0) continue;
+      const int4 v = *reinterpret_cast<const int4*>(
+          cs + (ty + 16 * i) * C::CS + nl);
+      const int acc4[4] = {v.x, v.y, v.z, v.w};
+      epilogue4(p, pb[i], py[i], px[i], n, acc4, rs, s4, b4, raw[i]);
     }
   }
 }
@@ -323,10 +505,15 @@ __global__ void __launch_bounds__(kThreads) conv_kernel(const ConvArgs p) {
 template <int TM, int TN>
 cudaError_t launch_conv(const ConvArgs& p, cudaStream_t stream) {
   using C = Cfg<TM, TN>;
+  auto kernel = conv_kernel<TM, TN>;
+  // above 48 KB the kernel has to be allowed its dynamic shared memory
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::CONV_SMEM);
+  if (err != cudaSuccess) return err;
   const long long M = (long long)p.B * p.H * p.W;
   dim3 grid((unsigned)((M + C::BM - 1) / C::BM),
             (unsigned)((p.F + C::BN - 1) / C::BN));
-  conv_kernel<TM, TN><<<grid, kThreads, 0, stream>>>(p);
+  kernel<<<grid, kThreads, C::CONV_SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -361,13 +548,11 @@ __global__ void __launch_bounds__(kThreads) stem_pool_kernel(
     const StemArgs p) {
   using C = Cfg<8, 8>;
   static_assert(kStemRows <= C::BM, "tile and halo must fit one M tile");
-  extern __shared__ int4 smem[];
-  int4* As = smem;
-  int4* Bs = smem + C::A_INT4;
-  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(Bs + C::B_INT4);
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem + C::PIPE);
   const int N = 4 * p.F;
   const int ystride = N + kStemYPad;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.z;
   const int i0 = blockIdx.y * kStemTH, j0 = blockIdx.x * kStemTW;
 
@@ -384,42 +569,49 @@ __global__ void __launch_bounds__(kThreads) stem_pool_kernel(
   a.in = p.patches;
   a.v = View{p.OB, p.OB, 0, 0};
   a.Hin = p.OB; a.Win = p.OB; a.C = p.K; a.K = p.K; a.pad = 0;
-  int rb[C::AJ], ry[C::AJ], rx[C::AJ];
+  int rb[C::AU], ry[C::AU], rx[C::AU];
 #pragma unroll
-  for (int j = 0; j < C::AJ; ++j) {
+  for (int j = 0; j < C::AU; ++j) {
     const bool ok = image_pixel((tid >> 2) + (kThreads / 4) * j, ry[j], rx[j]);
     rb[j] = ok ? b : -1;
   }
 
+  const int g = lane >> 2, t4 = lane & 3;
   for (int n0 = 0; n0 < N; n0 += C::BN) {
-    int acc[8][8];
+    int acc[C::MT][C::NT][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < C::MT; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0;
-    mainloop<8, 8>(a, rb, ry, rx, p.w, N, n0, acc, As, Bs);
+      for (int j = 0; j < C::NT; ++j)
+        acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
+    mainloop<8, 8>(a, rb, ry, rx, p.w, N, n0, acc, smem);
+    // each accumulator element (tile row r, channel n) into the bf16 plane
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = ty + 16 * i;
-      int pi, pj;
-      const bool ok = image_pixel(r, pi, pj);
+    for (int mt = 0; mt < C::MT; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int n = n0 + tx * 4 + 64 * h;
-        if (n >= N) continue;
+        const int r = C::wm0(warp) + mt * 16 + g + 8 * h;
+        int pi, pj;
+        const bool ok = image_pixel(r, pi, pj);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          // (int32 -> fp32 * scale) -> bf16, + bf16 bias in bf16, ReLU
-          const __nv_bfloat16 y0 = __float2bfloat16_rn(
-              __fmul_rn((float)acc[i][4 * h + j], __ldg(p.scale + n + j)));
-          const __nv_bfloat16 bb = __float2bfloat16_rn(__ldg(p.bias + n + j));
-          const float y1 = __bfloat162float(__float2bfloat16_rn(
-              __fadd_rn(__bfloat162float(y0), __bfloat162float(bb))));
-          ys[r * ystride + n + j] =
-              __float2bfloat16_rn(ok ? fmaxf(y1, 0.0f) : 0.0f);
+        for (int nt = 0; nt < C::NT; ++nt) {
+          const int n = n0 + C::wn0(warp) + nt * 8 + 2 * t4;
+          float y[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            // (int32 -> fp32 * scale) -> bf16, + bf16 bias in bf16, ReLU
+            const __nv_bfloat16 y0 = __float2bfloat16_rn(__fmul_rn(
+                (float)acc[mt][nt][2 * h + e], __ldg(p.scale + n + e)));
+            const __nv_bfloat16 bb =
+                __float2bfloat16_rn(__ldg(p.bias + n + e));
+            const float y1 = __bfloat162float(__float2bfloat16_rn(
+                __fadd_rn(__bfloat162float(y0), __bfloat162float(bb))));
+            y[e] = ok ? fmaxf(y1, 0.0f) : 0.0f;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(ys + r * ystride + n) =
+              __floats2bfloat162_rn(y[0], y[1]);
         }
       }
-    }
   }
   __syncthreads();
 
@@ -450,7 +642,8 @@ View plain_view(int H, int W) { return View{H, W, 0, 0}; }
 
 }  // namespace
 
-// int8_conv3x3: x_pad (B, H+2, W+2, C) int8, w (9C, F) int8, out (B, H, W, F).
+// int8_conv3x3: x_pad (B, H+2, W+2, C) int8, w (9C, F) int8, out (B, H, W, F);
+// C and F multiples of 16.
 // res_kind 0 none, 2 bf16, 3 fp32; out_kind 0 int8 (x qmul), 1 bf16, 2 fp32.
 extern "C" int icka_int8_conv3x3(
     const void* x_pad, const void* w, const void* scale, const void* bias,
@@ -534,7 +727,7 @@ extern "C" int icka_int8_stem_pool(
   p.bias = static_cast<const float*>(bias);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.B = B; p.OB = OB; p.K = K; p.F = F;
-  const size_t smem = (C::A_INT4 + C::B_INT4) * sizeof(int4)
+  const size_t smem = C::PIPE
       + (size_t)C::BM * (4 * F + kStemYPad) * sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
       stem_pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -124,6 +124,22 @@ def test_minus_inf_over_a_whole_key_tile_stays_finite():
     np.testing.assert_allclose(small, want, atol=TOL["float32"], rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [144, 256])
+def test_plain_version_matches_pallas_kernel_at_wide_heads(hd, dtype):
+    """Widths above 128 tile as the wide CUDA-core body does (keys by 32,
+    rows by at most 64), ragged in both dimensions, against the Pallas
+    kernel in interpret mode; a key mask."""
+    B, Sq, Sk, N = 1, 40, 70, 2
+    rng = np.random.default_rng(hd)
+    q, k, v = _qkv(rng, B, Sq, Sk, N * hd)
+    bias = np.zeros((B, 1, 1, Sk), np.float32)
+    bias[..., -6:] = -10000.0
+    assert blockwise_tiles(Sq, Sk, hd, getattr(torch, dtype)) == (64, 32)
+    got, want = _both(q, k, v, bias, N, (128, 128), dtype)
+    np.testing.assert_allclose(got, want, atol=TOL[dtype], rtol=0)
+
+
 def test_tiles_snap_and_fit_shared_memory():
     f32, bf16 = torch.float32, torch.bfloat16
     assert blockwise_tiles(1024, 1024, 64, bf16) == (128, 128)
@@ -135,6 +151,11 @@ def test_tiles_snap_and_fit_shared_memory():
     assert blockwise_tiles(64, 65, 64, bf16) == (64, 128)
     # fp32 at head width 128: (128, 128) needs 267 KB, so keys are halved
     assert blockwise_tiles(1024, 1024, 128, f32) == (128, 64)
+    # above 128 both types take the wide CUDA-core body's one tiling
+    for dt in (f32, bf16):
+        assert blockwise_tiles(1024, 1024, 256, dt) == (64, 32)
+        assert blockwise_tiles(1024, 1024, 144, dt, 32, 128) == (32, 32)
+        assert _smem_bytes(64, 32, 256, dt) <= 232448
 
 
 @pytest.mark.parametrize("hd", [8, 40, 64, 128])

@@ -62,9 +62,10 @@ def test_plain_version_matches_pallas_kernel(bias_kind, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [16, 32])
+@pytest.mark.parametrize("hd", [16, 32, 144, 256])
 def test_plain_version_matches_pallas_kernel_at_head_width(hd, dtype):
-    """The head widths of the JAX package's own kernel tests, full bias."""
+    """The head widths of the JAX package's own kernel tests, and two wide
+    ones the card runs on the wide CUDA-core body; full bias."""
     rng = np.random.default_rng(hd)
     q, k, v = (rng.standard_normal((B, s, N * hd)).astype(np.float32)
                for s in (SQ, SK, SK))
@@ -79,22 +80,24 @@ def test_plain_version_matches_pallas_kernel_at_head_width(hd, dtype):
                                np.asarray(want, np.float32), atol=TOL[dtype])
 
 
-@pytest.mark.parametrize("hd", [8, 24, 40, 130, 144, 256])
+@pytest.mark.parametrize("hd", [8, 24, 40, 130, 144, 256, 272])
 def test_kernel_refuses_other_head_widths(hd):
-    """The kernels have an instance for every multiple of 16 up to 128; a
-    narrower width in between runs on the next instance, zero-padded, and a
-    width above 128 raises before a launch (checked on CPU tensors through
-    the wrapper's own gate, which CUDA tensors pass through)."""
-    assert HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128)
-    assert MAX_HEAD_DIM == 128
+    """The kernels have an instance for every multiple of 16 up to 128 and
+    for 160, 192, 224 and 256; a width in between runs on the next instance,
+    zero-padded, and a width above 256 raises before a launch (checked on
+    CPU tensors through the wrapper's own gate, which CUDA tensors pass
+    through)."""
+    assert HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128,
+                         160, 192, 224, 256)
+    assert MAX_HEAD_DIM == 256
     q = torch.zeros(1, 4, 2 * hd)
     if hd > MAX_HEAD_DIM:
-        with pytest.raises(ValueError, match="head_dim up to 128"):
+        with pytest.raises(ValueError, match="head_dim up to 256"):
             _check_kernel_inputs("fused_attention", q, q, q, 2)
     else:
         _check_kernel_inputs("fused_attention", q, q, q, 2)
         assert kernel_width(hd) in HEAD_DIMS
-        assert 0 < kernel_width(hd) - hd < 16
+        assert 0 <= kernel_width(hd) - hd < (16 if hd <= 128 else 32)
     _check_kernel_inputs("fused_attention", torch.zeros(1, 4, 2 * 48),
                          torch.zeros(1, 4, 2 * 48), torch.zeros(1, 4, 2 * 48),
                          2)

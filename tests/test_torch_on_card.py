@@ -297,12 +297,12 @@ def test_minus_inf_key_tiles_stay_finite(cuda_device, dtype):
 
 def test_attention_kernels_refuse_what_they_cannot_take(cuda_device):
     """A CUDA tensor launches the kernel or raises: no silent plain path."""
-    q = torch.zeros(1, 8, 2 * 144, device=cuda_device)       # head width 144
+    q = torch.zeros(1, 8, 2 * 272, device=cuda_device)       # head width 272
     bias = torch.zeros(1, 8, device=cuda_device)
     counts = (tattn.fused_attention.launches,
               tattn.fused_attention_blockwise.launches)
     for fn in (tattn.fused_attention, tattn.fused_attention_blockwise):
-        with pytest.raises(ValueError, match="head_dim up to 128"):
+        with pytest.raises(ValueError, match="head_dim up to 256"):
             fn(q, q, q, bias, 2)
         with pytest.raises(ValueError, match="several devices"):
             fn(q, q, q, bias.cpu(), 2)
@@ -387,3 +387,73 @@ def test_bf16_blockwise_raises_rather_than_launch_another_body(cuda_device):
             before += 1
     torch.cuda.synchronize()
     assert tattn.fused_attention_blockwise.launches == before
+
+
+def test_k1_bf16_runs_the_tensor_core_body(cuda_device):
+    """K1 in bf16 is one launch of the blockwise library's tensor-core body,
+    counted on K1 and never on K2, and it raises on a view two bytes past a
+    16-byte boundary (cp.async needs 16) before any launch."""
+    counts = (tattn.fused_attention.launches,
+              tattn.fused_attention_blockwise.launches)
+    for kind in ("B11Sk", "full"):
+        q, k, v, bias = _attn_case(cuda_device, torch.bfloat16, 3, 150, 150,
+                                   16, 64, kind)
+        got = tattn.fused_attention(q, k, v, bias, 16)
+        torch.cuda.synchronize()
+        _assert_attn_close(got, tattn.attention_reference(q, k, v, bias, 16))
+        _assert_attn_close(got, tattn.fused_attention_blockwise(
+            q, k, v, bias, 16, *tattn.K1_TILES))
+    assert (tattn.fused_attention.launches - counts[0],
+            tattn.fused_attention_blockwise.launches - counts[1]) == (2, 2)
+    flat = torch.zeros(8 * 128 + 1, device=cuda_device, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 8, 128)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        tattn.fused_attention(q, q, q, torch.zeros(1, 8, device=cuda_device),
+                              2)
+    assert tattn.fused_attention.launches - counts[0] == 2
+
+
+@pytest.mark.parametrize("hd", [144, 160, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_heads_run_both_kernels(cuda_device, dtype, hd):
+    """Widths from 129 to 256 run the CUDA-core blockwise body through both
+    wrappers (144 zero-padded to 160), one launch each, the plain versions'
+    result; ragged tiles in both dimensions, key and full bias."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for kind in ("BSk", "full"):
+        q, k, v, bias = _attn_case(cuda_device, dtype, 2, 75, 70, 2, hd, kind,
+                                   seed=hd)
+        for fn, plain in ((tattn.fused_attention, tattn.attention_reference),
+                          (tattn.fused_attention_blockwise,
+                           tattn.attention_blockwise_reference)):
+            before = fn.launches
+            got = fn(q, k, v, bias, 2)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1
+            assert got.dtype == dtype and got.shape == q.shape
+            _assert_attn_close(got, plain(q, k, v, bias, 2))
+
+
+@pytest.mark.parametrize("case", ["conv3x3", "bottleneck_v2", "bottleneck",
+                                  "stem"])
+def test_conv_kernels_bit_equal_at_ragged_shapes(cuda_device, case):
+    """Pixel counts that no tile divides, F = 64 channels, and the stem's
+    K = 432 (no multiple of the 64-byte chunk): the int8 tensor-core main
+    loop zero-fills the ragged edges."""
+    gen = torch.Generator().manual_seed(5)
+    if case == "conv3x3":            # M = 3 * 7 * 9 = 189, F = 64
+        *args, res = _conv3_case(gen, B=3, H=7, W=9, C=32, F=64)
+        _held(tconv.int8_conv3x3, tconv.conv3x3_reference, args + [res],
+              cuda_device, out_scale=0.05)
+    elif case == "bottleneck_v2":    # M = 2 * 9 * 9 = 162, Cw = 64
+        args = _bottleneck_case(gen, B=2, H=9, W=9, Cw=64)
+        _held(tconv.int8_bottleneck_v2, tconv.bottleneck_v2_reference,
+              args + [torch.tensor([0.37])], cuda_device)
+    elif case == "bottleneck":       # M = 3 * 5 * 7 = 105, F = 64 in conv3
+        args = _bottleneck_case(gen, B=3, H=5, W=7, Cw=16)
+        _held(tconv.int8_bottleneck, tconv.bottleneck_reference,
+              args + [0.37], cuda_device, out_bf16=True)
+    else:                            # K = 432, 13 x 13 outputs
+        _held(tconv.int8_stem_pool, tconv.stem_pool_reference,
+              _stem_case(gen, 2, 13), cuda_device)
