@@ -7,16 +7,18 @@ Phases; any failure exits non-zero:
 
   1. build every CUDA kernel from `icka_tpu_torch/kernels/csrc` (one nvcc
      per source, all started together), count the tensor-core instructions
-     in the blockwise library (HMMA) and in the int8 library (IMMA, and no
-     dp4a left), check that K1's own source has no bf16 instance, print
-     registers and spills of every instance, and print the card's name and
-     power limit as nvidia-smi gives them;
+     in the blockwise library (bf16 HMMA and TF32 HMMA apart) and in the
+     int8 library (IMMA, and no dp4a left), check that no fp32 CUDA-core
+     attention instance is left at widths up to 128, print registers and
+     spills of every instance, and print the card's name and power limit as
+     nvidia-smi gives them;
   2. hold every kernel against its plain PyTorch version on the card at the
-     main paths' shapes: K1 `fused_attention` (bf16 on the blockwise
-     kernel's tensor-core body) and K2 `fused_attention_blockwise` in fp32
-     (TF32 off) and bf16 within a tolerance, at every head width they are
-     built for (up to 256) and at four widths they zero-pad (8, 24, 40,
-     144; 272 must raise before any launch); K2 against
+     main paths' shapes: K1 `fused_attention` and K2
+     `fused_attention_blockwise` (up to width 128 on the blockwise kernel's
+     tensor-core bodies, bf16 and 3xTF32) in fp32 (TF32 off for the plain
+     versions) and bf16 within a tolerance, at every head width they are
+     built for (up to 256), at four widths they zero-pad (8, 24, 40, 144)
+     and at two above 256 (272, 512: column chunks); K2 against
      its plain version and against K1 over ragged and long shapes, three
      bias forms, three tilings and a -inf key tile in both types; K3-K6, the
      int8 conv kernels, bit-equal at the four ResNet stage shapes in every
@@ -39,9 +41,10 @@ Phases; any failure exits non-zero:
      agree with the plain-core packed path and with the bucketed server;
   6. time each kernel at its main-path shape beside its plain version, the
      PyTorch library call for the same function where there is one, its
-     bound and its recorded time before this slice's redesign (comment lines
-     only); K1's tensor-core tilings; K1 and K2 in fp32 at K1's two shapes;
-     time the served requests end to end.
+     bound and its recorded time before its redesign (comment lines only);
+     K1's tilings in bf16 and in fp32; K1 and K2 in fp32 at K1's two
+     shapes; both at the first head width above 256; time the served
+     requests end to end.
 
 The line before the last is the `{"kernels": [...]}` JSON object; the last
 line is `{"ok": true, "device": {...}}`. Needs CUDA; imports nothing of JAX.
@@ -68,8 +71,9 @@ from icka_tpu_torch.data.images import preprocess_images
 from icka_tpu_torch.kernels import build
 from icka_tpu_torch.kernels import conv as kconv
 from icka_tpu_torch.kernels.attention import (
-    HEAD_DIMS, K1_TILES, attention_blockwise_reference, attention_reference,
-    blockwise_tiles, fused_attention, fused_attention_blockwise)
+    HEAD_DIMS, K1_FP32_TILES, K1_TILES, attention_blockwise_reference,
+    attention_reference, blockwise_tiles, column_chunk, fused_attention,
+    fused_attention_blockwise, kernel_width)
 from icka_tpu_torch.models.convert import (calibration_amax,
                                            static_quantize_backbone)
 from icka_tpu_torch.models.icka import ICKAModel
@@ -81,8 +85,14 @@ from icka_tpu_torch.serving.packing import PackedICKAServer
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_INT8_OPS = 1979e12           # int8 tensor cores, dense
+PEAK_BF16_FLOPS = 989e12          # bf16 tensor cores
+PEAK_TF32_FLOPS = 494.7e12        # TF32 tensor cores
+PEAK_INT8_OPS = 1979e12           # int8 tensor cores
+# An fp32 attention product held to fp32 runs as three TF32 products
+# (3xTF32: hi*hi, hi*lo, lo*hi), so the least time for its operations is
+# three times its FLOPs at the TF32 peak; the CUDA cores' 67 TFLOP/s fp32
+# rate, the bound of fp32 products before, is no longer the fastest route.
+TF32_PRODUCTS = 3
 # An attention kernel against its plain version, and K2 against K1. fp32
 # differs only in summation order (tests/test_kernels.py holds the TPU
 # kernel to the same 2e-5). bf16 outputs are rounded to bf16 and the
@@ -109,12 +119,18 @@ K2_CUDA_CORE_MS = {150: 0.8847, 172: 1.3611, 512: 5.6154, 1024: 21.4974}
 # K1's bf16 times on its CUDA-core body, B=128, 16x64, key bias at 150,
 # full block-diagonal bias at 172 (chip_smoke.py phase 6 as of the fifth
 # slice of the port, NVIDIA H100 80GB HBM3, 700.00 W): recorded, printed on
-# comment lines for comparison only. And the tilings of its tensor-core body
-# timed beside K1_TILES.
+# comment lines for comparison only. And the tilings of its tensor-core
+# bodies timed beside K1_TILES and K1_FP32_TILES.
 K1_CUDA_CORE_MS = {150: 1.0643, 172: 1.2439}
 K1_TILINGS = ((64, 64), (128, 64), (64, 32), (32, 64))
+# K1's and K2's fp32 times on their CUDA-core bodies at the same shapes, K2
+# asked for (128, 128) (chip_smoke.py phase 6 as of the sixth slice of the
+# port, NVIDIA H100 80GB HBM3, 700.00 W): recorded, printed on comment
+# lines for comparison only
+FP32_CUDA_CORE_MS = {"K1": {150: 1.0229, 172: 1.2261},
+                     "K2": {150: 0.8798, 172: 1.3701}}
 PADDED_HEAD_DIMS = (8, 24, 40, 144)    # widths the wrappers zero-pad
-TOO_WIDE = 272                    # the first width the wrappers refuse
+WIDE_HEAD_DIMS = (272, 512)       # above 256: the wide body's column chunks
 PACKED_TIERS = ((48, 2), (128, 2))
 # full-width emissions, kernel vs plain core in fp32: summation order differs
 # in every self-attention of 48 layers, each product summing 64 terms and
@@ -263,8 +279,9 @@ def ptxas_rows(log: str):
 
 
 def sass_counts(name: str, opcodes) -> dict:
-    """How many instructions of each opcode prefix (HMMA: bf16/fp16 tensor
-    cores, IMMA: int8 tensor cores, IDP: dp4a on the CUDA cores) the SASS
+    """How many instructions of each opcode (HMMA.16816.F32.BF16: bf16
+    tensor cores, HMMA.1688.F32.TF32: TF32 tensor cores, IMMA: int8 tensor
+    cores, IDP: dp4a on the CUDA cores; a prefix of the SASS word) the SASS
     of a built library holds."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass",
@@ -282,9 +299,13 @@ def phase_build():
     build.build()
     print(f"# phase 1: built {list(build.SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s")
-    hmma = sass_counts("blockwise_attention", ("HMMA",))["HMMA"]
-    print(f"#   blockwise_attention: {hmma} HMMA instructions in its SASS")
-    check(hmma > 0, "the blockwise library has no tensor-core instruction")
+    bf16_op, tf32_op = "HMMA.16816.F32.BF16", "HMMA.1688.F32.TF32"
+    hmma = sass_counts("blockwise_attention", ("HMMA", bf16_op, tf32_op))
+    print(f"#   blockwise_attention: {hmma['HMMA']} HMMA instructions in its "
+          f"SASS: {hmma[bf16_op]} {bf16_op} (bf16 body), {hmma[tf32_op]} "
+          f"{tf32_op} (3xTF32 body)")
+    check(hmma[bf16_op] > 0, "the blockwise library has no bf16 HMMA")
+    check(hmma[tf32_op] > 0, "the blockwise library has no TF32 HMMA")
     conv = sass_counts("int8_conv", ("IMMA", "IDP"))
     print(f"#   int8_conv: {conv['IMMA']} IMMA instructions in its SASS, "
           f"{conv['IDP']} IDP (dp4a)")
@@ -295,9 +316,12 @@ def phase_build():
         print(f"#   {name}: {len(rows)} kernels, at most "
               f"{max(r[1] for r in rows)} registers, "
               f"{sum(r[3] for r in rows)} bytes of spills in all")
-        if name == "fused_attention":
-            check(not any("bf16" in r[0] for r in rows),
-                  "fused_attention.cu still has a bf16 instance")
+        if name == "blockwise_attention":    # DPL = ceil(width / 32)
+            narrow = [r[0] for r in rows if r[0].startswith(
+                "blockwise_attention_kernel fp32 <") and int(
+                r[0].split("<")[1].rstrip(">")) <= 4]
+            check(not narrow, f"fp32 CUDA-core instances left at widths up "
+                              f"to 128: {narrow}")
         for what, regs, smem, spill in rows:
             print(f"#     {what}: {regs} registers, {smem} bytes static "
                   f"smem, {spill} bytes spilled")
@@ -339,12 +363,13 @@ def phase_kernel_vs_plain(gen):
 
 def phase_head_widths(gen):
     """K1 and K2 at every head width they have an instance for, beside the
-    main path's 64 (the JAX package's tests run 16 and 32), and at widths
-    the wrappers zero-pad to the next instance, each call one launch of its
-    kernel; a width above 256 raises before any launch."""
-    widths = [w for w in HEAD_DIMS if w != 64] + list(PADDED_HEAD_DIMS)
+    main path's 64 (the JAX package's tests run 16 and 32), at widths the
+    wrappers zero-pad to the next instance, and at two above 256 (the wide
+    body in column chunks), each call one launch of its kernel."""
+    widths = ([w for w in HEAD_DIMS if w != 64] + list(PADDED_HEAD_DIMS)
+              + list(WIDE_HEAD_DIMS))
     print(f"# phase 2: K1 and K2 at head widths {widths} (B=8, 16 heads; "
-          f"{list(PADDED_HEAD_DIMS)} zero-padded)")
+          f"{list(PADDED_HEAD_DIMS)} and 272 zero-padded)")
     for hd in widths:
         worst = {}
         for dtype in (torch.float32, torch.bfloat16):
@@ -376,17 +401,6 @@ def phase_head_widths(gen):
                   f"({worst[name, dt][0]:.2f})"
                   for name in ("K1", "K2")
                   for dt in (torch.float32, torch.bfloat16)))
-    q = torch.zeros(1, 8, 2 * TOO_WIDE, device="cuda", dtype=torch.bfloat16)
-    before = read_counts()
-    for fn in (fused_attention, fused_attention_blockwise):
-        try:
-            fn(q, q, q, torch.zeros(1, 8, device="cuda"), 2)
-        except ValueError:
-            continue
-        raise SmokeFailure(f"{fn.__name__} took head_dim {TOO_WIDE}")
-    check(read_counts() == before, f"head_dim {TOO_WIDE} launched a kernel")
-    print(f"#   head_dim {TOO_WIDE}: K1 and K2 raise ValueError before any "
-          f"launch")
 
 
 def phase_blockwise_vs_plain(gen):
@@ -1037,14 +1051,16 @@ def phase_int8_visual(args, card, dev, ctx, resnet_layers):
 def attention_bound(q, k, bias, N):
     """(bound ms, "bytes" | "operations", bytes, flops): Q, K, V and the
     bias read once, O written once, over the memory rate; the two products
-    over the tensor-core peak of the type."""
+    over the bf16 tensor-core peak, or in fp32 as three TF32 products over
+    the TF32 peak (`TF32_PRODUCTS`)."""
     B, Sq, D = q.shape
     Sk = k.shape[1]
     byts = (2 * B * Sq * D + 2 * B * Sk * D) * q.element_size() \
         + bias.numel() * 4
     flops = 4 * B * Sq * Sk * D
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    t_ops = (flops / PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else
+             TF32_PRODUCTS * flops / PEAK_TF32_FLOPS) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             byts, flops)
 
@@ -1142,7 +1158,8 @@ def phase_blockwise_times(gen, k1_row, launches):
 
 def k1_tiling_ms(q, k, v, bias, N, iters):
     """The tensor-core body at each of `K1_TILINGS` on K1's inputs, through
-    K2's wrapper (the same kernel; K1 runs `K1_TILES`)."""
+    K2's wrapper (the same kernel; K1 runs `K1_TILES` in bf16 and
+    `K1_FP32_TILES` in fp32)."""
     return {blocks: cuda_time_ms(lambda: fused_attention_blockwise(
         q, k, v, bias, N, *blocks), iters=iters) for blocks in K1_TILINGS}
 
@@ -1162,7 +1179,6 @@ def phase_times(gen, launches, packed_launches, k2_launches):
     bound_ms, bound_by, byts, flops = attention_bound(q, k, bias, N)
     tilings = k1_tiling_ms(q, k, v, bias, N, 50)
     row = {"name": "fused_attention", "route": "cuda", "source": K2_SOURCE,
-           "fp32_source": "icka_tpu_torch/kernels/csrc/fused_attention.cu",
            "replaces": "icka_tpu/kernels/attention.py:87",
            "launches": launches, "packed_launches": packed_launches,
            "max_abs_err": err, "share_of_bound": share, "ms": ms,
@@ -1179,17 +1195,24 @@ def phase_times(gen, launches, packed_launches, k2_launches):
           + " ms")
     rows = [row, phase_blockwise_times(gen, row, k2_launches)]
     phase_fp32_times(gen, *rows)
+    phase_wide_times(gen)
     return rows
 
 
 def phase_fp32_times(gen, k1_row, k2_row):
-    """K1 and K2 in fp32 at K1's two serving shapes beside their plain
-    versions, SDPA in fp32 (TF32 off) and the fp32 bound (bytes / 3.35 TB/s
-    against FLOPs / 67 TFLOP/s); adds `fp32_*` keys to both rows."""
+    """K1 and K2 in fp32 (the 3xTF32 body) at K1's two serving shapes beside
+    their plain versions, SDPA in fp32 (TF32 off), their recorded CUDA-core
+    times and the fp32 bound (bytes / 3.35 TB/s against three TF32 products'
+    FLOPs / 494.7 TFLOP/s); K1 at its four tilings. Adds `fp32_*` keys to
+    both rows."""
     B, N, hd, dtype = 128, 16, 64, torch.float32
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"# phase 6: K1 and K2 in fp32 at B={B}, {N} heads of {hd} (TF32 "
-          f"off); bound = max(bytes / 3.35e12, flops / 67e12)")
+    print(f"# phase 6: K1 and K2 in fp32 at B={B}, {N} heads of {hd} (K1 at "
+          f"{K1_FP32_TILES}, K2 asked for (128, 128), which runs "
+          f"{blockwise_tiles(150, 150, hd, dtype)}; SDPA and the plain "
+          f"versions with TF32 off); bound = max(bytes / 3.35e12, "
+          f"{TF32_PRODUCTS} * flops / 494.7e12): fp32 products held to fp32 "
+          f"run as {TF32_PRODUCTS} TF32 products on the tensor cores")
     for tag, S, kind in (("s150", 150, "B11Sk"), ("s172_full", 172,
                                                   "packed")):
         q, k, v, bias = attention_inputs(B, S, S, dtype, kind, gen)
@@ -1209,17 +1232,52 @@ def phase_fp32_times(gen, k1_row, k2_row):
             del out
             ms = cuda_time_ms(lambda: fn(q, k, v, bias, N), iters=20)
             plain_ms = cuda_time_ms(plain[name], iters=3, warmup=1)
+            cuda_core_ms = FP32_CUDA_CORE_MS[name][S]
             row.update({f"fp32_{tag}_{key}": val for key, val in (
                 ("shape", f"B={B} Sq=Sk={S} {N}x{hd} fp32 bias={kind}"),
                 ("max_abs_err", err), ("ms", ms), ("plain_ms", plain_ms),
                 ("bound_ms", bound_ms), ("bound_by", bound_by),
                 ("library_ms", library_ms))})
             print(f"#   {name} fp32 Sq=Sk={S} bias={kind}: max_abs_err "
-                  f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"{err:.3e}; kernel {ms:.4f} ms (recorded CUDA-core time "
+                  f"of the sixth slice {cuda_core_ms:.4f} ms, "
+                  f"{cuda_core_ms / ms:.2f}x), plain {plain_ms:.4f} ms, "
                   f"SDPA {library_ms:.4f} ms ({ms / library_ms:.2f}x), bound "
                   f"{bound_ms:.4f} ms ({ms / bound_ms:.1f}x; {bound_by}: "
-                  f"{byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+                  f"{byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP x "
+                  f"{TF32_PRODUCTS})")
+        tilings = k1_tiling_ms(q, k, v, bias, N, 20)
+        k1_row[f"fp32_{tag}_tilings_ms"] = {str(b): t
+                                            for b, t in tilings.items()}
+        print(f"#   K1 fp32 Sq=Sk={S} tilings " + ", ".join(
+            f"{b} {t:.4f}" for b, t in tilings.items()) + " ms")
         del q, k, v, bias, want
+
+
+def phase_wide_times(gen, hd=272):
+    """K1 and K2 once at the first head width above 256 (zero-padded to
+    288, two column chunks of the wide CUDA-core body), B=128, S=150, 16
+    heads, a key mask, in both types: a record, not a bound."""
+    B, S, N = 128, 150, 16
+    print(f"# phase 6: K1 and K2 at head width {hd} (padded to "
+          f"{kernel_width(hd)}: the wide CUDA-core body in column chunks of "
+          f"{column_chunk(kernel_width(hd))}), B={B}, Sq=Sk={S}, {N} heads, "
+          f"key mask")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bias = attention_inputs(B, S, S, dtype, "B11Sk", gen, hd=hd)
+        times = {}
+        for name, fn, plain in (
+                ("K1", fused_attention, attention_reference),
+                ("K2", fused_attention_blockwise,
+                 attention_blockwise_reference)):
+            attention_close(fn(q, k, v, bias, N), plain(q, k, v, bias, N),
+                            f"{name} {dtype} head_dim={hd} at the timed shape")
+            times[name] = cuda_time_ms(lambda: fn(q, k, v, bias, N),
+                                       iters=3, warmup=1)
+        library_ms = sdpa_ms(q, k, v, bias, N, 3)
+        print(f"#   {str(dtype)[6:]}: K1 {times['K1']:.4f} ms, K2 "
+              f"{times['K2']:.4f} ms, SDPA {library_ms:.4f} ms")
+        del q, k, v, bias
 
 
 def nbytes(*tensors):

@@ -14,15 +14,21 @@ is fp32. fp32 inputs give fp32 math; bf16 inputs give bf16 products with
 fp32 accumulation and probabilities rounded to bf16 before P.V. The output
 has q's dtype.
 
-Which body runs (`HEAD_DIMS` lists the instance widths): up to head width
-128, fp32 `fused_attention` runs `csrc/fused_attention.cu` (CUDA cores) and
-bf16 runs the blockwise kernel's tensor-core body at `K1_TILES`; K2 runs its
-CUDA-core body in fp32 and its tensor-core body in bf16. From 129 to 256
-both wrappers run K2's CUDA-core body in either type, at one key tile of 32.
+Which body runs (`csrc/blockwise_attention.cu`, one library for both
+wrappers): up to head width 128, the tensor-core bodies, in bf16 on
+bf16 `mma.sync` and in fp32 on TF32 `mma.sync` through 3xTF32 (each operand
+split into a TF32 high and low part, three products into one fp32 sum,
+held to the fp32 contract); `fused_attention` asks them for a short-sequence
+tiling (`K1_TILES` in bf16, `K1_FP32_TILES` in fp32), K2 for the tiling
+its caller asks. Above 128 both wrappers run the CUDA-core body in either
+type, at one key tile of 32, in column chunks of at most 256 (any width).
 Every width without an instance is zero-padded per head of q, k and v to
-the next instance, with the unpadded width's scale (zero columns add exact
-zeros to every product), and the padded output columns are dropped. Wider
-heads raise.
+the next instance (`kernel_width`; above 256 the next multiple of 32), with
+the unpadded width's scale (zero columns add exact zeros to every
+product), and the padded output columns are dropped. Every body stages q,
+k and v by 16-byte copies, so a CUDA tensor must be aligned to 16 bytes:
+a misaligned view raises before the launch (the model passes fresh `Dense`
+outputs, which are).
 
 Each wrapper takes its plain version (`attention_reference`,
 `attention_blockwise_reference`) for tensors on the CPU, and only then. For
@@ -41,22 +47,25 @@ import torch.nn.functional as F
 from icka_tpu_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-NARROW_MAX_HEAD_DIM = 128    # widest head of every body but the wide one
-# head widths with a kernel instance: the multiples of 16 up to 128, then
-# those of the wide CUDA-core body (one output column per lane and 32)
+NARROW_MAX_HEAD_DIM = 128    # widest head of the tensor-core bodies
+# head widths with a kernel instance up to 256: the multiples of 16 up to
+# 128, then the wide CUDA-core body's chunks (one output column per lane
+# and 32); wider heads run that body in several chunks
 HEAD_DIMS = (tuple(range(16, NARROW_MAX_HEAD_DIM + 1, 16))
              + (160, 192, 224, 256))
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+WIDE_MAX_CHUNK = HEAD_DIMS[-1]  # columns a wide-body block owns, at most
 BLOCK_SIZES = (32, 64, 128)  # query rows and keys per tile of the blockwise
 WIDE_BLOCK_K = 32            # the one key tile above NARROW_MAX_HEAD_DIM
 WIDE_MAX_BLOCK_Q = 64        # ... and its largest query tile
-# the tiling `fused_attention` asks of the tensor-core body in bf16: the
-# fastest of (64, 64), (128, 64), (64, 32) and (32, 64) at K1's serving
-# shapes (S = 150 and 172, 16 heads of 64; PERF.md)
+TF32_MAX_BLOCK_K = 64        # widest key tile of the fp32 (3xTF32) body
+# the tilings `fused_attention` asks of the tensor-core bodies: the fastest
+# of (64, 64), (128, 64), (64, 32) and (32, 64) at K1's serving shapes
+# (S = 150 and 172, 16 heads of 64; PERF.md), in bf16 and in fp32
 K1_TILES = (64, 32)
+K1_FP32_TILES = (64, 32)
 _SMEM_LIMIT = 232448         # bytes of shared memory a block can use (sm_90)
-_KV_ROW_PAD = 4              # fp32 body: elements of padding per K/V row
-_MMA_ROW_PAD = 8             # bf16 body: elements of padding per staged row
+_KV_ROW_PAD = 4              # wide body: elements of padding per K/V row
+_MMA_ROW_PAD_BYTES = 16      # tensor-core bodies: padding per staged row
 _GRID_LIMIT = 65535          # grid.y (heads) and grid.z (batch)
 
 
@@ -85,16 +94,6 @@ def attention_reference(q, k, v, bias, num_heads: int):
     p = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bnqk,bknh->bqnh", p.float(), vh)
     return out.reshape(B, Sq, D).to(q.dtype)
-
-
-@functools.cache
-def _kernel():
-    fn = build.load("fused_attention").icka_fused_attention
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _check_shapes(name, q, k, v, num_heads):
@@ -129,20 +128,29 @@ def _check_kernel_inputs(name, q, k, v, num_heads):
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} kernel takes float32 or bfloat16 q/k/v of "
                         f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if not 0 < hd <= MAX_HEAD_DIM:
-        raise ValueError(f"{name} kernel takes a head_dim up to "
-                         f"{MAX_HEAD_DIM}, got {hd}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name} kernel needs contiguous q, k, v")
-    if min(B, Sq, Sk) == 0 or max(B, num_heads) > _GRID_LIMIT:
+    if min(B, Sq, Sk, hd) == 0 or max(B, num_heads) > _GRID_LIMIT:
         raise ValueError(f"{name} kernel cannot take B={B}, Sq={Sq}, "
-                         f"Sk={Sk}, num_heads={num_heads}")
+                         f"Sk={Sk}, num_heads={num_heads}, head_dim={hd}")
 
 
 def kernel_width(hd: int) -> int:
-    """The instance a head width runs on: the narrowest of `HEAD_DIMS` that
-    holds it."""
+    """The width a head runs at: the narrowest of `HEAD_DIMS` that holds it;
+    above 256 the next multiple of 32 (the wide body's column chunks)."""
+    if hd > HEAD_DIMS[-1]:
+        return -(-hd // 32) * 32
     return next(w for w in HEAD_DIMS if w >= hd)
+
+
+def column_chunk(width: int) -> int:
+    """Columns a block of the wide body owns at instance width `width` (a
+    multiple of 32 above 128; `column_chunk` in the CUDA source): the width
+    itself up to 256, above it the width split evenly into the fewest
+    chunks of at most 256, each rounded up to a multiple of 32."""
+    n = -(-width // WIDE_MAX_CHUNK)
+    per_chunk = -(-width // n)
+    return -(-per_chunk // 32) * 32
 
 
 def pad_heads(x, num_heads: int, width: int):
@@ -174,24 +182,10 @@ def fused_attention(q, k, v, bias, num_heads: int):
     if _on_cpu(name, q, k, v, bias3):
         return attention_reference(q, k, v, bias, num_heads)
     _check_kernel_inputs(name, q, k, v, num_heads)
-    hd = D // num_heads
-    if q.dtype == torch.bfloat16 or hd > NARROW_MAX_HEAD_DIM:
-        out = _blockwise_launch(name, q, k, v, bias, num_heads, *K1_TILES)
-        fused_attention.launches += 1
-        return out
-    width = kernel_width(hd)
-    q, k, v = (pad_heads(t, num_heads, width) for t in (q, k, v))
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            bias3.data_ptr(), out.data_ptr(), B, Sq, Sk, num_heads, width,
-            *bias3.stride(), hd ** -0.5, stream)
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    tiles = K1_TILES if q.dtype == torch.bfloat16 else K1_FP32_TILES
+    out = _blockwise_launch(name, q, k, v, bias, num_heads, *tiles)
     fused_attention.launches += 1
-    return crop_heads(out, num_heads, hd)
+    return out
 
 
 fused_attention.launches = 0
@@ -212,17 +206,22 @@ def _snap(want: int, total: int) -> int:
 
 
 def _smem_bytes(bq: int, bk: int, hd: int, dtype) -> int:
-    """Shared memory of the kernel at this tiling. bf16 up to width 128, the
-    tensor-core body (`mma_smem_bytes` in `csrc/blockwise_attention.cu`):
-    the query tile, two stages of K and V tiles with padded rows and two of
-    the key-bias strip. Otherwise the CUDA-core body (`smem_bytes` there):
-    fp32 query and probability tiles, the key-bias strip, K and V tiles in
-    the input type with padded rows."""
-    if dtype == torch.bfloat16 and hd <= NARROW_MAX_HEAD_DIM:
-        row = (hd + _MMA_ROW_PAD) * 2
-        return bq * row + 2 * (2 * bk * row + bk * 4)
+    """Shared memory of the kernel at this tiling and instance width. Up to
+    width 128, the tensor-core bodies (`mma_smem_bytes` and
+    `tf32_smem_bytes` in `csrc/blockwise_attention.cu`): the query tile
+    (in fp32 its hi and lo planes), two stages of K and V tiles and two of
+    the key-bias strip, rows padded by 16 bytes. Above, the wide CUDA-core
+    body (`smem_bytes` there) at its column chunk: fp32 query chunk and
+    probability tile, the key-bias strip, K and V chunks in the input type
+    with padded rows."""
     elt = torch.empty((), dtype=dtype).element_size()
-    return bq * hd * 4 + bq * bk * 4 + bk * 4 + 2 * bk * (hd + _KV_ROW_PAD) * elt
+    if hd <= NARROW_MAX_HEAD_DIM:
+        row = hd * elt + _MMA_ROW_PAD_BYTES
+        planes = 2 if dtype == torch.float32 else 1
+        return planes * bq * row + 2 * (2 * bk * row + bk * 4)
+    cw = column_chunk(hd)
+    return (bq * cw * 4 + bq * bk * 4 + bk * 4
+            + 2 * bk * (cw + _KV_ROW_PAD) * elt)
 
 
 def blockwise_tiles(Sq: int, Sk: int, head_dim: int, dtype,
@@ -230,7 +229,8 @@ def blockwise_tiles(Sq: int, Sk: int, head_dim: int, dtype,
     """(bq, bk) the blockwise kernel runs for a request of (block_q,
     block_k): each snapped down to 32, 64 or 128, no larger than the
     sequence needs, and both halved (keys first) until the tiles fit a
-    block's shared memory at the instance's width (`kernel_width`). Above
+    block's shared memory at the instance's width (`kernel_width`). In
+    fp32 up to width 128 the keys take at most `TF32_MAX_BLOCK_K`; above
     width 128 the keys take `WIDE_BLOCK_K` and the rows at most
     `WIDE_MAX_BLOCK_Q`, the wide body's one tiling. The sizes need not
     divide Sq or Sk: the last tile of either dimension is masked."""
@@ -238,6 +238,8 @@ def blockwise_tiles(Sq: int, Sk: int, head_dim: int, dtype,
     width = kernel_width(head_dim)
     if width > NARROW_MAX_HEAD_DIM:
         bq, bk = min(bq, WIDE_MAX_BLOCK_Q), WIDE_BLOCK_K
+    elif dtype == torch.float32:
+        bk = min(bk, TF32_MAX_BLOCK_K)
     while _smem_bytes(bq, bk, width, dtype) > _SMEM_LIMIT:
         if bk > BLOCK_SIZES[0]:
             bk //= 2

@@ -1,6 +1,6 @@
-// What the two attention kernels (fused_attention.cu, blockwise_attention.cu)
-// share: element access for fp32 and bf16, warp reductions, and the start of
-// the online softmax's running maximum.
+// What the attention bodies of blockwise_attention.cu share: element access
+// for fp32 and bf16, warp reductions, and the start of the online softmax's
+// running maximum.
 
 #pragma once
 

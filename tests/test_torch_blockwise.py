@@ -20,8 +20,9 @@ import jax.numpy as jnp  # noqa: E402
 from icka_tpu.kernels.attention import (  # noqa: E402
     fused_attention_blockwise as jax_blockwise)
 from icka_tpu_torch.kernels.attention import (  # noqa: E402
-    BLOCK_SIZES, _blockwise_bias, _smem_bytes, attention_blockwise_reference,
-    attention_reference, blockwise_tiles, fused_attention_blockwise)
+    BLOCK_SIZES, K1_FP32_TILES, _blockwise_bias, _smem_bytes,
+    attention_blockwise_reference, attention_reference, blockwise_tiles,
+    fused_attention_blockwise)
 
 TOL = {"float32": 2e-5, "bfloat16": 6e-2}
 
@@ -100,7 +101,7 @@ def test_two_tilings_agree():
     bias = torch.zeros(2, 300)
     bias[:, -9:] = -10000.0
     assert blockwise_tiles(250, 300, 16, q.dtype, 32, 32) == (32, 32)
-    assert blockwise_tiles(250, 300, 16, q.dtype, 128, 128) == (128, 128)
+    assert blockwise_tiles(250, 300, 16, q.dtype, 128, 128) == (128, 64)
     a = attention_blockwise_reference(q, k, v, bias, 4, 32, 32)
     b = attention_blockwise_reference(q, k, v, bias, 4, 128, 128)
     assert not torch.equal(a, b)               # they do tile differently
@@ -125,11 +126,11 @@ def test_minus_inf_over_a_whole_key_tile_stays_finite():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [144, 256])
+@pytest.mark.parametrize("hd", [144, 256, 272, 512])
 def test_plain_version_matches_pallas_kernel_at_wide_heads(hd, dtype):
     """Widths above 128 tile as the wide CUDA-core body does (keys by 32,
-    rows by at most 64), ragged in both dimensions, against the Pallas
-    kernel in interpret mode; a key mask."""
+    rows by at most 64; above 256 in column chunks), ragged in both
+    dimensions, against the Pallas kernel in interpret mode; a key mask."""
     B, Sq, Sk, N = 1, 40, 70, 2
     rng = np.random.default_rng(hd)
     q, k, v = _qkv(rng, B, Sq, Sk, N * hd)
@@ -145,17 +146,32 @@ def test_tiles_snap_and_fit_shared_memory():
     assert blockwise_tiles(1024, 1024, 64, bf16) == (128, 128)
     assert blockwise_tiles(150, 150, 64, bf16, 100, 70) == (64, 64)
     assert blockwise_tiles(23, 23, 64, f32) == (32, 32)
-    assert blockwise_tiles(48, 256, 16, f32, 16, 128) == (32, 128)
+    assert blockwise_tiles(48, 256, 16, bf16, 16, 128) == (32, 128)
+    # fp32 up to width 128: at most 64 keys a tile (the 3xTF32 body)
+    assert blockwise_tiles(48, 256, 16, f32, 16, 128) == (32, 64)
     # a ragged last tile is masked, not avoided: 150 rows take two of 128
     assert blockwise_tiles(150, 150, 64, bf16) == (128, 128)
     assert blockwise_tiles(64, 65, 64, bf16) == (64, 128)
-    # fp32 at head width 128: (128, 128) needs 267 KB, so keys are halved
-    assert blockwise_tiles(1024, 1024, 128, f32) == (128, 64)
-    # above 128 both types take the wide CUDA-core body's one tiling
+    # the 3xTF32 body stages Q as hi and lo planes and K/V in fp32, rows
+    # padded by 16 bytes: at width 128, (128, 64) needs 270,848 bytes, so
+    # keys are halved once more; at 64, (128, 64) fits
+    assert _smem_bytes(128, 64, 128, f32) == 2 * 128 * 528 + 2 * (
+        2 * 64 * 528 + 256)
+    assert blockwise_tiles(1024, 1024, 128, f32) == (128, 32)
+    assert blockwise_tiles(1024, 1024, 64, f32) == (128, 64)
+    assert _smem_bytes(128, 64, 64, f32) <= 232448
+    # K1's fp32 tiling at the serving shape, as asked
+    assert blockwise_tiles(150, 150, 64, f32, *K1_FP32_TILES) == K1_FP32_TILES
+    # above 128 both types take the wide CUDA-core body's one tiling, at
+    # any width: above 256 shared memory holds one column chunk (<= 256)
     for dt in (f32, bf16):
         assert blockwise_tiles(1024, 1024, 256, dt) == (64, 32)
         assert blockwise_tiles(1024, 1024, 144, dt, 32, 128) == (32, 32)
         assert _smem_bytes(64, 32, 256, dt) <= 232448
+        for hd in (272, 512, 4096):
+            assert blockwise_tiles(1024, 1024, hd, dt) == (64, 32)
+            assert _smem_bytes(64, 32, hd, dt) <= _smem_bytes(64, 32, 256,
+                                                              dt)
 
 
 @pytest.mark.parametrize("hd", [8, 40, 64, 128])

@@ -16,8 +16,8 @@ import jax.numpy as jnp  # noqa: E402
 from icka_tpu.kernels.attention import fused_attention as jax_fused_attention  # noqa: E402
 from icka_tpu_torch.kernels import attention as kattn  # noqa: E402
 from icka_tpu_torch.kernels.attention import (  # noqa: E402
-    HEAD_DIMS, MAX_HEAD_DIM, _check_kernel_inputs, _normalize_bias,
-    attention_reference, crop_heads, fused_attention, kernel_width, pad_heads)
+    HEAD_DIMS, _check_kernel_inputs, _normalize_bias, attention_reference,
+    column_chunk, crop_heads, fused_attention, kernel_width, pad_heads)
 
 # fp32: summation order only (the TPU kernel's own test bound,
 # tests/test_kernels.py); bf16: outputs and probabilities rounded to bf16
@@ -82,25 +82,28 @@ def test_plain_version_matches_pallas_kernel_at_head_width(hd, dtype):
 
 @pytest.mark.parametrize("hd", [8, 24, 40, 130, 144, 256, 272])
 def test_kernel_refuses_other_head_widths(hd):
-    """The kernels have an instance for every multiple of 16 up to 128 and
-    for 160, 192, 224 and 256; a width in between runs on the next instance,
-    zero-padded, and a width above 256 raises before a launch (checked on
-    CPU tensors through the wrapper's own gate, which CUDA tensors pass
-    through)."""
+    """No head width is refused: the kernels have an instance for every
+    multiple of 16 up to 128 and for 160, 192, 224 and 256, and above 256
+    run the wide body in column chunks of at most 256 at every multiple of
+    32. A width in between runs on the next instance width, zero-padded.
+    Checked on CPU tensors through the wrapper's own gate, which CUDA
+    tensors pass through before the launch."""
     assert HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128,
                          160, 192, 224, 256)
-    assert MAX_HEAD_DIM == 256
     q = torch.zeros(1, 4, 2 * hd)
-    if hd > MAX_HEAD_DIM:
-        with pytest.raises(ValueError, match="head_dim up to 256"):
-            _check_kernel_inputs("fused_attention", q, q, q, 2)
+    _check_kernel_inputs("fused_attention", q, q, q, 2)
+    width = kernel_width(hd)
+    assert 0 <= width - hd < (16 if hd <= 128 else 32)
+    if width <= 256:
+        assert width in HEAD_DIMS
     else:
-        _check_kernel_inputs("fused_attention", q, q, q, 2)
-        assert kernel_width(hd) in HEAD_DIMS
-        assert 0 <= kernel_width(hd) - hd < (16 if hd <= 128 else 32)
-    _check_kernel_inputs("fused_attention", torch.zeros(1, 4, 2 * 48),
-                         torch.zeros(1, 4, 2 * 48), torch.zeros(1, 4, 2 * 48),
-                         2)
+        assert width % 32 == 0
+    if width > 128:       # the wide body's chunks: instance widths, <= 256
+        chunk = column_chunk(width)
+        assert chunk in HEAD_DIMS[8:] and -(-width // chunk) * 256 >= width
+    with pytest.raises(ValueError, match="head_dim=0"):
+        _check_kernel_inputs("fused_attention", torch.zeros(1, 4, 0),
+                             torch.zeros(1, 4, 0), torch.zeros(1, 4, 0), 2)
 
 
 @pytest.mark.parametrize("plain", ["attention_reference",

@@ -277,8 +277,8 @@ def test_blockwise_tilings_agree_on_card(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_minus_inf_key_tiles_stay_finite(cuda_device, dtype):
     """-inf over the first whole key tiles of every second row: both kernels
-    (K2 in bf16 on its tensor-core body) start the running maximum at
-    -1e30, so p = 0 and alpha = 1 there."""
+    (on the tensor-core bodies, bf16 and 3xTF32) start the running maximum
+    at -1e30, so p = 0 and alpha = 1 there."""
     q, k, v, _ = _attn_case(cuda_device, dtype, 2, 40, 256, 2, 64, "BSk")
     bias = torch.zeros(2, 40, 256, device=cuda_device)
     bias[:, ::2, :128] = float("-inf")
@@ -296,14 +296,13 @@ def test_minus_inf_key_tiles_stay_finite(cuda_device, dtype):
 
 
 def test_attention_kernels_refuse_what_they_cannot_take(cuda_device):
-    """A CUDA tensor launches the kernel or raises: no silent plain path."""
-    q = torch.zeros(1, 8, 2 * 272, device=cuda_device)       # head width 272
+    """A CUDA tensor launches the kernel or raises: no silent plain path.
+    No head width is refused (`test_wide_heads_run_both_kernels`)."""
+    q = torch.zeros(1, 8, 2 * 64, device=cuda_device)
     bias = torch.zeros(1, 8, device=cuda_device)
     counts = (tattn.fused_attention.launches,
               tattn.fused_attention_blockwise.launches)
     for fn in (tattn.fused_attention, tattn.fused_attention_blockwise):
-        with pytest.raises(ValueError, match="head_dim up to 256"):
-            fn(q, q, q, bias, 2)
         with pytest.raises(ValueError, match="several devices"):
             fn(q, q, q, bias.cpu(), 2)
         with pytest.raises(TypeError):
@@ -356,12 +355,13 @@ def test_blockwise_bf16_at_every_head_width(cuda_device, hd):
                                        (33, (64, 32))])
 def test_blockwise_last_key_tile_of_one_key(cuda_device, Sk, blocks, dtype):
     """Sk one past a multiple of the key tile: the last tile holds one key,
-    its other rows arrive as zeros and score -inf."""
+    its other rows arrive as zeros and score -inf (both tensor-core
+    bodies)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, bias = _attn_case(cuda_device, dtype, 2, 70, Sk, 4, 64, "BSk")
     got = tattn.fused_attention_blockwise(q, k, v, bias, 4, *blocks)
     torch.cuda.synchronize()
-    assert tattn.blockwise_tiles(70, Sk, 64, dtype, *blocks)[1] == Sk - 1
+    assert Sk % tattn.blockwise_tiles(70, Sk, 64, dtype, *blocks)[1] == 1
     assert bool(torch.isfinite(got).all())
     _assert_attn_close(got, tattn.attention_blockwise_reference(
         q, k, v, bias, 4, *blocks))
@@ -414,12 +414,63 @@ def test_k1_bf16_runs_the_tensor_core_body(cuda_device):
     assert tattn.fused_attention.launches - counts[0] == 2
 
 
-@pytest.mark.parametrize("hd", [144, 160, 256])
+def test_k1_fp32_runs_the_tensor_core_body(cuda_device):
+    """K1 in fp32 is one launch of the blockwise library's 3xTF32 body at
+    `K1_FP32_TILES`, counted on K1 and never on K2, bit-equal to K2 asked
+    for the same tiling and within 2e-5 of the plain version; it raises on a
+    view four bytes past a 16-byte boundary (cp.async needs 16) before any
+    launch. TF32 matmuls stay off for the plain version; the kernel never
+    reads that switch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = (tattn.fused_attention.launches,
+              tattn.fused_attention_blockwise.launches)
+    for kind in ("B11Sk", "full"):
+        q, k, v, bias = _attn_case(cuda_device, torch.float32, 3, 150, 150,
+                                   16, 64, kind)
+        got = tattn.fused_attention(q, k, v, bias, 16)
+        torch.cuda.synchronize()
+        _assert_attn_close(got, tattn.attention_reference(q, k, v, bias, 16))
+        assert torch.equal(got, tattn.fused_attention_blockwise(
+            q, k, v, bias, 16, *tattn.K1_FP32_TILES))
+    assert (tattn.fused_attention.launches - counts[0],
+            tattn.fused_attention_blockwise.launches - counts[1]) == (2, 2)
+    flat = torch.zeros(8 * 128 + 1, device=cuda_device)
+    q = flat[1:].view(1, 8, 128)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        tattn.fused_attention(q, q, q, torch.zeros(1, 8, device=cuda_device),
+                              2)
+    assert tattn.fused_attention.launches - counts[0] == 2
+
+
+@pytest.mark.parametrize("hd", [w for w in tattn.HEAD_DIMS if w <= 128]
+                         + [8, 24, 40])
+def test_fp32_at_every_head_width_up_to_128(cuda_device, hd):
+    """Both wrappers in fp32 on the 3xTF32 body at every instance's width up
+    to 128 and three padded ones, within 2e-5 of their plain versions; a
+    ragged last tile in both dimensions, key and full bias."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for kind, blocks in (("BSk", (64, 128)), ("full", (128, 64))):
+        q, k, v, bias = _attn_case(cuda_device, torch.float32, 2, 150, 200,
+                                   4, hd, kind, seed=hd)
+        for fn, plain, args in (
+                (tattn.fused_attention, tattn.attention_reference, ()),
+                (tattn.fused_attention_blockwise,
+                 tattn.attention_blockwise_reference, blocks)):
+            before = fn.launches
+            got = fn(q, k, v, bias, 4, *args)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1
+            _assert_attn_close(got, plain(q, k, v, bias, 4, *args))
+
+
+@pytest.mark.parametrize("hd", [144, 160, 256, 272, 384, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wide_heads_run_both_kernels(cuda_device, dtype, hd):
-    """Widths from 129 to 256 run the CUDA-core blockwise body through both
-    wrappers (144 zero-padded to 160), one launch each, the plain versions'
-    result; ragged tiles in both dimensions, key and full bias."""
+    """Widths above 128 run the CUDA-core blockwise body through both
+    wrappers (144 zero-padded to 160, 272 to 288; above 256 in column
+    chunks of at most 256), one launch each, the plain versions' result;
+    ragged tiles in both dimensions, key and full bias."""
     torch.backends.cuda.matmul.allow_tf32 = False
     for kind in ("BSk", "full"):
         q, k, v, bias = _attn_case(cuda_device, dtype, 2, 75, 70, 2, hd, kind,
