@@ -25,10 +25,13 @@ Phases; any failure exits non-zero:
      output mode;
   3. serve requests through the flagship at full width (two 24-layer
      RoBERTa-large stacks, ResNet-152, random weights from `--seed`):
-     uint8 images -> preprocess_images -> VisualBackbone ->
-     BucketedICKAServer.predict, once with `use_pallas=True` (the kernel)
-     and once with the plain attention core on the same weights, in fp32;
-     then the kernel path once in bf16;
+     sentences of the synthetic vocabulary -> convert_examples (the
+     byte-level BPE tokenizer over that vocabulary; its `PromptSpec` gives
+     the servers their prompt offset and mask positions), uint8 images ->
+     preprocess_images -> VisualBackbone -> BucketedICKAServer.predict,
+     once with `use_pallas=True` (the kernel) and once with the plain
+     attention core on the same weights, in fp32; then the kernel path
+     once in bf16;
   4. serve the same requests with the int8-static visual half: phase 3's
      float ResNet-152 is calibrated in the dynamic int8 mode on the request
      images, quantised offline, and served with `fused_pallas=True` (K5 once
@@ -39,7 +42,13 @@ Phases; any failure exits non-zero:
      (`PackedICKAServer`, `masked_lstm=True`, phase 3's weights): K1 runs 48
      times per device batch on block-diagonal (B, 1, L, L) masks; tags must
      agree with the plain-core packed path and with the bucketed server;
-  6. time each kernel at its main-path shape beside its plain version, the
+  6. evaluate: write a synthetic test split of 67 rows (no image files: no
+     PIL needed) and a checkpoint of phase 3's weights with the port's own
+     msgpack writer, run `icka_tpu_torch.cli.evaluate.main` on it in bf16
+     with batches of 8 (K1 48 times a batch, the loss finite, every row
+     evaluated), then hold the first batch's fp32 emissions through K1 to
+     the plain core's on the same checkpoint;
+  7. time each kernel at its main-path shape beside its plain version, the
      PyTorch library call for the same function where there is one, its
      bound and its recorded time before its redesign (comment lines only);
      K1's tilings in bf16 and in fp32; K1 and K2 in fp32 at K1's two
@@ -53,9 +62,15 @@ line is `{"ok": true, "device": {...}}`. Needs CUDA; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import dataclasses
+import io
 import json
+import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -65,9 +80,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from icka_tpu_torch.core.config import ICKAConfig
+from icka_tpu_torch.cli import evaluate as evaluate_cli
+from icka_tpu_torch.convert import (backbone_variables_from_state_dict,
+                                    icka_variables_from_state_dict)
+from icka_tpu_torch.core.checkpoint import Checkpointer
+from icka_tpu_torch.core.config import ICKAConfig, TrainConfig, to_json
 from icka_tpu_torch.core.device import strict_fp32
+from icka_tpu_torch.data import native, synthetic
+from icka_tpu_torch.data.clip_store import ClipFeatureStore
+from icka_tpu_torch.data.conll import MMExample, read_mm_conll
+from icka_tpu_torch.data.features import convert_examples
 from icka_tpu_torch.data.images import preprocess_images
+from icka_tpu_torch.data.loader import MNERLoader
+from icka_tpu_torch.data.synthetic import generate_dataset, tiny_tokenizer
 from icka_tpu_torch.kernels import build
 from icka_tpu_torch.kernels import conv as kconv
 from icka_tpu_torch.kernels.attention import (
@@ -82,6 +107,7 @@ from icka_tpu_torch.models.resnet import (Bottleneck, ConvBN, StemPoolS2D,
 from icka_tpu_torch.serving.bucketed import (BucketedICKAServer,
                                              sample_tweet_lengths)
 from icka_tpu_torch.serving.packing import PackedICKAServer
+from icka_tpu_torch.train.trainer import ICKATrainer
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -137,7 +163,15 @@ PACKED_TIERS = ((48, 2), (128, 2))
 # each softmax up to 150; LayerNorm keeps the error from compounding
 EMISSIONS_TOL = 1e-3
 LAYERS_PER_BATCH = 24 + 24        # self-attention layers of both stacks
-OFFSET, MASK_POSITIONS, MAX_BATCH, REQUESTS = 14, (3, 11), 8, 16
+MAX_BATCH, REQUESTS = 8, 16
+# the tokenizer's files and the evaluate phase's corpus and checkpoint
+# (about 4 GB) go here, under the gitignored build/; the evaluate phase
+# removes its own when it ends
+WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+# the evaluate phase: the test split's rows (not a multiple of the batch, so
+# the padded tail runs) and the CLI's batch; the rehearsal on the CPU adds
+# "--tiny" to the CLI's flags
+EVAL_ROWS, EVAL_BATCH, EVAL_CLI_FLAGS = 67, 8, ()
 # the int8 conv kernels against their plain versions: bit-equal (exact
 # integer sums, the same fp32 multiplies, adds and roundings)
 CONV_STAGES = ((56, 64), (28, 128), (14, 256), (7, 512))    # (H, Cw)
@@ -338,15 +372,30 @@ def phase_build():
 BIAS_KINDS = ("B11Sk", "BSk", "BSqSk")
 
 
-def phase_kernel_vs_plain(gen):
-    print("# phase 2: K1 fused_attention vs attention_reference "
-          "(B=8, 16 heads x 64)")
+def main_path_lengths(spec, cfg):
+    """K1's sequence lengths on the main paths: the bare sentence at the
+    longest bucket and in evaluation (max_seq_length), the prompted
+    encoder's spliced layout at the longest bucket and in evaluation, and
+    the packed server's layout-B rows (block-diagonal)."""
+    head = spec.offset - 2 + 2 * cfg.prompt_len
+    return (cfg.max_seq_length, head + cfg.max_seq_length,
+            spec.max_input_length - 2 + 2 * cfg.prompt_len,
+            tuple(L + S * head for L, S in PACKED_TIERS))
+
+
+def phase_kernel_vs_plain(gen, spec, cfg):
+    bare, prompted, evaluated, packed = main_path_lengths(spec, cfg)
+    print(f"# phase 2: K1 fused_attention vs attention_reference "
+          f"(B=8, 16 heads x 64) at the main paths' lengths: bare "
+          f"{bare}, prompted {prompted} (bucketed) and {evaluated} "
+          f"(evaluation), packed layout B {packed}")
     for dtype in (torch.float32, torch.bfloat16):
-        # 92 and 172: the packed server's layout-B rows, block-diagonal
         for Sq, Sk, kinds in (
-                (23, 23, BIAS_KINDS), (150, 150, BIAS_KINDS),
-                (150, 23, BIAS_KINDS), (92, 92, ("packed",)),
-                (172, 172, ("packed",))):
+                (23, 23, BIAS_KINDS), (bare, bare, BIAS_KINDS),
+                (prompted, prompted, BIAS_KINDS),
+                (evaluated, evaluated, BIAS_KINDS),
+                (prompted, 23, BIAS_KINDS),
+                *((L, L, ("packed",)) for L in packed)):
             for kind in kinds:
                 q, k, v, bias = attention_inputs(8, Sq, Sk, dtype, kind, gen)
                 out = fused_attention(q, k, v, bias, 16)
@@ -625,18 +674,52 @@ def calibrate_batch_stats(backbone, images):
             h.remove()
 
 
-def make_requests(cfg, n, rng):
+def prompt_tokenizer():
+    """The byte-level BPE tokenizer over the synthetic vocabulary, and the
+    prompt layout (`PromptSpec`) it gives the flagship's features."""
+    tokenizer = tiny_tokenizer(str(WORK_DIR / "tokenizer"))
+    spec = convert_examples([MMExample(["a"], ["O"])], tokenizer).spec
+    return tokenizer, spec
+
+
+def synthetic_sentence(n_words, rng):
+    """`n_words` words of the synthetic vocabulary, each entity word
+    labelled B- with its type, filler O."""
+    words = [synthetic.VOCAB_WORDS[i]
+             for i in rng.integers(0, len(synthetic.VOCAB_WORDS), n_words)]
+    kinds = {w: kind for kind, pool in (
+        ("PER", synthetic.PEOPLE), ("LOC", synthetic.PLACES),
+        ("ORG", synthetic.ORGS), ("MISC", synthetic.MISCS)) for w in pool}
+    return MMExample(words, [f"B-{kinds[w]}" if w in kinds else "O"
+                             for w in words])
+
+
+def make_requests(cfg, n, rng, tokenizer):
+    """`n` (sentence, image) requests: sentences of the synthetic
+    vocabulary whose lengths are drawn as `sample_tweet_lengths` draws
+    subtoken counts (words = length - 2 for <s> and </s>; a word may take
+    several subtokens), one long enough for the 128 bucket, turned into
+    the server's inputs by `convert_examples`; random CLIP features and
+    uint8 images. Returns (texts, images, PromptSpec)."""
     lens = sample_tweet_lengths(n, rng)
     if lens.max() <= 64:             # cover the long buckets too
         lens[-1] = rng.integers(65, cfg.max_seq_length + 1)
-    vocab = cfg.embedding.vocab_size
-    texts = [{
-        "ori_input_ids": rng.integers(3, vocab, int(L)),
-        "input_ids": rng.integers(3, vocab, OFFSET + int(L)),
-        "clip_features": rng.standard_normal(cfg.clip_dim).astype(np.float32),
-    } for L in lens]
+    examples = [synthetic_sentence(int(L) - 2, rng) for L in lens]
+    for i, ex in enumerate(examples):
+        ex.img_id = f"{i}.jpg"
+    clip = {str(i): rng.standard_normal(cfg.clip_dim).astype(np.float32)
+            for i in range(n)}
+    feats = convert_examples(examples, tokenizer, cfg.max_seq_length, clip,
+                             cfg.clip_dim)
+    spec = feats.spec
+    texts = []
+    for i in range(n):
+        L = int(feats.ori_input_mask[i].sum())
+        texts.append({"ori_input_ids": feats.ori_input_ids[i, :L],
+                      "input_ids": feats.input_ids[i, :spec.offset + L],
+                      "clip_features": feats.clip_features[i, 0]})
     images = rng.integers(0, 256, (n, 256, 256, 3), dtype=np.uint8)
-    return texts, images
+    return texts, images, spec
 
 
 def serve(server, backbone, texts, images):
@@ -678,13 +761,12 @@ def device_profile(fn, top=8):
             [(e.key, dev_us(e) / 1e3, e.count) for e in rows])
 
 
-def first_batch_emissions(server, examples, models):
+def first_batch_emissions(server, examples, models, spec):
     """Emissions of each model on the server's first device batch."""
     with torch.inference_mode():
         _, _, _, batch = next(server.batches(examples))
-        kw = {k: v for k, v in batch.items() if k != "output_mask"}
-        return [m.emissions(mask_positions=MASK_POSITIONS, offset=OFFSET,
-                            **kw)[0] for m in models]
+        return [m.batch_emissions(batch, spec.mask_positions, spec.offset)
+                for m in models]
 
 
 def agreement(a, b):
@@ -692,7 +774,7 @@ def agreement(a, b):
     return same / sum(len(x) for x in a)
 
 
-def phase_slice(args, card, dev, base, resnet_layers):
+def phase_slice(args, card, dev, base, resnet_layers, tokenizer):
     print("# phase 3: full-width flagship serving (ICKAConfig(), ResNet-152)")
     strict_fp32()
     cfgs = {p: dataclasses.replace(
@@ -712,17 +794,18 @@ def phase_slice(args, card, dev, base, resnet_layers):
     backbone16 = VisualBackbone(resnet_layers, dtype=torch.bfloat16,
                                 device=dev, seed=args.seed + 1).eval()
     rng = np.random.default_rng(args.seed)
-    texts, images = make_requests(base, REQUESTS, rng)
+    texts, images, spec = make_requests(base, REQUESTS, rng, tokenizer)
     calibrate_batch_stats(backbone, preprocess_images(images, 224, dev))
     backbone16.load_state_dict(backbone.state_dict(), assign=True)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"#   built ICKA ({n_params / 1e6:.1f} M params) + ResNet-152 in "
           f"{time.perf_counter() - t0:.1f} s; request lengths "
-          f"{[len(t['ori_input_ids']) for t in texts]}")
+          f"{[len(t['ori_input_ids']) for t in texts]}; prompt offset "
+          f"{spec.offset}, mask positions {spec.mask_positions}")
 
     servers = {name: BucketedICKAServer(m, max_batch=MAX_BATCH,
-                                        offset=OFFSET,
-                                        mask_positions=MASK_POSITIONS,
+                                        offset=spec.offset,
+                                        mask_positions=spec.mask_positions,
                                         device=dev)
                for name, m in (("kernel", model), ("plain", plain),
                                ("kernel_bf16", model16))}
@@ -758,7 +841,7 @@ def phase_slice(args, card, dev, base, resnet_layers):
     check(runs["plain"]["launches"] == 0, "plain path launched K1")
 
     em_k, em_p = first_batch_emissions(
-        servers["kernel"], runs["kernel"]["examples"], (model, plain))
+        servers["kernel"], runs["kernel"]["examples"], (model, plain), spec)
     check(bool(torch.isfinite(em_k).all()), "non-finite emissions")
     em_err = (em_k - em_p).abs().max().item()
     agree = agreement(runs["kernel"]["tags"], runs["plain"]["tags"])
@@ -768,7 +851,8 @@ def phase_slice(args, card, dev, base, resnet_layers):
           f"{em_k.abs().max().item():.3f})")
     print(f"#   tag agreement kernel vs plain (fp32): {agree:.6f}")
     (em_16,) = first_batch_emissions(
-        servers["kernel_bf16"], runs["kernel_bf16"]["examples"], (model16,))
+        servers["kernel_bf16"], runs["kernel_bf16"]["examples"], (model16,),
+        spec)
     top2 = em_k.topk(2, dim=-1).values
     margin = (top2[..., 0] - top2[..., 1]).median().item()
     print(f"#   tag agreement bf16 kernel path vs fp32 kernel path: "
@@ -797,7 +881,7 @@ def phase_slice(args, card, dev, base, resnet_layers):
               f"kernels by device time, then K1 (profiled run):")
         for key, ms, calls in rows:
             print(f"#     {ms:9.3f} ms {calls:6d}x {key[:90]}")
-    ctx = dict(texts=texts, images=images, backbone=backbone,
+    ctx = dict(texts=texts, images=images, backbone=backbone, spec=spec,
                cfgs=cfgs, weights=model.state_dict(),
                backbone_bf16=backbone16, server_bf16=servers["kernel_bf16"],
                tags_bf16=runs["kernel_bf16"]["tags"],
@@ -823,7 +907,8 @@ def phase_packed(args, card, dev, ctx):
               "kernel_bf16": model_for(True, torch.bfloat16)}
     backbones = {"kernel": ctx["backbone"], "plain": ctx["backbone"],
                  "kernel_bf16": ctx["backbone_bf16"]}
-    kw = dict(mask_positions=MASK_POSITIONS, offset=OFFSET,
+    spec = ctx["spec"]
+    kw = dict(mask_positions=spec.mask_positions, offset=spec.offset,
               max_batch=MAX_BATCH, device=dev)
     packed = {name: PackedICKAServer(m, tiers=PACKED_TIERS, **kw)
               for name, m in models.items()}
@@ -831,7 +916,7 @@ def phase_packed(args, card, dev, ctx):
     cfg = models["kernel"].cfg
     for L, S in PACKED_TIERS:
         print(f"#   tier ({L}, {S}): layout A {L} tokens, layout B "
-              f"{L + S * (OFFSET - 2 + 2 * cfg.prompt_len)} tokens")
+              f"{L + S * (spec.offset - 2 + 2 * cfg.prompt_len)} tokens")
     packed["kernel"].warmup()
 
     runs = {}
@@ -889,6 +974,166 @@ def phase_packed(args, card, dev, ctx):
         for key, ms, calls in rows:
             print(f"#     {ms:9.3f} ms {calls:6d}x {key[:90]}")
     return runs["kernel"]["counts"]
+
+
+def write_checkpoint(out, cfg, weights, backbone):
+    """The JAX package's checkpoint directory (config.json, manifest,
+    state_best.msgpack) of the flagship's and the backbone's weights,
+    written through the weight bridge and the port's own msgpack writer.
+    Returns its seconds and bytes."""
+    t0 = time.perf_counter()
+    ck = Checkpointer(str(out))
+    ck.save_config(to_json(cfg))
+    ck.save({"step": 0,
+             "params": icka_variables_from_state_dict(weights)["params"],
+             "backbone_variables": backbone_variables_from_state_dict(
+                 backbone.state_dict())}, step=0, metric=0.0, best_only=True)
+    return (time.perf_counter() - t0,
+            os.path.getsize(out / "state_best.msgpack"))
+
+
+def native_status() -> str:
+    """Whether the repo's native JPEG decoder loaded, and why not."""
+    if native.native_available():
+        return "loaded"
+    try:
+        ctypes.CDLL(native._LIB_PATH)
+    except OSError as e:
+        return f"not loaded ({e})"
+    return "not loaded"
+
+
+def phase_evaluate(args, card, dev, ctx):
+    """The evaluation entry point, `icka_tpu_torch.cli.evaluate.main`, at
+    full width: a synthetic test split of EVAL_ROWS rows (no image files,
+    so the loader yields zero images and needs no PIL; they still run
+    the whole ResNet-152), a checkpoint written with the port's own writer
+    (phase 3's flagship weights; phase 3's ResNet-152 weights with their
+    BatchNorm statistics calibrated on this split's images), bf16, batches
+    of EVAL_BATCH. Then, on the first batch, the same checkpoint at fp32:
+    emissions through K1 against the plain attention core. Returns every
+    kernel's launch count over the CLI run."""
+    cfg = ctx["cfgs"][True]
+    tiny = "--tiny" in EVAL_CLI_FLAGS
+    layers, decode = ((1, 1, 1, 1), 64) if tiny else ((3, 8, 36, 3), 256)
+    print(f"# phase 6: evaluate: python -m icka_tpu_torch.cli.evaluate at "
+          f"full width (bf16, ResNet-152, {EVAL_ROWS} test rows, "
+          f"--eval_batch_size {EVAL_BATCH}, use_pallas on both encoders)")
+    root = WORK_DIR / "evaluate"
+    shutil.rmtree(root, ignore_errors=True)
+    ds, out = root / "ds", root / "out"
+    generate_dataset(str(ds), n_train=0, n_valid=0, n_test=EVAL_ROWS,
+                     clip_dim=cfg.clip_dim, seed=args.seed,
+                     write_images=False)
+    tokenizer = tiny_tokenizer(str(ds / "tokenizer"))
+    feats = convert_examples(read_mm_conll(str(ds / "test.txt")), tokenizer,
+                             cfg.max_seq_length,
+                             ClipFeatureStore.from_split(str(ds), "test"),
+                             cfg.clip_dim)
+    spec = feats.spec
+    batch = next(iter(MNERLoader(feats, str(ds / "images"), EVAL_BATCH,
+                                 train=False, prefetch=0,
+                                 decode_size=decode)))
+    # BatchNorm statistics from the images this split feeds the backbone:
+    # with phase 3's (calibrated on random images) the zero images give
+    # visual features near 5e3, and the txt2img fusion, the same einsum
+    # core on both paths, turns the bare-sentence encoder's 8e-6 between
+    # the kernel and the plain core into 0.66 (tools/evaluate_emissions.py)
+    backbone = VisualBackbone(layers, device=dev).eval()
+    backbone.load_state_dict(ctx["backbone"].state_dict())
+    calibrate_batch_stats(backbone, preprocess_images(
+        batch["images"], min(224, decode), dev))
+    write_s, size = write_checkpoint(out, cfg, ctx["weights"], backbone)
+    del backbone
+    t0 = time.perf_counter()
+    state = Checkpointer(str(out)).restore_best()
+    read_s = time.perf_counter() - t0
+    print(f"#   checkpoint: {size / 1e9:.3f} GB written in {write_s:.2f} s, "
+          f"read in {read_s:.2f} s (port's msgpack codec); native decoder "
+          f"native/libicka_native.so {native_status()}")
+
+    zero_counts()
+    report = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(report):
+        result = evaluate_cli.main([
+            "--synthetic", str(ds), "--output_dir", str(out), "--split",
+            "test", "--eval_batch_size", str(EVAL_BATCH), "--device",
+            dev.type, *EVAL_CLI_FLAGS])
+    sync(dev)
+    cli_s = time.perf_counter() - t0
+    counts = read_counts()
+    for line in report.getvalue().rstrip("\n").split("\n"):
+        print(f"#     {line}")
+    k1 = counts["fused_attention"]
+    print(f"#   {result.rows} rows in {result.batches} batches: eval loop "
+          f"{result.seconds:.3f} s wall, {result.rows / result.seconds:.2f} "
+          f"pairs/s (CLI {cli_s:.2f} s in all: corpus, features, models, "
+          f"checkpoint, loop) on {card}; K1 launches {k1}")
+    check(result.rows == EVAL_ROWS, f"evaluated {result.rows} rows of "
+                                    f"{EVAL_ROWS}")
+    check(result.batches == math.ceil(EVAL_ROWS / EVAL_BATCH),
+          f"{result.batches} batches")
+    check(math.isfinite(result.loss), f"loss {result.loss}")
+    check(0.0 <= result.f1 <= 1.0, f"f1 {result.f1}")
+    if LAYERS_PER_BATCH:
+        check(k1 == LAYERS_PER_BATCH * result.batches,
+              f"K1 launched {k1} times for {result.batches} batches")
+
+    # the first batch at fp32: K1 against the plain core, same checkpoint
+    strict_fp32()
+    trainer = ICKATrainer(cfg, TrainConfig(compute_dtype="float32"), spec,
+                          resnet_layers=layers, device=dev)
+    trainer.state_from_checkpoint(state)
+    del state
+    plain = ICKAModel(ctx["cfgs"][False], device=dev).eval()
+    plain.load_state_dict(trainer.model.state_dict(), assign=True)
+    trainer16 = ICKATrainer(cfg, TrainConfig(compute_dtype="bfloat16"),
+                            spec, resnet_layers=layers, device=dev)
+    trainer16.model.load_state_dict(trainer.model.state_dict(), assign=True)
+    trainer16.backbone.load_state_dict(trainer.backbone.state_dict(),
+                                       assign=True)
+    with torch.inference_mode():
+        inputs = trainer.model_inputs(batch)
+        em_k, em_p = (m.batch_emissions(inputs, spec.mask_positions,
+                                        spec.offset)
+                      for m in (trainer.model, plain))
+        mask = inputs["output_mask"]
+        tags_k, tags_p = (trainer.model.crf.decode(e, mask)
+                          for e in (em_k, em_p))
+        tags16, _ = trainer16.eval_step(batch)
+    sync(dev)
+    valid = mask.bool()
+    err = (em_k - em_p).abs().max().item()
+    agree = (tags_k == tags_p)[valid].float().mean().item()
+    agree16 = (tags16 == tags_k)[valid].float().mean().item()
+    print(f"#   first batch at fp32, the same checkpoint: visual_mean max "
+          f"|x| {inputs['visual_mean'].abs().max().item():.3e}; emissions "
+          f"K1 vs plain core max_abs_err {err:.3e} (tol "
+          f"{EMISSIONS_TOL:.0e}), tag agreement {agree:.6f}; bf16 tags vs "
+          f"fp32 tags {agree16:.6f} (random weights: not held)")
+    check(bool(torch.isfinite(em_k).all()), "non-finite emissions")
+    check(err <= EMISSIONS_TOL, f"evaluate: emissions differ by {err}")
+
+    # the bf16 loop again on the CLI's weights: its wall once more, then
+    # its device time under the profiler (a report, not a check)
+    loader = MNERLoader(feats, str(ds / "images"), EVAL_BATCH, train=False,
+                        decode_size=decode)
+    again = trainer16.evaluate(loader)
+    print(f"#   the bf16 eval loop again: {again.seconds:.3f} s wall, "
+          f"{again.rows / again.seconds:.2f} pairs/s, loss "
+          f"{again.loss:.6f} (CLI {result.loss:.6f})")
+    try:
+        busy, rows = device_profile(lambda: trainer16.evaluate(loader))
+        print(f"#   eval loop: device busy {busy * 1e3:.1f} ms of "
+              f"{again.seconds * 1e3:.1f} ms wall ({busy / again.seconds:.3f}"
+              f"); top kernels by device time, then K1 (profiled run):")
+        for key, ms, calls in rows:
+            print(f"#     {ms:9.3f} ms {calls:6d}x {key[:90]}")
+    except Exception as e:       # the profiler is a report, not a check
+        print(f"#   eval loop device profile not measured ({e!r})")
+    shutil.rmtree(root)
+    return counts
 
 
 def cosine(a, b):
@@ -1079,7 +1324,7 @@ def phase_blockwise_times(gen, k1_row, launches):
     full-bias time at the packed layout-B shape. `launches` is K2's count
     over the serving runs. Returns K2's row."""
     B, N, hd, dtype = 128, 16, 64, torch.bfloat16
-    print(f"# phase 6: K2 at B={B}, {N} heads of {hd}, bf16, asked for "
+    print(f"# phase 7: K2 at B={B}, {N} heads of {hd}, bf16, asked for "
           f"tiling (128, 128); bound = max(bytes / 3.35e12, flops / 989e12)")
     cases = (("s150", 150, "B11Sk", 50), ("s172_full", 172, "packed", 50),
              ("s512", 512, "B11Sk", 20), ("s1024", 1024, "B11Sk", 10))
@@ -1164,10 +1409,12 @@ def k1_tiling_ms(q, k, v, bias, N, iters):
         q, k, v, bias, N, *blocks), iters=iters) for blocks in K1_TILINGS}
 
 
-def phase_times(gen, launches, packed_launches, k2_launches):
+def phase_times(gen, launches, packed_launches, eval_launches, k2_launches):
     B, S, N, hd, dtype = 128, 150, 16, 64, torch.bfloat16
-    print(f"# phase 6: K1 at the main-path shape B={B} Sq=Sk={S} {N}x{hd} "
-          f"bf16, key-mask bias (the tensor-core body at {K1_TILES})")
+    print(f"# phase 7: K1 at B={B} Sq=Sk={S} {N}x{hd} bf16, key-mask bias "
+          f"(the tensor-core body at {K1_TILES}; the prompted encoder's "
+          f"longest bucket under a 14-token prompt, the shape every slice "
+          f"has timed)")
     q, k, v, bias = attention_inputs(B, S, S, dtype, "B11Sk", gen)
     out = fused_attention(q, k, v, bias, N)
     want = attention_reference(q, k, v, bias, N)
@@ -1181,6 +1428,7 @@ def phase_times(gen, launches, packed_launches, k2_launches):
     row = {"name": "fused_attention", "route": "cuda", "source": K2_SOURCE,
            "replaces": "icka_tpu/kernels/attention.py:87",
            "launches": launches, "packed_launches": packed_launches,
+           "eval_launches": eval_launches,
            "max_abs_err": err, "share_of_bound": share, "ms": ms,
            "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1207,7 +1455,7 @@ def phase_fp32_times(gen, k1_row, k2_row):
     both rows."""
     B, N, hd, dtype = 128, 16, 64, torch.float32
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"# phase 6: K1 and K2 in fp32 at B={B}, {N} heads of {hd} (K1 at "
+    print(f"# phase 7: K1 and K2 in fp32 at B={B}, {N} heads of {hd} (K1 at "
           f"{K1_FP32_TILES}, K2 asked for (128, 128), which runs "
           f"{blockwise_tiles(150, 150, hd, dtype)}; SDPA and the plain "
           f"versions with TF32 off); bound = max(bytes / 3.35e12, "
@@ -1259,7 +1507,7 @@ def phase_wide_times(gen, hd=272):
     288, two column chunks of the wide CUDA-core body), B=128, S=150, 16
     heads, a key mask, in both types: a record, not a bound."""
     B, S, N = 128, 150, 16
-    print(f"# phase 6: K1 and K2 at head width {hd} (padded to "
+    print(f"# phase 7: K1 and K2 at head width {hd} (padded to "
           f"{kernel_width(hd)}: the wide CUDA-core body in column chunks of "
           f"{column_chunk(kernel_width(hd))}), B={B}, Sq=Sk={S}, {N} heads, "
           f"key mask")
@@ -1318,7 +1566,7 @@ def phase_conv_times(gen, launches, errs, B=128):
     """K3-K6 at B=128 beside their plain versions, the unfused port path
     for the same block (ConvBN modules with float64 integer products) and
     their bounds."""
-    print(f"# phase 6: K3-K6 at B={B}; bound = max(bytes / 3.35e12, ops / "
+    print(f"# phase 7: K3-K6 at B={B}; bound = max(bytes / 3.35e12, ops / "
           f"1979e12 int8 dense)")
     dev = torch.device("cuda", 0)
     rows = []
@@ -1431,25 +1679,33 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     try:
         dev, layers = torch.device("cuda", 0), (3, 8, 36, 3)
+        base = ICKAConfig()
         card = phase_build()
-        phase_kernel_vs_plain(gen)
+        tokenizer, spec = prompt_tokenizer()
+        phase_kernel_vs_plain(gen, spec, base)
         phase_head_widths(gen)
         phase_blockwise_vs_plain(gen)
         conv_errs = phase_conv_kernels_vs_plain(gen)
-        counts, _, ctx = phase_slice(args, card, dev, ICKAConfig(), layers)
+        counts, _, ctx = phase_slice(args, card, dev, base, layers, tokenizer)
         conv_counts = phase_int8_visual(args, card, dev, ctx, layers)
         packed_counts = phase_packed(args, card, dev, ctx)
+        eval_counts = phase_evaluate(args, card, dev, ctx)
         del ctx
         torch.cuda.empty_cache()
-        # over the three serving paths, each driven from counts of 0
-        total = {name: counts[name] + conv_counts[name] + packed_counts[name]
-                 for name in COUNTERS}
-        print(f"#   kernel launches over the three serving paths: {total}")
+        # over the four main paths, each driven from counts of 0
+        runs = (counts, conv_counts, packed_counts, eval_counts)
+        total = {name: sum(c[name] for c in runs) for name in COUNTERS}
+        print(f"#   kernel launches over the four main paths: {total}")
         for name in NO_CALLER:
             check(total[name] == 0, f"{name} has no caller in the model, yet "
-                                    f"serving launched it {total[name]} times")
+                                    f"the main paths launched it "
+                                    f"{total[name]} times")
+        for name in ("int8_bottleneck_v2", "int8_stem_pool"):
+            check(eval_counts[name] == 0, f"evaluation runs the float "
+                                          f"backbone, yet launched {name}")
         kernels = phase_times(gen, counts["fused_attention"],
                               packed_counts["fused_attention"],
+                              eval_counts["fused_attention"],
                               total["fused_attention_blockwise"])
         kernels += phase_conv_times(gen, total, conv_errs)
     except SmokeFailure as e:

@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's variables -> this package's state_dicts.
+"""Weight bridge: the JAX package's variables <-> this package's
+state_dicts.
 
 Input is what `jax.device_get(variables)` yields: nested dicts of numpy
 arrays (flax FrozenDicts work too). This package names its submodules and
@@ -17,6 +18,11 @@ The int8-static backbone tree (`wq` int8 (k*k*Cin, F) tap major, `w_scale`,
 `fused_bias`, 0-d `act_scale` and `out_scale`, no `batch_stats`) goes
 through `backbone_static_state_dict`, which keeps int8 as int8; the port
 stores these leaves in the same layout, as buffers.
+
+The inverse (`flax_tree_from_state_dict`, `icka_variables_from_state_dict`,
+`backbone_variables_from_state_dict`) turns a float state_dict back into
+the flax trees, `weight` back into `kernel` in (in, out) or HWIO, so the
+port can write the JAX package's checkpoints where flax is not installed.
 """
 
 from __future__ import annotations
@@ -87,3 +93,49 @@ def calib_from_flax(calib: Mapping) -> dict:
     port's calibration record {ConvBN path: x}."""
     return {k[:-len(".amax")]: np.float32(v)
             for k, v in _flatten(calib).items() if k.endswith(".amax")}
+
+
+def _flax_entry(key: str, value) -> tuple[str, np.ndarray]:
+    if isinstance(value, torch.Tensor):
+        value = value.detach().to("cpu", torch.float32).numpy()
+    value = np.asarray(value, np.float32)
+    if key == "weight" or key.endswith(".weight"):
+        key = key[:-len("weight")] + "kernel"
+        if value.ndim == 2:
+            value = np.ascontiguousarray(value.T)
+        elif value.ndim == 4:
+            value = np.ascontiguousarray(value.transpose(2, 3, 1, 0))
+        else:
+            raise ValueError(f"weight {key} of rank {value.ndim}")
+    return key, value
+
+
+def flax_tree_from_state_dict(sd: Mapping) -> dict:
+    """A float state_dict -> one flax collection (nested dicts of float32
+    numpy arrays): the inverse of `state_dict_from_flax`."""
+    tree: dict = {}
+    for name, value in sd.items():
+        key, value = _flax_entry(name, value)
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree
+
+
+def icka_variables_from_state_dict(sd: Mapping) -> dict:
+    """`ICKAModel` state_dict -> {"params": ...}, the inverse of
+    `icka_state_dict`."""
+    return {"params": flax_tree_from_state_dict(sd)}
+
+
+def backbone_variables_from_state_dict(sd: Mapping) -> dict:
+    """Float `VisualBackbone` state_dict -> {"params", "batch_stats"}, the
+    inverse of `backbone_state_dict`: BatchNorm running `mean`/`var` go to
+    batch_stats."""
+    stats = {k: v for k, v in sd.items() if k.rsplit(".", 1)[-1] in
+             ("mean", "var")}
+    return {"params": flax_tree_from_state_dict(
+                {k: v for k, v in sd.items() if k not in stats}),
+            "batch_stats": flax_tree_from_state_dict(stats)}

@@ -1,5 +1,5 @@
 """Typed configuration, a copy of `icka_tpu.core.config`'s encoder and ICKA
-dataclasses.
+dataclasses and of the evaluation fields of its `TrainConfig`.
 
 Field names and defaults are identical to the JAX package's, so a
 ``config.json`` written there loads here unchanged. In this package
@@ -128,6 +128,16 @@ class ICKAConfig:
                    num_regions=49, region_dim=64, clip_dim=32,
                    prompt_len=5, prompt_hidden=48, last_hidden=enc.hidden_size,
                    max_seq_length=32)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The fields of the JAX package's `TrainConfig` that evaluation reads,
+    with its names and defaults; the optimiser and loop fields wait for
+    training to be ported."""
+
+    eval_batch_size: int = 1
+    compute_dtype: str = "bfloat16"      # or "float32"
 
 
 _NESTED = {

@@ -1,7 +1,8 @@
 """Image pipeline: host-side decode, device-side eval preprocessing (port
 of `icka_tpu.data.images`).
 
-  host   : decode (PIL) -> uint8 RGB resized to `decode_size`^2 (256);
+  host   : decode (PIL, or the native library through the loader) -> uint8
+           RGB resized to `decode_size`^2 (256);
   device : center crop + ImageNet normalisation.
 
 The training augmentation (random crop and flip) is not ported.
@@ -9,6 +10,7 @@ The training augmentation (random crop and flip) is not ported.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -24,7 +26,15 @@ def decode_image(path: str, decode_size: int = 256,
                  fallback: Optional[str] = None) -> np.ndarray:
     """Host decode -> (decode_size, decode_size, 3) uint8. On failure, falls
     back to `fallback` (the reference substitutes a known-good image) or a
-    zero image. Needs PIL, imported here only."""
+    zero image. A file that exists needs PIL, imported here only, and
+    raises without it; a missing file gives the fallback or zeros, as the
+    JAX package does with PIL, so a missing PIL never turns an image into
+    zeros."""
+    zeros = np.zeros((decode_size, decode_size, 3), np.uint8)
+    candidates = [p for p in (path, fallback)
+                  if p is not None and os.path.exists(p)]
+    if not candidates:
+        return zeros
     from PIL import Image
 
     def _load(p):
@@ -32,15 +42,12 @@ def decode_image(path: str, decode_size: int = 256,
             im = im.convert("RGB").resize((decode_size, decode_size))
             return np.asarray(im, dtype=np.uint8)
 
-    try:
-        return _load(path)
-    except Exception:
-        if fallback is not None:
-            try:
-                return _load(fallback)
-            except Exception:
-                pass
-        return np.zeros((decode_size, decode_size, 3), np.uint8)
+    for p in candidates:
+        try:
+            return _load(p)
+        except Exception:
+            pass
+    return zeros
 
 
 def preprocess_images(images, crop_size: int = 224, device="cuda"):

@@ -4,9 +4,11 @@ Pipeline: RoBERTa text encoding -> 7x7 visual grid mapped to H -> txt2img
 cross-attention fusion -> CLIP knowledge alignment over the fused text ->
 two prompt prefixes from mapping networks spliced into the prompted
 RoBERTa -> relevance gate -> BiLSTM -> classifier -> CRF Viterbi.
-Visual features arrive NHWC (B, 7, 7, C). Only `mode="test"` is ported
-(the CRF likelihood behind train/dev waits). `forward_packed` is the
-sequence-packed inference path of `icka_tpu_torch.serving.packing`.
+Visual features arrive NHWC (B, 7, 7, C). `forward` has the JAX model's
+three modes: "test" (tags), "dev" (tags and the loss) and "train" (the
+loss); dropout is not ported, so every mode runs deterministically.
+`forward_packed` is the sequence-packed inference path of
+`icka_tpu_torch.serving.packing`.
 """
 
 from __future__ import annotations
@@ -184,12 +186,8 @@ class ICKAModel(nn.Module):
         return emissions, {"gate": g, "cross": cross,
                            "token_embedding": token_embedding}
 
-    def forward(self, batch, mask_positions, offset: int, mode: str = "test"):
-        """`batch` is a dict of tensors on the model's device (the keys of
-        `icka_tpu.data.features`). Returns (B, L) int32 Viterbi tags."""
-        if mode != "test":
-            raise NotImplementedError(
-                f"mode={mode!r} needs the CRF likelihood, not ported yet")
+    def batch_emissions(self, batch, mask_positions, offset: int):
+        """`emissions` over a batch dict; returns the emissions only."""
         emissions, _ = self.emissions(
             input_ids=batch["input_ids"],
             segment_ids=batch["segment_ids"],
@@ -204,7 +202,33 @@ class ICKAModel(nn.Module):
             mask_positions=mask_positions,
             offset=offset,
         )
-        return self.crf.decode(emissions, batch["output_mask"])
+        return emissions
+
+    def forward(self, batch, mask_positions, offset: int, mode: str = "test",
+                labels=None, deterministic=None,
+                loss_reduction: str = "token_mean"):
+        """`batch` is a dict of tensors on the model's device (the keys of
+        `icka_tpu_torch.data.features`). As the JAX model's `__call__`:
+        "test" returns (B, L) int32 Viterbi tags; "dev" returns (tags, the
+        negative log-likelihood of `labels` under `loss_reduction`, where
+        "none" gives each row's NLL (B,)); "train" returns the token-mean
+        NLL. Dropout is not ported: every mode runs deterministically, and
+        `deterministic=False` raises."""
+        if deterministic is False:
+            raise NotImplementedError(
+                "dropout is not ported; the model runs deterministically")
+        if mode not in ("train", "dev", "test"):
+            raise ValueError(f"unknown mode {mode!r}")
+        emissions = self.batch_emissions(batch, mask_positions, offset)
+        output_mask = batch["output_mask"]
+        if mode == "train":
+            return -self.crf(emissions, labels, output_mask,
+                             reduction="token_mean")
+        pred = self.crf.decode(emissions, output_mask)
+        if mode == "test":
+            return pred
+        return pred, -self.crf(emissions, labels, output_mask,
+                               reduction=loss_reduction)
 
     def forward_packed(self, batch):
         """Sequence-packed inference (`PackedICKAServer`): each row carries

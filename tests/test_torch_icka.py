@@ -158,5 +158,8 @@ def test_server_validates_buckets_and_device(flagship):
     tm = flagship[2]
     with pytest.raises(ValueError):
         BucketedICKAServer(tm, buckets=(16,), device="cpu")
+    # dropout is not ported: training mode runs only deterministically
     with pytest.raises(NotImplementedError):
-        tm({}, MASKS, OFFSET, mode="train")
+        tm({}, MASKS, OFFSET, mode="train", deterministic=False)
+    with pytest.raises(ValueError):
+        tm({}, MASKS, OFFSET, mode="predict")
