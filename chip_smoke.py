@@ -38,6 +38,18 @@ Phases; any failure exits non-zero:
      and K4 46 times per backbone call) in front of phase 3's bf16 flagship;
      the same backbone on the kernels' plain versions must give a
      bit-identical `att`, and the fused stem the unfused stem's output;
+     the products outside the kernels (`torch._int_mm`) timed against the
+     float64 product, `att` unmoved;
+ 4b. serve them in the JAX package's serving configuration: int8-static
+     text (both RoBERTa stacks, the cross-attention stacks, the BiLSTM's
+     input projection) in bf16 with K1, calibrated in the dynamic int8
+     mode on the requests and quantised with `static_quantize_params_like`,
+     behind phase 4's int8-static ResNet-152; `int8_matmul` bit-equal to
+     the float64 product at every quantised shape of the run, an
+     int8-static Dense and the BiLSTM's input projection bit-equal on the
+     card and the CPU, every request tagged, K1 48 times a batch and K4/K5
+     as in phase 4; tags and emissions against the plain core and against
+     phase 4's float text, walls, device busy and launches printed;
   5. serve the requests of phase 3 sequence-packed
      (`PackedICKAServer`, `masked_lstm=True`, phase 3's weights): K1 runs 48
      times per device batch on block-diagonal (B, 1, L, L) masks; tags must
@@ -63,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import io
@@ -99,11 +112,15 @@ from icka_tpu_torch.kernels.attention import (
     HEAD_DIMS, K1_FP32_TILES, K1_TILES, attention_blockwise_reference,
     attention_reference, blockwise_tiles, column_chunk, fused_attention,
     fused_attention_blockwise, kernel_width)
+from icka_tpu_torch.models import resnet as resnet_module
 from icka_tpu_torch.models.convert import (calibration_amax,
-                                           static_quantize_backbone)
+                                           quantize_params_like,
+                                           static_quantize_backbone,
+                                           static_quantize_params_like)
 from icka_tpu_torch.models.icka import ICKAModel
 from icka_tpu_torch.models.resnet import (Bottleneck, ConvBN, StemPoolS2D,
                                           VisualBackbone)
+from icka_tpu_torch.nn.quant import column_major, int8_matmul
 from icka_tpu_torch.serving.bucketed import (BucketedICKAServer,
                                              sample_tweet_lengths)
 from icka_tpu_torch.serving.packing import PackedICKAServer
@@ -741,7 +758,8 @@ def serve(server, backbone, texts, images):
 
 def device_profile(fn, top=8):
     """torch.profiler over one call of `fn`: total device seconds, the
-    `top` device kernels by time, and K1's own row (name, ms, calls)."""
+    `top` device kernels by time and K1's own row (name, ms, calls), and
+    the number of device kernels launched."""
     from torch.profiler import ProfilerActivity, profile
 
     def dev_us(e):
@@ -758,7 +776,8 @@ def device_profile(fn, top=8):
     rows += [e for e in kernels
              if "attention" in e.key and "kernel" in e.key and e not in rows]
     return (sum(dev_us(e) for e in kernels) / 1e6,
-            [(e.key, dev_us(e) / 1e3, e.count) for e in rows])
+            [(e.key, dev_us(e) / 1e3, e.count) for e in rows],
+            sum(e.count for e in kernels))
 
 
 def first_batch_emissions(server, examples, models, spec):
@@ -872,13 +891,14 @@ def phase_slice(args, card, dev, base, resnet_layers, tokenizer):
               f"visual {best[0] * 1e3:.1f} ms + predict {best[1] * 1e3:.1f} "
               f"ms) on {card}")
         try:
-            busy, rows = device_profile(run)
+            busy, rows, n = device_profile(run)
         except Exception as e:   # the profiler is a report, not a check
             print(f"#   {name}: device profile not measured ({e!r})")
             continue
         print(f"#   {name}: device busy {busy * 1e3:.1f} ms of "
-              f"{sum(best) * 1e3:.1f} ms wall ({busy / sum(best):.3f}); top "
-              f"kernels by device time, then K1 (profiled run):")
+              f"{sum(best) * 1e3:.1f} ms wall ({busy / sum(best):.3f}) in "
+              f"{n} device kernel launches; top kernels by device time, "
+              f"then K1 (profiled run):")
         for key, ms, calls in rows:
             print(f"#     {ms:9.3f} ms {calls:6d}x {key[:90]}")
     ctx = dict(texts=texts, images=images, backbone=backbone, spec=spec,
@@ -964,13 +984,14 @@ def phase_packed(args, card, dev, ctx):
               f"{best[0] * 1e3:.1f} ms + predict {best[1] * 1e3:.1f} ms) on "
               f"{card}")
         try:
-            busy, rows = device_profile(run)
+            busy, rows, n = device_profile(run)
         except Exception as e:   # the profiler is a report, not a check
             print(f"#   {name}: device profile not measured ({e!r})")
             continue
         print(f"#   {name}: device busy {busy * 1e3:.1f} ms of "
-              f"{sum(best) * 1e3:.1f} ms wall ({busy / sum(best):.3f}); top "
-              f"kernels by device time, then K1 (profiled run):")
+              f"{sum(best) * 1e3:.1f} ms wall ({busy / sum(best):.3f}) in "
+              f"{n} device kernel launches; top kernels by device time, "
+              f"then K1 (profiled run):")
         for key, ms, calls in rows:
             print(f"#     {ms:9.3f} ms {calls:6d}x {key[:90]}")
     return runs["kernel"]["counts"]
@@ -1124,10 +1145,11 @@ def phase_evaluate(args, card, dev, ctx):
           f"{again.rows / again.seconds:.2f} pairs/s, loss "
           f"{again.loss:.6f} (CLI {result.loss:.6f})")
     try:
-        busy, rows = device_profile(lambda: trainer16.evaluate(loader))
+        busy, rows, n = device_profile(lambda: trainer16.evaluate(loader))
         print(f"#   eval loop: device busy {busy * 1e3:.1f} ms of "
               f"{again.seconds * 1e3:.1f} ms wall ({busy / again.seconds:.3f}"
-              f"); top kernels by device time, then K1 (profiled run):")
+              f") in {n} device kernel launches; top kernels by device "
+              f"time, then K1 (profiled run):")
         for key, ms, calls in rows:
             print(f"#     {ms:9.3f} ms {calls:6d}x {key[:90]}")
     except Exception as e:       # the profiler is a report, not a check
@@ -1269,6 +1291,33 @@ def phase_int8_visual(args, card, dev, ctx, resnet_layers):
           f"att cosine fused vs float {cos_float}")
     print(f"#   tag agreement with phase 3's bf16 run (float visual half): "
           f"{agreement(tags, ctx['tags_bf16']):.6f}")
+    ctx.update(backbone_int8=models["fused"], tags_int8_visual=tags,
+               identity_blocks=identity_blocks)
+    # the integer products outside K4/K5 (projection blocks, and every
+    # block of the unfused backbone): torch._int_mm against the float64
+    # int_dot they ran on before; both exact, so att must not move
+    with torch.inference_mode(), float64_unfused_products():
+        att_f64 = {name: models[name](pixels)[2]
+                   for name in ("fused", "unfused")}
+    check(all(torch.equal(att_f64[name], out[name][2])
+              for name in att_f64),
+          "att moved between the int8_matmul and int_dot products")
+    for name in ("fused", "unfused"):
+        line = []
+        for product, ctxm in (("int8_matmul", contextlib.nullcontext),
+                              ("float64 int_dot", float64_unfused_products)):
+            with ctxm():
+                ms = visual_ms(models[name], images, dev)
+                try:
+                    busy, _, _ = device_profile(lambda: visual_ms(
+                        models[name], images, dev, repeats=0), top=1)
+                    busy = f"{busy * 1e3:.2f} ms"
+                except Exception as e:   # a report, not a check
+                    busy = f"not measured ({type(e).__name__})"
+            line.append(f"{product}: {ms:.2f} ms host clock, device busy "
+                        f"{busy}")
+        print(f"#   int8 {name} visual half, unfused products on "
+              + "; on ".join(line) + f" (att bit-identical) on {card}")
     for name, m in (("int8 fused", models["fused"]),
                     ("int8 unfused", models["unfused"]),
                     ("float bf16", ctx["backbone_bf16"]),
@@ -1282,14 +1331,223 @@ def phase_int8_visual(args, card, dev, ctx, resnet_layers):
           f"pairs/s end to end (visual {best[0] * 1e3:.1f} ms + predict "
           f"{best[1] * 1e3:.1f} ms, best of 3) on {card}")
     try:
-        busy, rows = device_profile(lambda: visual_ms(
+        busy, rows, n = device_profile(lambda: visual_ms(
             models["fused"], images, dev, repeats=0), top=6)
         print(f"#   int8 fused visual half: device busy {busy * 1e3:.2f} ms "
-              f"in one profiled run; top kernels by device time:")
+              f"in {n} device kernel launches in one profiled run; top "
+              f"kernels by device time:")
         for key, ms, calls in rows:
             print(f"#     {ms:9.3f} ms {calls:6d}x {key[:90]}")
     except Exception as e:       # the profiler is a report, not a check
         print(f"#   int8 visual device profile not measured ({e!r})")
+    return counts
+
+
+@contextlib.contextmanager
+def float64_unfused_products():
+    """The ResNet's integer products outside its kernels on float64
+    `int_dot` in place of `int8_matmul` (both exact): the product they ran
+    on before `int8_matmul`, kept for a comparison in one run."""
+    saved = resnet_module.int8_matmul
+    resnet_module.int8_matmul = kconv.int_dot
+    try:
+        yield
+    finally:
+        resnet_module.int8_matmul = saved
+
+
+def quant_cfg(cfg, mode, use_pallas=True):
+    """`cfg` with `quant=mode` and `use_pallas` on both encoder stacks (the
+    BiLSTM takes the prompted encoder's mode)."""
+    return dataclasses.replace(cfg, **{
+        name: dataclasses.replace(getattr(cfg, name), quant=mode,
+                                  use_pallas=use_pallas)
+        for name in ("embedding", "last_encoder")})
+
+
+def quantised_shapes(model):
+    """Forward pre-hooks on every quantised module of `model`; returns
+    (the set of (M, K, N) int8 products they see, the hook handles)."""
+    shapes, hooks = set(), []
+
+    def hook(mod, args):
+        x = args[0]
+        n = (mod.kernel_q.shape[1] if hasattr(mod, "kernel_q")
+             else 8 * mod.hidden)
+        shapes.add((x.numel() // x.shape[-1], x.shape[-1], n))
+    for m in model.modules():
+        if getattr(m, "quant", "none") != "none":
+            hooks.append(m.register_forward_pre_hook(hook))
+    return shapes, hooks
+
+
+def token_cosines(a, b, mask):
+    """Cosine of two (B, L, T) emission tensors per valid token."""
+    a, b = a.double(), b.double()
+    cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1) + 1e-30)
+    return cos[mask > 0]
+
+
+def phase_int8_text(args, card, dev, ctx):
+    """The JAX package's serving configuration: int8-static text (both
+    RoBERTa stacks, the cross-attention stacks and the BiLSTM) in bf16 with
+    K1, behind phase 4's int8-static ResNet-152. Returns every kernel's
+    launch count over the main-path run."""
+    print("# phase 4b: int8-static flagship serving (quant=int8_static on "
+          "both encoders and the BiLSTM, bf16, use_pallas, behind phase 4's "
+          "int8-static ResNet-152)")
+    texts, images, spec = ctx["texts"], ctx["images"], ctx["spec"]
+    backbone = ctx["backbone_int8"]
+    kw = dict(max_batch=MAX_BATCH, offset=spec.offset,
+              mask_positions=spec.mask_positions, device=dev)
+    t0 = time.perf_counter()
+    dyn = ICKAModel(quant_cfg(ctx["cfgs"][True], "int8"),
+                    dtype=torch.bfloat16, device=dev, seed=args.seed).eval()
+    dyn.load_state_dict(quantize_params_like(dyn.state_dict().keys(),
+                                             ctx["weights"]), strict=True)
+    shapes, hooks = quantised_shapes(dyn)
+    try:
+        serve(BucketedICKAServer(dyn, **kw), backbone, texts, images)
+    finally:
+        for h in hooks:
+            h.remove()
+    calib = calibration_amax(dyn)
+    del dyn
+    models = {}
+    for name, pallas in (("kernel", True), ("plain", False)):
+        m = ICKAModel(quant_cfg(ctx["cfgs"][True], "int8_static", pallas),
+                      dtype=torch.bfloat16, device=dev, seed=args.seed).eval()
+        if not models:
+            static_sd = static_quantize_params_like(
+                m.state_dict().keys(), ctx["weights"], calib)
+        m.load_state_dict(static_sd, strict=True)
+        models[name] = m
+    n_q = sum(v.dtype == torch.int8 for v in static_sd.values())
+    print(f"#   calibrated {len(calib)} quantised modules on the requests "
+          f"(dynamic int8, bf16; act amax {min(calib.values()):.3f}.."
+          f"{max(calib.values()):.3f}), quantised {n_q} int8 weights and "
+          f"loaded 2 int8-static flagships (strict) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    server = BucketedICKAServer(models["kernel"], **kw)
+    zero_counts()
+    tags, stats, examples, _ = serve(server, backbone, texts, images)
+    counts = read_counts()
+    n_batches = sum(stats.batches_per_bucket.values())
+    k1, k4, k5 = (counts[n] for n in (
+        "fused_attention", "int8_bottleneck_v2", "int8_stem_pool"))
+    print(f"#   int8-static flagship: pairs per bucket "
+          f"{stats.pairs_per_bucket}, {n_batches} device batches; K1 "
+          f"launches {k1}, K4 {k4}, K5 {k5}")
+    check(stats.total_pairs == len(texts), "int8 text: pairs lost")
+    for t, tx in zip(tags, texts):
+        check(t is not None
+              and len(t) == min(len(tx["ori_input_ids"]),
+                                ctx["max_seq_length"])
+              and t.min() >= 0 and t.max() < ctx["num_labels"],
+              f"int8 text: bad tags {t}")
+    if CHECK_CONV_LAUNCHES:
+        check(k1 == LAYERS_PER_BATCH * n_batches,
+              f"int8 text: K1 launched {k1} times for {n_batches} batches")
+        check(k5 == 1 and k4 == ctx["identity_blocks"],
+              f"int8 text: K5 launched {k5} times and K4 {k4}")
+
+    # (a) the exact product at every quantised shape of this run, and one
+    # with at most 16 rows, against the float64 int_dot
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def rand_int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+    cases = sorted(shapes | {(5, 1024, 1024)})
+    for M, K, N in cases:
+        a, w = rand_int8(M, K), column_major(rand_int8(K, N))
+        check(torch.equal(int8_matmul(a, w), kconv.int_dot(a, w)),
+              f"int8_matmul differs from int_dot at M={M} K={K} N={N}")
+    print(f"#   (a) int8_matmul bit-equal to int_dot at {len(cases)} shapes "
+          f"(M, K, N): {cases}")
+
+    # (b) one int8-static Dense and the BiLSTM's input projection on the
+    # card against the same modules on the CPU, same inputs
+    L = max(stats.pairs_per_bucket)
+    m = models["kernel"]
+    mods = (("embedding.encoder.layer_0.ffn.wi",
+             m.embedding.encoder.layer_0.ffn.wi, lambda mod, v: mod(v)),
+            ("lstm.input_projection", m.lstm,
+             lambda mod, v: mod.input_projection(v)))
+    for name, mod, fn in mods:
+        width = (m.cfg.last_hidden if name.startswith("lstm")
+                 else m.cfg.embedding.hidden_size)
+        x = (torch.randn(MAX_BATCH, L, width, generator=gen, device=dev)
+             .to(torch.bfloat16))
+        host = copy.deepcopy(mod).to("cpu")
+        with torch.inference_mode():
+            got, want = fn(mod, x).cpu(), fn(host, x.cpu())
+        check(got.dtype == want.dtype and torch.equal(got, want),
+              f"{name}: card and CPU differ (max "
+              f"{(got.float() - want.float()).abs().max().item()})")
+    print(f"#   (b) bit-equal on the card and the CPU at ({MAX_BATCH}, {L}, "
+          f"width) bf16 inputs: " + ", ".join(n for n, _, _ in mods))
+
+    # printed, not held: random weights (PERF.md §7)
+    zero_counts()
+    tags_plain, _, _, _ = serve(BucketedICKAServer(models["plain"], **kw),
+                                backbone, texts, images)
+    check(read_counts()["fused_attention"] == 0, "plain core launched K1")
+    em_k, em_p, em_f = first_batch_emissions(
+        server, examples, (models["kernel"], models["plain"],
+                           ctx["server_bf16"].model), spec)
+    with torch.inference_mode():
+        _, _, _, batch = next(server.batches(examples))
+    valid = batch["output_mask"]
+    check(bool(torch.isfinite(em_k.float()).all()), "non-finite emissions")
+    for what, other, tg in (
+            ("the int8-static model on the plain attention core", em_p,
+             tags_plain),
+            ("phase 4's bf16 float-text model (same int8 visual half)", em_f,
+             ctx["tags_int8_visual"])):
+        cos = token_cosines(em_k, other, valid)
+        print(f"#   vs {what}: tag agreement {agreement(tags, tg):.6f}; "
+              f"first-batch emissions per-token cosine mean "
+              f"{cos.mean().item():.6f}, min {cos.min().item():.6f}")
+
+    # smoke figures, 16 requests: this path, and phase 4's (bf16 float
+    # text behind the same int8 visual half) beside it in the same run
+    for name, srv in (("int8-static text", server),
+                      ("phase 4's bf16 float text", ctx["server_bf16"])):
+        run = lambda: serve(srv, backbone, texts, images)
+        best = min((run()[3] for _ in range(3)), key=sum)
+        print(f"#   {name} + int8-static ResNet-152: "
+              f"{len(texts) / sum(best):.2f} pairs/s end to end, a smoke "
+              f"figure (wall {sum(best) * 1e3:.1f} ms = visual "
+              f"{best[0] * 1e3:.1f} ms + predict {best[1] * 1e3:.1f} ms, "
+              f"best of 3) on {card}")
+        try:
+            busy, rows, n = device_profile(run)
+        except Exception as e:   # the profiler is a report, not a check
+            print(f"#   {name}: device profile not measured ({e!r})")
+            continue
+        print(f"#   {name}: device busy {busy * 1e3:.1f} ms of "
+              f"{sum(best) * 1e3:.1f} ms wall ({busy / sum(best):.3f}) in "
+              f"{n} device kernel launches; top kernels by device time, "
+              f"then K1 (profiled run):")
+        for key, ms, calls in rows:
+            print(f"#     {ms:9.3f} ms {calls:6d}x {key[:90]}")
+    if dev.type == "cuda":
+        M = MAX_BATCH * max(stats.pairs_per_bucket)
+        for K, N in ((1024, 4096), (4096, 1024)):
+            a, w = rand_int8(M, K), column_major(rand_int8(K, N))
+            ab = torch.randn(M, K, generator=gen, device=dev,
+                             dtype=torch.bfloat16)
+            wb = torch.randn(N, K, generator=gen, device=dev,
+                             dtype=torch.bfloat16)
+            w_rows = w.contiguous()
+            print(f"#   FFN product M={M} K={K} N={N}: torch._int_mm "
+                  f"{cuda_time_ms(lambda: torch._int_mm(a, w)):.4f} ms "
+                  f"(column-major w), row-major w "
+                  f"{cuda_time_ms(lambda: torch._int_mm(a, w_rows)):.4f} ms, "
+                  f"F.linear bf16 "
+                  f"{cuda_time_ms(lambda: F.linear(ab, wb)):.4f} ms on {card}")
     return counts
 
 
@@ -1409,7 +1667,8 @@ def k1_tiling_ms(q, k, v, bias, N, iters):
         q, k, v, bias, N, *blocks), iters=iters) for blocks in K1_TILINGS}
 
 
-def phase_times(gen, launches, packed_launches, eval_launches, k2_launches):
+def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
+                int8_static_launches):
     B, S, N, hd, dtype = 128, 150, 16, 64, torch.bfloat16
     print(f"# phase 7: K1 at B={B} Sq=Sk={S} {N}x{hd} bf16, key-mask bias "
           f"(the tensor-core body at {K1_TILES}; the prompted encoder's "
@@ -1429,6 +1688,7 @@ def phase_times(gen, launches, packed_launches, eval_launches, k2_launches):
            "replaces": "icka_tpu/kernels/attention.py:87",
            "launches": launches, "packed_launches": packed_launches,
            "eval_launches": eval_launches,
+           "int8_static_launches": int8_static_launches,
            "max_abs_err": err, "share_of_bound": share, "ms": ms,
            "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1564,7 +1824,7 @@ def static_module(module, gen):
 
 def phase_conv_times(gen, launches, errs, B=128):
     """K3-K6 at B=128 beside their plain versions, the unfused port path
-    for the same block (ConvBN modules with float64 integer products) and
+    for the same block (ConvBN modules, integer products on `_int_mm`) and
     their bounds."""
     print(f"# phase 7: K3-K6 at B={B}; bound = max(bytes / 3.35e12, ops / "
           f"1979e12 int8 dense)")
@@ -1688,14 +1948,16 @@ def main(argv=None) -> int:
         conv_errs = phase_conv_kernels_vs_plain(gen)
         counts, _, ctx = phase_slice(args, card, dev, base, layers, tokenizer)
         conv_counts = phase_int8_visual(args, card, dev, ctx, layers)
+        int8_text_counts = phase_int8_text(args, card, dev, ctx)
         packed_counts = phase_packed(args, card, dev, ctx)
         eval_counts = phase_evaluate(args, card, dev, ctx)
         del ctx
         torch.cuda.empty_cache()
-        # over the four main paths, each driven from counts of 0
-        runs = (counts, conv_counts, packed_counts, eval_counts)
+        # over the five main paths, each driven from counts of 0
+        runs = (counts, conv_counts, int8_text_counts, packed_counts,
+                eval_counts)
         total = {name: sum(c[name] for c in runs) for name in COUNTERS}
-        print(f"#   kernel launches over the four main paths: {total}")
+        print(f"#   kernel launches over the five main paths: {total}")
         for name in NO_CALLER:
             check(total[name] == 0, f"{name} has no caller in the model, yet "
                                     f"the main paths launched it "
@@ -1706,7 +1968,8 @@ def main(argv=None) -> int:
         kernels = phase_times(gen, counts["fused_attention"],
                               packed_counts["fused_attention"],
                               eval_counts["fused_attention"],
-                              total["fused_attention_blockwise"])
+                              total["fused_attention_blockwise"],
+                              int8_text_counts["fused_attention"])
         kernels += phase_conv_times(gen, total, conv_errs)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

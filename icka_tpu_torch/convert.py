@@ -14,15 +14,22 @@ LayerNorm `scale`/`bias`, embedding tables, BiLSTM `w_ih_*`/`w_hh_*` (torch
 layout already) and CRF transitions pass through unchanged. Load the result
 with `load_state_dict(..., strict=True)`: a missing or extra name fails.
 
-The int8-static backbone tree (`wq` int8 (k*k*Cin, F) tap major, `w_scale`,
-`fused_bias`, 0-d `act_scale` and `out_scale`, no `batch_stats`) goes
-through `backbone_static_state_dict`, which keeps int8 as int8; the port
-stores these leaves in the same layout, as buffers.
+Every leaf becomes float32 except int8 leaves, which stay int8; shapes are
+kept (0-d scales stay 0-d). So the quantised text trees go through the same
+functions: a `Dense` in "int8" or "int8_static" holds `kernel_q` (in, out)
+int8 and `kernel_scale` (and `act_scale`), an int8-static `BiLSTM`
+`w_ih_q` (in, 8H), `w_ih_scale` and `act_scale`, all in the flax layout
+(no transpose: only a float `kernel` is renamed). The int8-static backbone
+tree (`wq` int8 (k*k*Cin, F) tap major, `w_scale`, `fused_bias`, 0-d
+`act_scale` and `out_scale`, no `batch_stats`) goes through
+`backbone_static_state_dict`; the port stores these leaves in the same
+layout, as buffers.
 
 The inverse (`flax_tree_from_state_dict`, `icka_variables_from_state_dict`,
-`backbone_variables_from_state_dict`) turns a float state_dict back into
-the flax trees, `weight` back into `kernel` in (in, out) or HWIO, so the
-port can write the JAX package's checkpoints where flax is not installed.
+`backbone_variables_from_state_dict`) turns a state_dict back into the flax
+trees, `weight` back into `kernel` in (in, out) or HWIO and int8 kept, so
+the port can write the JAX package's checkpoints where flax is not
+installed.
 """
 
 from __future__ import annotations
@@ -44,6 +51,11 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict:
     return out
 
 
+def _leaf_dtype(value) -> np.dtype:
+    """int8 stays int8; every other leaf is float32."""
+    return np.int8 if value.dtype == np.int8 else np.float32
+
+
 def _torch_entry(key: str, value: np.ndarray):
     if key == "kernel" or key.endswith(".kernel"):
         key = key[:-len("kernel")] + "weight"
@@ -53,7 +65,7 @@ def _torch_entry(key: str, value: np.ndarray):
             value = value.transpose(3, 2, 0, 1)
         else:
             raise ValueError(f"kernel {key} of rank {value.ndim}")
-    return key, torch.from_numpy(np.array(value, np.float32))
+    return key, torch.from_numpy(np.array(value, _leaf_dtype(value)))
 
 
 def state_dict_from_flax(tree: Mapping) -> dict:
@@ -62,7 +74,8 @@ def state_dict_from_flax(tree: Mapping) -> dict:
 
 
 def icka_state_dict(variables: Mapping) -> dict:
-    """`ICKAModel` variables {"params": ...} -> `ICKAModel` state_dict.
+    """`ICKAModel` variables {"params": ...} -> `ICKAModel` state_dict, in
+    every quant mode (the int8 leaves stay int8).
     `ICKAModel.forward_packed` uses the parameters of `emissions`, so the
     packed path needs no further leaf."""
     return state_dict_from_flax(variables["params"])
@@ -83,22 +96,26 @@ def backbone_static_state_dict(variables: Mapping) -> dict:
     if variables.get("batch_stats"):
         raise ValueError("the int8-static backbone has no batch_stats: they "
                          "are folded into wq and fused_bias")
-    return {k: torch.from_numpy(np.array(
-        v, np.int8 if v.dtype == np.int8 else np.float32))
-        for k, v in _flatten(variables["params"]).items()}
+    return {k: torch.from_numpy(np.array(v, _leaf_dtype(v)))
+            for k, v in _flatten(variables["params"]).items()}
 
 
 def calib_from_flax(calib: Mapping) -> dict:
     """The JAX package's "calib" collection ({... {"amax": x}}) -> the
-    port's calibration record {ConvBN path: x}."""
+    port's calibration record {module path: x}: a `ConvBN`'s path, a text
+    `Dense`'s (`embedding.encoder.layer_0.attn.query`, ...) or the
+    BiLSTM's (`lstm`)."""
     return {k[:-len(".amax")]: np.float32(v)
             for k, v in _flatten(calib).items() if k.endswith(".amax")}
 
 
 def _flax_entry(key: str, value) -> tuple[str, np.ndarray]:
     if isinstance(value, torch.Tensor):
-        value = value.detach().to("cpu", torch.float32).numpy()
-    value = np.asarray(value, np.float32)
+        value = value.detach().cpu()
+        if value.dtype != torch.int8:
+            value = value.float()
+        value = value.numpy()
+    value = np.asarray(value, _leaf_dtype(np.asarray(value)), order="C")
     if key == "weight" or key.endswith(".weight"):
         key = key[:-len("weight")] + "kernel"
         if value.ndim == 2:
@@ -111,8 +128,8 @@ def _flax_entry(key: str, value) -> tuple[str, np.ndarray]:
 
 
 def flax_tree_from_state_dict(sd: Mapping) -> dict:
-    """A float state_dict -> one flax collection (nested dicts of float32
-    numpy arrays): the inverse of `state_dict_from_flax`."""
+    """A state_dict -> one flax collection (nested dicts of float32 numpy
+    arrays, int8 kept): the inverse of `state_dict_from_flax`."""
     tree: dict = {}
     for name, value in sd.items():
         key, value = _flax_entry(name, value)
@@ -125,8 +142,8 @@ def flax_tree_from_state_dict(sd: Mapping) -> dict:
 
 
 def icka_variables_from_state_dict(sd: Mapping) -> dict:
-    """`ICKAModel` state_dict -> {"params": ...}, the inverse of
-    `icka_state_dict`."""
+    """`ICKAModel` state_dict -> {"params": ...}, in every quant mode: the
+    inverse of `icka_state_dict`."""
     return {"params": flax_tree_from_state_dict(sd)}
 
 

@@ -114,7 +114,10 @@ class ICKAModel(nn.Module):
         self.last_encoder = PromptSpliceEncoder(cfg.last_encoder, **kw)
         self.gate = (GlobalFusionGate(H, cfg.embedding.layer_norm_eps, **kw)
                      if cfg.use_gate else None)
-        self.lstm = BiLSTM(cfg.last_hidden, cfg.last_hidden, **kw)
+        # the BiLSTM takes the prompted encoder's quant mode, as in JAX; the
+        # mapping networks, projections, gate and classifier stay float
+        self.lstm = BiLSTM(cfg.last_hidden, cfg.last_hidden,
+                           quant=cfg.last_encoder.quant, **kw)
         self.classifier = Dense(2 * cfg.last_hidden, cfg.num_labels, **kw)
         self.crf = CRF(cfg.num_labels, device=dev, generator=gen)
 

@@ -31,8 +31,10 @@ buffers. With `dtype=torch.bfloat16`, `fused_stem` sends the stem's tail
 through the `int8_stem_pool` kernel and `fused_pallas` also sends every
 identity bottleneck through `int8_bottleneck_v2`, int8-resident between the
 blocks of a stage (the flags keep the JAX package's names). The integer
-products outside those kernels are `int_dot`: float64 matrix products, exact
-on the CPU and on the card.
+products outside those kernels are `int8_matmul` (`torch._int_mm`), exact on
+the CPU and on the card. `wq` stays row-major, the layout the kernels read,
+so on the card the unfused path's product copies it column-major at each
+call.
 
 `plain_kernels=True` selects the kernels' plain PyTorch versions instead of
 the wrappers. It exists for tests and `chip_smoke.py`; nothing in the
@@ -50,22 +52,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from icka_tpu_torch.core.device import generator_for, resolve_device
-from icka_tpu_torch.kernels.conv import (bottleneck_v2_reference, int_dot,
+from icka_tpu_torch.kernels.conv import (bottleneck_v2_reference,
                                          int8_bottleneck_v2, int8_stem_pool,
                                          stem_pool_reference)
-
-QUANT_MODES = ("none", "int8", "int8_static")
-
-
-def quantize_activation(x, act_scale):
-    """Symmetric per-tensor int8: round(x / act_scale) clipped to +-127."""
-    return (x.float() / act_scale).round().clamp(-127, 127).to(torch.int8)
-
-
-def _quantize_weight_cols(w2):
-    """Per-output-column abs-max int8 of a (K, F) fp32 matrix: (wq, scale)."""
-    w_s = w2.abs().amax(dim=0).clamp_min(1e-8) / 127.0
-    return (w2 / w_s[None, :]).round().clamp(-127, 127).to(torch.int8), w_s
+from icka_tpu_torch.nn.layers import QUANT_MODES
+from icka_tpu_torch.nn.quant import (abs_max_scale, int8_matmul,
+                                     quantize_activation,
+                                     quantize_weight_cols)
 
 
 def _im2col(x, k: int, s: int):
@@ -141,12 +134,11 @@ class ConvBN(nn.Module):
             return self.wq, self.w_scale, self.fused_bias, self.act_scale
         inv = self.scale * torch.rsqrt(self.var + 1e-5)
         folded = self.conv.weight * inv[:, None, None, None]      # OIHW
-        wq, w_s = _quantize_weight_cols(
+        wq, w_s = quantize_weight_cols(
             folded.permute(2, 3, 1, 0).reshape(-1, folded.shape[0]))
         amax = x.float().abs().amax()
         self.calib_amax.copy_(torch.maximum(self.calib_amax, amax))
-        return (wq, w_s, self.bias - self.mean * inv,
-                amax.clamp_min(1e-8) / 127.0)
+        return wq, w_s, self.bias - self.mean * inv, abs_max_scale(amax)
 
     def forward(self, x):
         if self.quant == "none":
@@ -158,8 +150,8 @@ class ConvBN(nn.Module):
             return y + fused_bias[:, None, None]
         xh = x.permute(0, 2, 3, 1)                                 # NHWC
         wq, w_s, fused_bias, a_s = self.int8_operands(xh)
-        acc = int_dot(_im2col(quantize_activation(xh, a_s), self.kernel,
-                              self.stride), wq)
+        acc = int8_matmul(_im2col(quantize_activation(xh, a_s),
+                                  self.kernel, self.stride), wq)
         y = (acc.float() * (a_s * w_s)).to(self.dtype) \
             + fused_bias.to(self.dtype)
         return y.permute(0, 3, 1, 2)
@@ -254,7 +246,7 @@ class StemPoolS2D(ConvBN):
                 else int8_stem_pool
             return tail(patches, w2, scale, fused_bias.repeat(4).float(),
                         out_dtype=self.dtype)
-        y = (int_dot(patches, w2).float() * scale).to(self.dtype)
+        y = (int8_matmul(patches, w2).float() * scale).to(self.dtype)
         y = y + fused_bias.to(self.dtype).repeat(4)
         # ReLU + 3x3/s2 max-pool in s2d space (the pad contributes 0 <=
         # ReLU'd values, as the -inf-padded pool does on the 112^2 layout)

@@ -9,7 +9,10 @@
 
 Inference only: dropout is the identity. Heads are laid out (B, S, N, H).
 Submodule names are the flax names (`layer_0`, `attn`, `query`, ...), so a
-flax parameter path is a `state_dict` key.
+flax parameter path is a `state_dict` key. `EncoderConfig.quant` reaches
+every projection of a layer (query, key, value, the attention output and
+both FFN layers), in self- and cross-attention alike; the pooler stays
+float, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,8 +51,7 @@ def dot_product_attention(q, k, v, bias=None, dtype=torch.float32,
 
 
 def _check_ported(cfg: EncoderConfig):
-    for name, ok in (("quant", cfg.quant == "none"),
-                     ("fuse_qkv", not cfg.fuse_qkv),
+    for name, ok in (("fuse_qkv", not cfg.fuse_qkv),
                      ("adapter_size", cfg.adapter_size <= 0)):
         if not ok:
             raise NotImplementedError(
@@ -61,11 +63,11 @@ class MultiHeadAttention(nn.Module):
     `kv` is None). `use_pallas=True` routes the core through the fused
     attention kernel, which always takes an fp32 softmax (`softmax_dtype`
     applies to the plain core only); a missing bias becomes a zero
-    (B, 1, 1, Sk) key bias."""
+    (B, 1, 1, Sk) key bias. `quant` is the projections' `Dense` mode."""
 
     def __init__(self, hidden: int, num_heads: int, dtype=torch.float32,
                  use_pallas: bool = False, softmax_dtype=torch.float32,
-                 device="cuda", generator=None):
+                 quant: str = "none", device="cuda", generator=None):
         super().__init__()
         dev = resolve_device(device)
         gen = generator_for(dev, None, generator)
@@ -75,7 +77,8 @@ class MultiHeadAttention(nn.Module):
         self.softmax_dtype = softmax_dtype
         for name in ("query", "key", "value"):
             self.add_module(name, Dense(hidden, hidden, dtype=dtype,
-                                        device=dev, generator=gen))
+                                        quant=quant, device=dev,
+                                        generator=gen))
 
     def forward(self, x, kv=None, bias=None):
         kv = x if kv is None else kv
@@ -95,10 +98,11 @@ class AttentionOutput(nn.Module):
     """Projection + residual + LayerNorm (BertSelfOutput)."""
 
     def __init__(self, hidden: int, eps: float, dtype=torch.float32,
-                 device="cuda", generator=None):
+                 quant: str = "none", device="cuda", generator=None):
         super().__init__()
         dev = resolve_device(device)
-        self.dense = Dense(hidden, hidden, dtype=dtype, device=dev,
+        self.dense = Dense(hidden, hidden, dtype=dtype, quant=quant,
+                           device=dev,
                            generator=generator_for(dev, None, generator))
         self.norm = LayerNorm(hidden, eps=eps, dtype=dtype, device=dev)
 
@@ -111,16 +115,16 @@ class FeedForward(nn.Module):
     BertOutput). The Pfeiffer adapter of the JAX module is not ported."""
 
     def __init__(self, hidden: int, intermediate: int, eps: float,
-                 act: str = "gelu", dtype=torch.float32, device="cuda",
-                 generator=None):
+                 act: str = "gelu", dtype=torch.float32, quant: str = "none",
+                 device="cuda", generator=None):
         super().__init__()
         dev = resolve_device(device)
         gen = generator_for(dev, None, generator)
         self.act = ACT2FN[act]
-        self.wi = Dense(hidden, intermediate, dtype=dtype, device=dev,
-                        generator=gen)
-        self.wo = Dense(intermediate, hidden, dtype=dtype, device=dev,
-                        generator=gen)
+        self.wi = Dense(hidden, intermediate, dtype=dtype, quant=quant,
+                        device=dev, generator=gen)
+        self.wo = Dense(intermediate, hidden, dtype=dtype, quant=quant,
+                        device=dev, generator=gen)
         self.norm = LayerNorm(hidden, eps=eps, dtype=dtype, device=dev)
 
     def forward(self, x):
@@ -140,12 +144,14 @@ class _AttentionLayer(nn.Module):
         H = cfg.hidden_size
         self.attn = MultiHeadAttention(
             H, cfg.num_attention_heads, dtype=dtype, use_pallas=use_pallas,
-            softmax_dtype=getattr(torch, cfg.softmax_dtype), device=dev,
-            generator=gen)
+            softmax_dtype=getattr(torch, cfg.softmax_dtype), quant=cfg.quant,
+            device=dev, generator=gen)
         self.attn_out = AttentionOutput(H, cfg.layer_norm_eps, dtype=dtype,
-                                        device=dev, generator=gen)
+                                        quant=cfg.quant, device=dev,
+                                        generator=gen)
         self.ffn = FeedForward(H, cfg.intermediate_size, cfg.layer_norm_eps,
-                               dtype=dtype, device=dev, generator=gen)
+                               dtype=dtype, quant=cfg.quant, device=dev,
+                               generator=gen)
 
 
 class SelfAttentionLayer(_AttentionLayer):

@@ -19,8 +19,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from icka_tpu_torch.core.device import generator_for, resolve_device
+from icka_tpu_torch.nn.quant import (abs_max_scale, column_major,
+                                     int8_matmul, quantize_activation)
 
 NEG_INF_MASK = -10000.0
+QUANT_MODES = ("none", "int8", "int8_static")
 
 
 def gelu(x):
@@ -65,22 +68,63 @@ class LayerNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """Linear layer with bias, the JAX layer's `quant="none"` (the int8
-    serving modes are not ported yet). Computes in `dtype`: inputs and
-    weights are cast, the product is rounded to `dtype`, then the bias is
-    added in `dtype`."""
+    """Linear layer with bias. Computes in `dtype`: the product is rounded
+    to `dtype`, then the bias is added in `dtype`.
+
+    `quant="none"`: inputs and the fp32 `weight` (torch's (out, in)) are
+    cast to `dtype`. The int8 modes are the JAX layer's W8A8 serving
+    layouts, op for op: `kernel_q` (in, out) int8 and `kernel_scale` (out,)
+    fp32 are buffers in the flax layout (`kernel_q` held column-major, see
+    `column_major`); the input is quantised in fp32, contracted in exact
+    int32 (`int8_matmul`) and scaled as `(acc * a_scale) * kernel_scale`.
+    `"int8"` takes the per-row scale max(amax_row, 1e-8) / 127 and records
+    the largest |x| it has seen in `calib_amax` (max-merged over calls, not
+    in the state_dict): the calibration mode. `"int8_static"` takes one
+    calibrated per-tensor `act_scale` ()."""
 
     def __init__(self, in_features: int, features: int, dtype=torch.float32,
-                 device="cuda", generator=None):
+                 quant: str = "none", device="cuda", generator=None):
         super().__init__()
+        if quant not in QUANT_MODES:
+            raise ValueError(f"quant must be one of {QUANT_MODES}, got "
+                             f"{quant!r}")
         dev = resolve_device(device)
-        gen = generator_for(dev, None, generator)
         self.dtype = dtype
-        self.weight = nn.Parameter(
-            torch.empty(features, in_features, device=dev))
-        nn.init.normal_(self.weight, 0.0, 0.02, generator=gen)
+        self.quant = quant
+        if quant == "none":
+            self.weight = nn.Parameter(
+                torch.empty(features, in_features, device=dev))
+            nn.init.normal_(self.weight, 0.0, 0.02,
+                            generator=generator_for(dev, None, generator))
+        else:
+            self.register_buffer("kernel_q", column_major(torch.zeros(
+                in_features, features, dtype=torch.int8, device=dev)))
+            self.register_buffer("kernel_scale", torch.full(
+                (features,), 0.02 / 127.0, device=dev))
+            if quant == "int8_static":
+                self.register_buffer("act_scale",
+                                     torch.full((), 1.0 / 127.0, device=dev))
+            else:
+                self.register_buffer("calib_amax",
+                                     torch.zeros((), device=dev),
+                                     persistent=False)
         self.bias = nn.Parameter(torch.zeros(features, device=dev))
 
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+        if self.quant != "none":
+            self.kernel_q = column_major(self.kernel_q)
+
     def forward(self, x):
-        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        if self.quant == "none":
+            y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+            return y + self.bias.to(self.dtype)
+        if self.quant == "int8_static":
+            a_scale = self.act_scale
+        else:
+            amax = x.float().abs().amax(dim=-1, keepdim=True)
+            self.calib_amax.copy_(torch.maximum(self.calib_amax, amax.max()))
+            a_scale = abs_max_scale(amax)
+        acc = int8_matmul(quantize_activation(x, a_scale), self.kernel_q)
+        y = (acc.float() * a_scale * self.kernel_scale).to(self.dtype)
         return y + self.bias.to(self.dtype)

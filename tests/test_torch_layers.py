@@ -179,9 +179,13 @@ def test_prompt_splice_encoder():
 
 
 def test_unported_options_raise():
-    tc = dataclasses.replace(TEncoderConfig.tiny(), quant="int8")
+    tc = dataclasses.replace(TEncoderConfig.tiny(), adapter_size=8)
     with pytest.raises(NotImplementedError):
         tattn.SelfAttentionLayer(tc, device=CPU)
+    with pytest.raises(ValueError):
+        tattn.SelfAttentionLayer(
+            dataclasses.replace(TEncoderConfig.tiny(), quant="int4"),
+            device=CPU)
     with pytest.raises(NotImplementedError):
         tattn.SelfAttentionLayer(
             dataclasses.replace(TEncoderConfig.tiny(), fuse_qkv=True),

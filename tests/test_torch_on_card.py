@@ -2,7 +2,9 @@
 its plain version, bit-equal, the fused int8-static backbone against the
 same backbone on the plain versions, and the two attention kernels against
 their plain versions and against each other, within a stated tolerance. All
-six kernels are covered.
+six kernels are covered. Besides, the exact int8 product (`torch._int_mm`)
+and an int8-static `Dense` and BiLSTM input projection on the card against
+the float64 product and the CPU, bit for bit.
 
 This file imports only torch and the port, so it also runs on a machine that
 has a card but not the JAX package's dependencies:
@@ -20,6 +22,9 @@ from icka_tpu_torch.kernels import conv as tconv
 from icka_tpu_torch.models.convert import (calibration_amax,
                                            static_quantize_backbone)
 from icka_tpu_torch.models.resnet import VisualBackbone
+from icka_tpu_torch.nn.layers import Dense
+from icka_tpu_torch.nn.lstm import BiLSTM
+from icka_tpu_torch.nn.quant import column_major, int8_matmul
 
 pytestmark = pytest.mark.cuda
 
@@ -508,3 +513,39 @@ def test_conv_kernels_bit_equal_at_ragged_shapes(cuda_device, case):
     else:                            # K = 432, 13 x 13 outputs
         _held(tconv.int8_stem_pool, tconv.stem_pool_reference,
               _stem_case(gen, 2, 13), cuda_device)
+
+
+@pytest.mark.parametrize("M,K,N", [(5, 64, 64), (16, 1024, 1024),
+                                   (17, 64, 64), (17, 1024, 4096),
+                                   (392, 1024, 1024), (33, 147, 60)])
+def test_int8_matmul_exact_on_card(cuda_device, M, K, N):
+    """M, K and N padded up to multiples of 8 (M to at least 24) where the
+    card's `_int_mm` needs it; either layout of the weight."""
+    gen = torch.Generator().manual_seed(M + K + N)
+    a, w = _int8(gen, M, K), _int8(gen, K, N)
+    want = tconv.int_dot(a, w)
+    for wt in (w, column_major(w)):
+        got = int8_matmul(a.to(cuda_device), wt.to(cuda_device))
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_static_text_modules_equal_cpu(cuda_device, dtype):
+    """Division, rounding and the scale multiplies are correctly rounded on
+    both devices, so the card's results equal the CPU's bit for bit."""
+    gen = torch.Generator().manual_seed(0)
+    x = (torch.randn(3, 21, 64, generator=gen) * 2).to(dtype)
+    dense = Dense(64, 48, dtype=dtype, quant="int8_static", device="cpu")
+    lstm = BiLSTM(64, 16, dtype=dtype, quant="int8_static", device="cpu")
+    for mod, wq in ((dense, "kernel_q"), (lstm, "w_ih_q")):
+        sd = mod.state_dict()
+        sd[wq] = _int8(gen, *sd[wq].shape)
+        sd["act_scale"] = torch.tensor(0.021)
+        mod.load_state_dict(sd)
+    for mod, fn in ((dense, lambda m, v: m(v)),
+                    (lstm, lambda m, v: m.input_projection(v))):
+        with torch.no_grad():
+            want = fn(mod, x)
+            got = fn(mod.to(cuda_device), x.to(cuda_device)).cpu()
+        assert got.dtype == want.dtype and torch.equal(got, want)

@@ -32,7 +32,7 @@ from icka_tpu_torch.convert import (backbone_state_dict,  # noqa: E402
                                     backbone_static_state_dict,
                                     calib_from_flax)
 from icka_tpu_torch.kernels import conv as tconv  # noqa: E402
-from icka_tpu_torch.kernels.conv import int_dot  # noqa: E402
+from icka_tpu_torch.nn.quant import int8_matmul  # noqa: E402
 from icka_tpu_torch.models.convert import calibration_amax  # noqa: E402
 from icka_tpu_torch.models.resnet import (Bottleneck, ConvBN,  # noqa: E402
                                           StemPoolS2D, VisualBackbone,
@@ -71,7 +71,7 @@ def _random_stats(rng, variables):
 def test_static_convbn_matches_jax(k, s):
     """Equal int32 accumulators and equal bf16 outputs. With unit scales and
     no bias the JAX module's fp32 output *is* its int32 accumulator (sums
-    here stay below 2^24), which the port's `int_dot` must equal."""
+    here stay below 2^24), which the port's `int8_matmul` must equal."""
     rng = np.random.default_rng(10 * k + s)
     C, F = 16, 32
     x = rng.standard_normal((2, 12, 12, C)).astype(np.float32)
@@ -83,8 +83,8 @@ def test_static_convbn_matches_jax(k, s):
     xi = rng.integers(-127, 128, x.shape).astype(np.float32)
     acc_jax = JaxConvBN(F, k, s, quant="int8_static").apply(
         {"params": unit}, jnp.asarray(xi))
-    acc = int_dot(_im2col(torch.from_numpy(xi).to(torch.int8), k, s),
-                  torch.from_numpy(p["wq"]))
+    acc = int8_matmul(_im2col(torch.from_numpy(xi).to(torch.int8), k, s),
+                      torch.from_numpy(p["wq"]))
     assert acc.dtype == torch.int32
     np.testing.assert_array_equal(acc.numpy(),
                                   np.asarray(acc_jax).astype(np.int32))
