@@ -60,6 +60,19 @@ Phases; any failure exits non-zero:
      with batches of 8 (K1 48 times a batch, the loss finite, every row
      evaluated), then hold the first batch's fp32 emissions through K1 to
      the plain core's on the same checkpoint;
+  8. train (run before 7, whose K1 row carries its launches):
+     `ICKATrainer.fit` at full width in bf16 over fp32 master weights on a
+     synthetic corpus without image files, two epochs of three steps with
+     gradient accumulation 2, train-mode crop and flip, dropout on (so
+     attention trains on the plain core: K1 0 times in the train steps,
+     48 times per dev batch), a dev evaluation and best-F1 save each
+     epoch; every loss finite, the last epoch's mean below the first's, a
+     best-F1 checkpoint and a step snapshot written; a fresh trainer
+     resumes the first epoch's snapshot and its next step's loss matches
+     the run's; two fp32 steps at depth two on the card against the CPU
+     (loss, gradient norm, moments, updates); the parameter count,
+     optimizer-state bytes, peak memory, step and update times and the
+     device-busy share printed;
   7. time each kernel at its main-path shape beside its plain version, the
      PyTorch library call for the same function where there is one, its
      bound and its recorded time before its redesign (comment lines only);
@@ -96,7 +109,7 @@ import torch.nn.functional as F
 from icka_tpu_torch.cli import evaluate as evaluate_cli
 from icka_tpu_torch.convert import (backbone_variables_from_state_dict,
                                     icka_variables_from_state_dict)
-from icka_tpu_torch.core.checkpoint import Checkpointer
+from icka_tpu_torch.core.checkpoint import Checkpointer, restore_pytree
 from icka_tpu_torch.core.config import ICKAConfig, TrainConfig, to_json
 from icka_tpu_torch.core.device import strict_fp32
 from icka_tpu_torch.data import native, synthetic
@@ -104,6 +117,7 @@ from icka_tpu_torch.data.clip_store import ClipFeatureStore
 from icka_tpu_torch.data.conll import MMExample, read_mm_conll
 from icka_tpu_torch.data.features import convert_examples
 from icka_tpu_torch.data.images import preprocess_images
+from icka_tpu_torch.data.labels import label_map
 from icka_tpu_torch.data.loader import MNERLoader
 from icka_tpu_torch.data.synthetic import generate_dataset, tiny_tokenizer
 from icka_tpu_torch.kernels import build
@@ -209,6 +223,31 @@ COS_STAGE1_FUSED_VS_UNFUSED_MIN = 0.995
 COS_STAGE1_FUSED_VS_FLOAT_MIN = 0.99
 COS_FUSED_VS_UNFUSED_MIN = 0.4
 COS_FUSED_VS_FLOAT_MIN = 0.4
+# phase 8, training: the synthetic corpus's rows (train: 3 optimizer steps
+# of 2 x 8 an epoch; dev: 2 batches of 8) and the epochs; a learning rate
+# above the recipe's 3e-5, so that a few steps move a random-weight model's
+# loss clearly, and the decode size (a 224 crop at random offsets inside
+# its margin of 32)
+TRAIN_ROWS, DEV_ROWS, TRAIN_BATCH, TRAIN_ACCUM = 48, 16, 8, 2
+TRAIN_EPOCHS, TRAIN_LR, TRAIN_DECODE = 2, 1e-4, 256
+# a fresh trainer resuming the first epoch's snapshot runs the next step on
+# the same weights, batch and dropout seeds: the same bf16 forward, held
+# to 1e-4 of the uninterrupted run's loss
+RESUME_REL_TOL = 1e-4
+# one fp32 step on the card against the CPU at a depth of two layers (both
+# stacks and the cross stacks), TF32 off, dropout 0, the same weights and
+# batches: the loss and the gradients' global norm differ only by the
+# order of sums (STEP_LOSS_RTOL, STEP_NORM_RTOL); the moments after the
+# first step (lr 0 under warmup: params unmoved) within MOMENT_RTOL in
+# relative L2 over all leaves, and the second step's parameter updates
+# within UPDATE_RTOL. An element whose gradient is at noise level (a key
+# projection's bias has a zero gradient in exact arithmetic) could take
+# Adam's update of about +-lr on either side; it does not, as its noise
+# (about 1e-10) lies below eps (1e-8): 4.4e-5 measured (NVIDIA H100 80GB
+# HBM3, 700 W), 20x inside the bound.
+TRAIN_CHECK_LAYERS = 2
+STEP_LOSS_RTOL, STEP_NORM_RTOL, MOMENT_RTOL, UPDATE_RTOL = \
+    1e-5, 1e-4, 1e-4, 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -1158,6 +1197,251 @@ def phase_evaluate(args, card, dev, ctx):
     return counts
 
 
+def train_corpus(args, cfg, root):
+    """The synthetic corpus without image files (no PIL; the loader yields
+    zero images, cropped and flipped all the same) and its train and dev
+    features."""
+    generate_dataset(str(root), n_train=TRAIN_ROWS, n_valid=DEV_ROWS,
+                     n_test=0, clip_dim=cfg.clip_dim, seed=args.seed,
+                     write_images=False)
+    tokenizer = tiny_tokenizer(str(root / "tokenizer"))
+    return {split: convert_examples(
+        read_mm_conll(str(root / f"{split}.txt")), tokenizer,
+        cfg.max_seq_length, ClipFeatureStore.from_split(str(root), split),
+        cfg.clip_dim) for split in ("train", "valid")}
+
+
+def rel_l2(pairs) -> float:
+    """sqrt(sum |a - b|^2) / sqrt(sum |b|^2) over (a, b) tensor pairs, in
+    float64 on the CPU."""
+    num = den = 0.0
+    for a, b in pairs:
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        num += float((a - b).square().sum())
+        den += float(b.square().sum())
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def phase_train(args, card, dev, base, layers):
+    """The training entry point, `ICKATrainer.fit`, at full width: bf16
+    over fp32 master weights, `use_pallas` for the dev evaluation (training
+    runs dropout, so attention takes the plain core), the frozen backbone
+    (BatchNorm statistics calibrated on the corpus's images), TRAIN_EPOCHS
+    epochs with accumulation, a dev evaluation and a best-F1 save each
+    epoch. Then a fresh trainer resumes the first epoch's snapshot and runs
+    the next step; then one fp32 step on the card against the CPU at depth
+    TRAIN_CHECK_LAYERS. Returns every kernel's launch count over `fit`."""
+    cfg = dataclasses.replace(
+        base, embedding=dataclasses.replace(base.embedding, use_pallas=True),
+        last_encoder=dataclasses.replace(base.last_encoder, use_pallas=True))
+    print(f"# phase 8: train: ICKATrainer.fit at full width (bf16 over fp32 "
+          f"master weights, {TRAIN_EPOCHS} epochs of {TRAIN_ROWS} rows in "
+          f"steps of {TRAIN_ACCUM} x {TRAIN_BATCH}, dev {DEV_ROWS} rows, "
+          f"lr {TRAIN_LR}, dropout on)")
+    root = WORK_DIR / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    feats = train_corpus(args, cfg, root / "ds")
+    spec, images = feats["train"].spec, str(root / "ds" / "images")
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, train_batch_size=TRAIN_BATCH,
+                       eval_batch_size=TRAIN_BATCH,
+                       gradient_accumulation_steps=TRAIN_ACCUM,
+                       seed=args.seed, compute_dtype="bfloat16")
+
+    def loader(split, prefetch=2):
+        if split == "train":
+            return MNERLoader(feats["train"], images, TRAIN_BATCH,
+                              TRAIN_ACCUM, train=True,
+                              decode_size=TRAIN_DECODE, seed=args.seed,
+                              prefetch=prefetch)
+        return MNERLoader(feats["valid"], images, TRAIN_BATCH, train=False,
+                          decode_size=TRAIN_DECODE, prefetch=prefetch)
+
+    def train_batches(epoch, n):
+        data = loader("train", prefetch=0)
+        data.epoch = epoch
+        return [b for _, b in zip(range(n), data)]
+
+    t0 = time.perf_counter()
+    trainer = ICKATrainer(cfg, tcfg, spec, resnet_layers=layers, device=dev)
+    if dev.type == "cuda":           # the peak from here: the model on
+        torch.cuda.reset_peak_memory_stats(dev)
+    first = train_batches(0, 1)[0]
+    calibrate_batch_stats(trainer.backbone, preprocess_images(
+        first["images"].reshape(-1, *first["images"].shape[2:]), 224, dev))
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    build_s = time.perf_counter() - t0
+
+    steps_k1 = []
+    run_step = trainer.train_step
+
+    def counted_step(batch, key):         # K1 launches inside each step
+        before = fused_attention.launches
+        record = run_step(batch, key)
+        steps_k1.append(fused_attention.launches - before)
+        return record
+    trainer.train_step = counted_step
+    train_loader, dev_loader = loader("train"), loader("valid")
+    ck = Checkpointer(str(root / "out"))
+    lines = []
+    zero_counts()
+    t0 = time.perf_counter()
+    history = trainer.fit(train_loader, dev_loader, epochs=TRAIN_EPOCHS,
+                          checkpointer=ck, log=lines.append)
+    sync(dev)
+    fit_s = time.perf_counter() - t0
+    counts = read_counts()
+    records = trainer.records
+    for line in lines:
+        print(f"#     {line}")
+    opt_bytes = sum(t.numel() * t.element_size()
+                    for moments in (trainer.opt_state.mu,
+                                    trainer.opt_state.nu)
+                    for t in moments.values())
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else 0)
+    step_s = float(np.median([r.seconds for r in records[1:]]))
+    update_s = float(np.median([r.update_seconds for r in records[1:]]))
+    pairs = TRAIN_BATCH * TRAIN_ACCUM
+    k1 = counts["fused_attention"]
+    print(f"#   {n_params / 1e9:.4f} B parameters (model and ResNet "
+          f"{layers} built in {build_s:.1f} s); optimizer state "
+          f"{opt_bytes / 1e9:.3f} GB (mu and nu fp32); peak allocated "
+          f"{peak / 1e9:.3f} GB; fit {fit_s:.1f} s; on {card}")
+    print(f"#   {len(records)} steps: losses "
+          f"{[round(r.loss, 4) for r in records]}, grad norms "
+          f"{[None if r.grad_norm is None else round(r.grad_norm, 3) for r in records]}; "
+          f"epoch means {[round(h, 4) for h in history]}")
+    print(f"#   train step median {step_s * 1e3:.1f} ms over the steps after "
+          f"the first ({pairs / step_s:.2f} train pairs/s), optimizer update "
+          f"median {update_s * 1e3:.1f} ms, on {card}; K1 launches "
+          f"{k1} in fit, {sum(steps_k1)} of them in train steps")
+    check(all(r.applied and math.isfinite(r.loss) for r in records),
+          f"a train step was not finite: {records}")
+    check(history[-1] < history[0], f"train loss did not fall: {history}")
+    check(sum(steps_k1) == 0, f"K1 launched in train steps: {steps_k1}")
+    if LAYERS_PER_BATCH:
+        want = LAYERS_PER_BATCH * len(dev_loader) * TRAIN_EPOCHS
+        check(k1 == want, f"K1 launched {k1} times in fit, want {want}")
+    steps_per_epoch = len(train_loader)
+    snap = steps_per_epoch               # the first epoch's best-F1 save
+    check(ck.manifest["best_step"] is not None, "no best-F1 checkpoint")
+    check(snap in ck.manifest["steps"], f"no snapshot of step {snap}: "
+                                        f"{ck.manifest}")
+    snap_path = root / "out" / f"state_step{snap}.msgpack"
+    check(snap_path.exists() and (root / "out" / "state_best.msgpack")
+          .exists(), "checkpoint files missing")
+    want_loss = records[snap].loss
+    del trainer, run_step
+    torch.cuda.empty_cache()
+
+    # resume: a fresh trainer from the snapshot, the next step of the run
+    fresh = ICKATrainer(cfg, tcfg, spec, resnet_layers=layers, device=dev)
+    fresh.init_state(steps_per_epoch * TRAIN_EPOCHS)
+    t0 = time.perf_counter()
+    fresh.state_from_checkpoint(restore_pytree(str(snap_path)))
+    sync(dev)
+    read_s = time.perf_counter() - t0
+    nxt, after = train_batches(1, 2)
+    got = fresh.train_step(nxt, (1, 0))
+    rel = abs(got.loss - want_loss) / abs(want_loss)
+    print(f"#   snapshot of step {snap}: {snap_path.stat().st_size / 1e9:.3f}"
+          f" GB, read and loaded in {read_s:.2f} s; the resumed trainer's "
+          f"next step loss {got.loss:.6f} vs the run's {want_loss:.6f} "
+          f"(relative {rel:.2e}, tol {RESUME_REL_TOL:.0e}); on {card}")
+    check(fresh.step == snap + 1 and rel <= RESUME_REL_TOL,
+          f"resumed step {fresh.step}: loss {got.loss} vs {want_loss}")
+    try:
+        busy, rows, n = device_profile(
+            lambda: fresh.train_step(after, (1, 1)))
+        print(f"#   one train step: device busy {busy * 1e3:.1f} ms of the "
+              f"median step {step_s * 1e3:.1f} ms ({busy / step_s:.3f}) in "
+              f"{n} device kernel launches (profiled run) on {card}; top "
+              f"kernels:")
+        for key, ms, calls in rows:
+            print(f"#     {ms:9.3f} ms {calls:6d}x {key[:90]}")
+    except Exception as e:       # the profiler is a report, not a check
+        print(f"#   train step device profile not measured ({e!r})")
+    # bf16 against fp32 tags on the dev split, the trained weights
+    model32 = ICKAModel(cfg, device=dev).eval()
+    model32.load_state_dict(fresh.model.state_dict())
+    same = total = entities = 0
+    with torch.inference_mode():
+        for batch in loader("valid", prefetch=0):
+            n = int(batch.pop("row_valid").sum())
+            inputs = fresh.model_inputs(batch)
+            mask = inputs["output_mask"][:n].bool()
+            tags = [m.crf.decode(m.batch_emissions(
+                inputs, spec.mask_positions, spec.offset), inputs[
+                "output_mask"])[:n][mask] for m in (fresh.model, model32)]
+            same += int((tags[0] == tags[1]).sum())
+            total += int(mask.sum())
+            entities += int((tags[1] != label_map()["O"]).sum())
+    print(f"#   bf16 vs fp32 dev tags after {fresh.step} steps from random "
+          f"weights: {same / total:.6f} of {total} tokens; fp32 tags other "
+          f"than O: {entities}")
+    del fresh, model32
+    torch.cuda.empty_cache()
+    shutil.rmtree(root / "out")
+    phase_train_step_vs_cpu(card, base, tcfg, spec, train_batches, dev)
+    shutil.rmtree(root)
+    return counts
+
+
+def phase_train_step_vs_cpu(card, base, tcfg, spec, train_batches, dev):
+    """Two fp32 train steps at depth TRAIN_CHECK_LAYERS on the card and on
+    the CPU from the same weights and batches (see UPDATE_RTOL)."""
+    strict_fp32()
+    enc = {k: dataclasses.replace(
+        getattr(base, k), num_hidden_layers=TRAIN_CHECK_LAYERS,
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+        for k in ("embedding", "last_encoder")}
+    cfg = dataclasses.replace(base, layer_num1=TRAIN_CHECK_LAYERS, **enc)
+    tcfg = dataclasses.replace(tcfg, compute_dtype="float32")
+    cpu = torch.device("cpu")
+    trainers = {d: ICKATrainer(cfg, tcfg, spec, resnet_layers=(1, 1, 1, 1),
+                               device=d) for d in (cpu, dev)}
+    batches = train_batches(0, 2)
+    ref = trainers[cpu]
+    calibrate_batch_stats(ref.backbone, preprocess_images(
+        batches[0]["images"][0], 224, cpu))
+    for t in trainers.values():
+        t.model.load_state_dict(ref.model.state_dict())
+        t.backbone.load_state_dict(ref.backbone.state_dict())
+        t.model.map_alignment.dropout = t.model.map_vision.dropout = 0.0
+        t.init_state(4)
+    p0 = {n: p.detach().clone() for n, p in ref.params().items()}
+    n_params = sum(p.numel() for p in p0.values())
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        rec = {d: t.train_step(batch, (0, i)) for d, t in trainers.items()}
+        sync(dev)
+        loss_rel = abs(rec[dev].loss - rec[cpu].loss) / abs(rec[cpu].loss)
+        norm_rel = abs(rec[dev].grad_norm - rec[cpu].grad_norm) / abs(
+            rec[cpu].grad_norm)
+        msg = (f"#   fp32 step {i} at depth {TRAIN_CHECK_LAYERS} "
+               f"({n_params / 1e6:.1f} M params), card vs CPU: loss "
+               f"{rec[dev].loss:.6f} vs {rec[cpu].loss:.6f} (relative "
+               f"{loss_rel:.2e}), grad norm {rec[dev].grad_norm:.6f} vs "
+               f"{rec[cpu].grad_norm:.6f} ({norm_rel:.2e})")
+        check(loss_rel <= STEP_LOSS_RTOL and norm_rel <= STEP_NORM_RTOL,
+              msg.lstrip("# "))
+        if i == 0:
+            moments = rel_l2(
+                (getattr(trainers[dev].opt_state, k)[n],
+                 getattr(ref.opt_state, k)[n])
+                for k in ("mu", "nu") for n in p0)
+            msg += f"; mu and nu relative L2 {moments:.2e}"
+            check(moments <= MOMENT_RTOL, f"moments differ: {moments}")
+        else:
+            cards = trainers[dev].params()
+            update = rel_l2((cards[n].cpu() - p0[n], p - p0[n])
+                            for n, p in ref.params().items())
+            msg += f"; parameter updates relative L2 {update:.2e}"
+            check(update <= UPDATE_RTOL, f"updates differ: {update}")
+        print(msg + f" ({time.perf_counter() - t0:.1f} s for both, the "
+                    f"card {card})")
+
+
 def cosine(a, b):
     a, b = a.double().flatten(), b.double().flatten()
     return float(a @ b / (a.norm() * b.norm() + 1e-30))
@@ -1668,7 +1952,7 @@ def k1_tiling_ms(q, k, v, bias, N, iters):
 
 
 def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
-                int8_static_launches):
+                int8_static_launches, train_launches):
     B, S, N, hd, dtype = 128, 150, 16, 64, torch.bfloat16
     print(f"# phase 7: K1 at B={B} Sq=Sk={S} {N}x{hd} bf16, key-mask bias "
           f"(the tensor-core body at {K1_TILES}; the prompted encoder's "
@@ -1689,6 +1973,7 @@ def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
            "launches": launches, "packed_launches": packed_launches,
            "eval_launches": eval_launches,
            "int8_static_launches": int8_static_launches,
+           "train_launches": train_launches,
            "max_abs_err": err, "share_of_bound": share, "ms": ms,
            "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1953,23 +2238,27 @@ def main(argv=None) -> int:
         eval_counts = phase_evaluate(args, card, dev, ctx)
         del ctx
         torch.cuda.empty_cache()
-        # over the five main paths, each driven from counts of 0
+        train_counts = phase_train(args, card, dev, base, layers)
+        # over the six main paths, each driven from counts of 0
         runs = (counts, conv_counts, int8_text_counts, packed_counts,
-                eval_counts)
+                eval_counts, train_counts)
         total = {name: sum(c[name] for c in runs) for name in COUNTERS}
-        print(f"#   kernel launches over the five main paths: {total}")
+        print(f"#   kernel launches over the six main paths: {total}")
         for name in NO_CALLER:
             check(total[name] == 0, f"{name} has no caller in the model, yet "
                                     f"the main paths launched it "
                                     f"{total[name]} times")
         for name in ("int8_bottleneck_v2", "int8_stem_pool"):
-            check(eval_counts[name] == 0, f"evaluation runs the float "
-                                          f"backbone, yet launched {name}")
+            for what, c in (("evaluation", eval_counts),
+                            ("training", train_counts)):
+                check(c[name] == 0, f"{what} runs the float backbone, yet "
+                                    f"launched {name}")
         kernels = phase_times(gen, counts["fused_attention"],
                               packed_counts["fused_attention"],
                               eval_counts["fused_attention"],
                               total["fused_attention_blockwise"],
-                              int8_text_counts["fused_attention"])
+                              int8_text_counts["fused_attention"],
+                              train_counts["fused_attention"])
         kernels += phase_conv_times(gen, total, conv_errs)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

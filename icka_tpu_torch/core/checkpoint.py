@@ -1,12 +1,14 @@
 """Checkpoint files of the JAX package, read and written without flax
-(port of the best-checkpoint half of `icka_tpu.core.checkpoint`).
+(port of `icka_tpu.core.checkpoint`).
 
 The JAX `Checkpointer` stores each train state as the bytes of
 `flax.serialization.to_bytes`: msgpack of the state dict, ndarray leaves
 as ext type 1 holding `packb((shape, dtype.name, buffer))`, numpy scalars
 as ext type 3 in the same form. This module carries its own codec for
 exactly that subset (maps with str keys, arrays, nil, bool, int, float64,
-str, bin, ext 1 and ext 3), so neither flax nor msgpack is needed.
+str, bin, ext 1 and ext 3), so neither flax nor msgpack is needed. numpy
+has no bfloat16: the reader widens such a leaf to float32 exactly, and the
+writer stores a `Bfloat16Array` (the bits) under flax's dtype name.
 Anything else raises, flax's `__msgpack_chunked_array__` form of a leaf
 above 2**30 bytes included (RoBERTa-large's largest leaf is 206 MB).
 
@@ -14,15 +16,19 @@ The writer streams each leaf's buffer to the file: a full-width state is
 about 4 GB and is never joined into one `bytes`. For the same tree of
 dicts of numpy arrays, its bytes equal `flax.serialization.to_bytes`'s.
 
-`Checkpointer` keeps the JAX package's directory layout and manifest; both
-writes are atomic (`.tmp`, then rename). Resuming a run and preemption
-handling wait for training to be ported.
+`Checkpointer` keeps the JAX package's directory layout and manifest;
+every write is atomic (`.tmp`, then rename). A save that writes the best
+state and a step snapshot at once writes the bytes once and links the
+second name to them. `resume` gives the latest snapshot, and
+`PreemptionGuard` turns SIGTERM/SIGINT into a flag the training loop
+polls.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import signal
 import struct
 from typing import Any, BinaryIO, Mapping, Optional
 
@@ -85,21 +91,41 @@ def _ext_header(code: int, n: int) -> bytes:
     return head + struct.pack(">b", code)
 
 
-def _ndarray_prefix(arr: np.ndarray) -> bytes:
+class Bfloat16Array:
+    """A bfloat16 leaf for the writer: its bits as a uint16 array."""
+
+    def __init__(self, bits: np.ndarray):
+        if bits.dtype != np.uint16:
+            raise TypeError("bfloat16 bits must be uint16")
+        self.bits = bits
+
+    @classmethod
+    def from_float32(cls, x: np.ndarray) -> "Bfloat16Array":
+        """The leaf of float32 values that are bfloat16 values widened (the
+        low 16 bits zero, as the reader gives them); anything else
+        raises, since cutting bits would round."""
+        bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+        if (bits & 0xFFFF).any():
+            raise ValueError("the values are not bfloat16 values")
+        return cls((bits >> 16).astype(np.uint16))
+
+
+def _ndarray_prefix(arr: np.ndarray, name: str) -> bytes:
     """`packb((shape, dtype.name, buffer))` up to the buffer itself."""
     shape = _sized(arr.ndim, 0x90, 16, (None, 0xDC, 0xDD)) + b"".join(
         _int(int(d)) for d in arr.shape)
-    return (bytes([0x93]) + shape + _str(arr.dtype.name)
+    return (bytes([0x93]) + shape + _str(name)
             + _bin_header(arr.nbytes))
 
 
-def _write_ndarray(f: BinaryIO, code: int, arr: np.ndarray) -> None:
+def _write_ndarray(f: BinaryIO, code: int, arr: np.ndarray,
+                   name: Optional[str] = None) -> None:
     if arr.dtype.hasobject or arr.dtype.names is not None:
         raise TypeError(f"dtype {arr.dtype} cannot be stored")
     if arr.nbytes > MAX_LEAF_BYTES:
         raise ValueError(f"a leaf of {arr.nbytes} bytes would need flax's "
                          f"chunked form, which this codec does not write")
-    prefix = _ndarray_prefix(arr)
+    prefix = _ndarray_prefix(arr, name or arr.dtype.name)
     f.write(_ext_header(code, len(prefix) + arr.nbytes))
     f.write(prefix)
     f.write(np.ascontiguousarray(arr).reshape(-1).view(np.uint8).data)
@@ -134,6 +160,8 @@ def write_msgpack(f: BinaryIO, obj: Any) -> None:
             write_msgpack(f, v)
     elif isinstance(obj, np.ndarray):
         _write_ndarray(f, EXT_NDARRAY, obj)
+    elif t is Bfloat16Array:
+        _write_ndarray(f, EXT_NDARRAY, obj.bits, "bfloat16")
     elif isinstance(obj, np.generic):
         _write_ndarray(f, EXT_NPSCALAR, np.asarray(obj))
     else:
@@ -272,7 +300,8 @@ def _to_host(tree: Any) -> Any:
         return {k: _to_host(tree[k]) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
         return [_to_host(v) for v in tree]
-    return tree if tree is None else np.asarray(tree)
+    return tree if tree is None or type(tree) is Bfloat16Array \
+        else np.asarray(tree)
 
 
 def save_pytree(path: str, tree: Any) -> None:
@@ -321,24 +350,35 @@ class Checkpointer:
         with open(os.path.join(self.directory, "config.json"), "w") as f:
             f.write(config_json)
 
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"state_step{int(step)}.msgpack")
+
     def save(self, state: Any, step: int, metric: Optional[float] = None,
              best_only: bool = False) -> None:
-        if metric is not None and (
-                self.manifest["best_metric"] is None
-                or metric > self.manifest["best_metric"]):
-            save_pytree(os.path.join(self.directory, "state_best.msgpack"),
-                        state)
+        """The JAX package's `save`: the best state when `metric` beats the
+        manifest's, and a step snapshot unless `best_only` (the oldest
+        beyond `keep_n` removed). Where both are written, the snapshot's
+        bytes are written once and `state_best.msgpack` becomes a second
+        name for them (a hard link, atomically renamed into place)."""
+        best = metric is not None and (
+            self.manifest["best_metric"] is None
+            or metric > self.manifest["best_metric"])
+        best_path = os.path.join(self.directory, "state_best.msgpack")
+        if not best_only:
+            save_pytree(self._path(step), state)
+        if best:
+            if best_only:
+                save_pytree(best_path, state)
+            else:
+                _link(self._path(step), best_path)
             self.manifest["best_metric"] = float(metric)
             self.manifest["best_step"] = int(step)
         if not best_only:
-            save_pytree(os.path.join(self.directory,
-                                     f"state_step{int(step)}.msgpack"), state)
             self.manifest["steps"].append(int(step))
             while len(self.manifest["steps"]) > self.keep_n:
                 old = self.manifest["steps"].pop(0)
                 try:
-                    os.remove(os.path.join(
-                        self.directory, f"state_step{old}.msgpack"))
+                    os.remove(self._path(old))
                 except FileNotFoundError:
                     pass
         self._write_manifest()
@@ -348,3 +388,66 @@ class Checkpointer:
         the caller picks the collections it needs)."""
         return restore_pytree(
             os.path.join(self.directory, "state_best.msgpack"))
+
+    def resume(self) -> tuple[Optional[dict], Optional[int]]:
+        """The latest step snapshot (or the best state if there is none)
+        and its step number, as nested dicts of numpy arrays; (None, None)
+        in an empty directory."""
+        if self.manifest["steps"]:
+            step = self.manifest["steps"][-1]
+            return restore_pytree(self._path(step)), step
+        if self.manifest["best_step"] is not None:
+            return self.restore_best(), self.manifest["best_step"]
+        return None, None
+
+
+def _link(src: str, dst: str) -> None:
+    """`dst` becomes a second name for `src`'s bytes, atomically."""
+    tmp = dst + ".tmp"
+    if os.path.lexists(tmp):
+        os.remove(tmp)
+    os.link(src, tmp)
+    os.replace(tmp, dst)
+
+
+class PreemptionGuard:
+    """Cooperative preemption handling (the JAX package's): used as a
+    context manager, it converts SIGTERM/SIGINT into a flag the training
+    loop polls between steps; the loop then snapshots through the
+    (atomic-write) Checkpointer and returns cleanly, so a rerun resumes from
+    the last completed step.
+
+        with PreemptionGuard() as guard:
+            trainer.fit(..., preemption_guard=guard)
+
+    The previous signal handlers are restored on exit; a second signal
+    while the flag is already set re-raises the default behaviour (so a
+    stuck run can still be killed)."""
+
+    def __init__(self, signals=None):
+        self.signals = tuple(signals) if signals is not None else (
+            signal.SIGTERM, signal.SIGINT)
+        self._prev = {}
+        self._requested = False
+
+    @property
+    def requested(self) -> bool:
+        return self._requested
+
+    def _handler(self, signum, frame):
+        if self._requested:   # second signal: give up cooperatively
+            signal.signal(signum, self._prev.get(signum, signal.SIG_DFL))
+            signal.raise_signal(signum)
+            return
+        self._requested = True
+
+    def __enter__(self):
+        for s in self.signals:
+            self._prev[s] = signal.signal(s, self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        for s, prev in self._prev.items():
+            signal.signal(s, prev)
+        self._prev.clear()
+        return False

@@ -1,5 +1,5 @@
-"""Typed configuration, a copy of `icka_tpu.core.config`'s encoder and ICKA
-dataclasses and of the evaluation fields of its `TrainConfig`.
+"""Typed configuration, a copy of `icka_tpu.core.config`'s encoder, ICKA
+and training dataclasses.
 
 Field names and defaults are identical to the JAX package's, so a
 ``config.json`` written there loads here unchanged. In this package
@@ -55,8 +55,8 @@ class EncoderConfig:
     # "none" only in this package so far: the encoders' int8 modes are not
     # ported (the visual backbone's are arguments of `VisualBackbone`)
     quant: str = "none"
-    # training-only in the JAX package (activation rematerialisation);
-    # inference here ignores both
+    # activation rematerialisation, a training knob: inference ignores
+    # both, and training with remat=True raises (not ported)
     remat: bool = False
     remat_policy: str = "dots"
     # one fused (H, 3H) QKV projection; not ported yet
@@ -132,12 +132,39 @@ class ICKAConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The fields of the JAX package's `TrainConfig` that evaluation reads,
-    with its names and defaults; the optimiser and loop fields wait for
-    training to be ported."""
+    """Training-loop hyperparameters (reference defaults), every field of
+    the JAX package's `TrainConfig` with its name and default. This package
+    trains on one device: `data_axis` (1, or -1 for all devices, which is
+    one), `model_axis` 1 and `zero1` False are the only values it takes;
+    any other raises `NotImplementedError`."""
 
+    learning_rate: float = 3e-5
+    weight_decay: float = 0.01
+    warmup_proportion: float = 0.1
+    num_train_epochs: int = 25
+    train_batch_size: int = 1
     eval_batch_size: int = 1
+    gradient_accumulation_steps: int = 5
+    max_grad_norm: float = 1.0
+    seed: int = 19260817
+    fine_tune_cnn: bool = False
     compute_dtype: str = "bfloat16"      # or "float32"
+    data_axis: int = 1                  # mesh size along the data axis
+    model_axis: int = 1                 # mesh size along the model (TP) axis
+    # ZeRO-1 in the JAX package: Adam moments sharded over the data axis
+    zero1: bool = False
+    # dtype of the Adam first moment (mu); bf16 halves its memory. The
+    # second moment stays fp32 (sqrt(nu) precision gates the update).
+    mu_dtype: str = "float32"
+
+    def __post_init__(self):
+        for name, ok in (("data_axis", self.data_axis in (1, -1)),
+                         ("model_axis", self.model_axis == 1),
+                         ("zero1", not self.zero1)):
+            if not ok:
+                raise NotImplementedError(
+                    f"TrainConfig.{name}={getattr(self, name)!r}: the mesh "
+                    f"is not ported; this package trains on one device")
 
 
 _NESTED = {

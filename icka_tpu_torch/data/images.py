@@ -1,11 +1,13 @@
-"""Image pipeline: host-side decode, device-side eval preprocessing (port
-of `icka_tpu.data.images`).
+"""Image pipeline: host-side decode, device-side preprocessing (port of
+`icka_tpu.data.images`).
 
   host   : decode (PIL, or the native library through the loader) -> uint8
            RGB resized to `decode_size`^2 (256);
-  device : center crop + ImageNet normalisation.
+  device : crop (random at train, center at eval) + horizontal flip at
+           train + ImageNet normalisation.
 
-The training augmentation (random crop and flip) is not ported.
+The training draws (crop offsets and flips) come from the caller's
+`torch.Generator`; `augment_images` takes them explicitly.
 """
 
 from __future__ import annotations
@@ -50,17 +52,49 @@ def decode_image(path: str, decode_size: int = 256,
     return zeros
 
 
-def preprocess_images(images, crop_size: int = 224, device="cuda"):
-    """Eval preprocessing: uint8 (B, S, S, 3) -> normalised float32
-    (B, crop, crop, 3) on `device`: /255, center crop at margin // 2,
-    ImageNet mean/std."""
-    dev = resolve_device(device)
-    x = torch.as_tensor(images).to(dev)
-    S = x.shape[1]
-    if S < crop_size:
-        raise ValueError(f"image size {S} is smaller than crop {crop_size}")
-    o = (S - crop_size) // 2
-    x = x[:, o:o + crop_size, o:o + crop_size, :].float() / 255.0
+def _normalize(x, dev):
     mean = torch.tensor(IMAGENET_MEAN, device=dev)
     std = torch.tensor(IMAGENET_STD, device=dev)
     return (x - mean) / std
+
+
+def preprocess_images(images, crop_size: int = 224, device="cuda",
+                      train: bool = False, generator=None):
+    """uint8 (B, S, S, 3) -> normalised float32 (B, crop, crop, 3) on
+    `device`. Eval: /255, center crop at margin // 2, ImageNet mean/std.
+    Train (the reference's RandomCrop + RandomHorizontalFlip): a crop
+    offset in [0, margin] per axis and a flip with probability 1/2 per
+    image, drawn from `generator` (a CPU generator, so the draws do not
+    depend on the device), then `augment_images`. With no margin, training
+    takes the center crop and no flip, as the JAX package does."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(images).to(dev)
+    B, S = x.shape[:2]
+    if S < crop_size:
+        raise ValueError(f"image size {S} is smaller than crop {crop_size}")
+    margin = S - crop_size
+    if train and margin > 0:
+        offsets = torch.randint(0, margin + 1, (B, 2), generator=generator)
+        flips = torch.rand(B, generator=generator) < 0.5
+        return augment_images(x, offsets, flips, crop_size)
+    o = margin // 2
+    x = x[:, o:o + crop_size, o:o + crop_size, :].float() / 255.0
+    return _normalize(x, dev)
+
+
+def augment_images(images, offsets, flips, crop_size: int = 224):
+    """The training crop and flip on given draws: image b is cut at rows
+    offsets[b, 0] and columns offsets[b, 1] + [0, crop), mirrored left to
+    right where flips[b], then /255 and ImageNet mean/std. `images` uint8
+    (B, S, S, 3) on its device; offsets (B, 2) int, flips (B,) bool."""
+    x = torch.as_tensor(images)
+    dev = x.device
+    offsets = torch.as_tensor(offsets).to(dev).long()
+    flips = torch.as_tensor(flips).to(dev).bool()
+    span = torch.arange(crop_size, device=dev)
+    rows = offsets[:, 0, None] + span                        # (B, crop)
+    cols = offsets[:, 1, None] + torch.where(flips[:, None],
+                                             crop_size - 1 - span, span)
+    b = torch.arange(x.shape[0], device=dev)[:, None, None]
+    x = x[b, rows[:, :, None], cols[:, None, :]].float() / 255.0
+    return _normalize(x, dev)

@@ -1,17 +1,24 @@
-"""Eval batch loader with host decode cache and background prefetch (port
-of the `train=False` half of `icka_tpu.data.loader.MNERLoader`).
+"""Batch loader with host decode cache and background prefetch (port of
+`icka_tpu.data.loader.MNERLoader`).
 
 Features stay columnar (numpy); images are decoded once to a compact uint8
 cache and assembled per batch; a prefetch thread keeps the next batch
-ready while the device computes. Batches cover the split in order; the
-tail batch is padded by repeating its last row, and `row_valid` flags the
-real rows so evaluators drop the duplicates.
+ready while the device computes. `process_index` / `process_count`
+stride-partition the split per host (the `DistributedSampler`
+equivalent).
+
+Train batches shuffle the host's rows with `np.random.default_rng(seed +
+epoch)` and carry a leading gradient-accumulation axis, (accum,
+micro_batch, ...); the ragged tail that fills no whole step is dropped.
+The shuffle is numpy's, so the batches equal the JAX loader's bit for
+bit. Eval batches cover the split in order; the tail batch is padded by
+repeating its last row, and `row_valid` flags the real rows so
+evaluators drop the duplicates.
 
 JPEG paths go through the native threaded decoder
 (`icka_tpu_torch.data.native`) when it loads, else through
 `icka_tpu_torch.data.images.decode_image`, in the same order as the JAX
-loader, so both give the same pixels. Training batches (shuffle, the
-gradient-accumulation axis) and per-host sharding are not ported.
+loader, so both give the same pixels.
 """
 
 from __future__ import annotations
@@ -30,29 +37,35 @@ from icka_tpu_torch.data.images import decode_image
 
 class MNERLoader:
     def __init__(self, features: MMFeatures, image_dir: str,
-                 batch_size: int, train: bool = True,
-                 decode_size: int = 256,
+                 batch_size: int, accum_steps: int = 1, train: bool = True,
+                 decode_size: int = 256, seed: int = 0,
                  fallback_image: Optional[str] = None,
                  cache_images: bool = True,
+                 process_index: int = 0, process_count: int = 1,
                  prefetch: int = 2, decode_threads: int = 4):
-        if train:
-            raise NotImplementedError(
-                "train=True (shuffled batches with an accumulation axis) "
-                "waits for training to be ported; pass train=False")
         self.features = features
         self.image_dir = image_dir
         self.batch_size = batch_size
+        self.accum_steps = accum_steps if train else 1
+        self.train = train
         self.decode_size = decode_size
+        self.seed = seed
         self.fallback_image = fallback_image
         self.prefetch = prefetch
         self.decode_threads = decode_threads
         self._tmp: dict = {}
+        # the epoch the next iteration shuffles for; one more after each
+        # train iteration starts (the trainer sets it when it resumes)
+        self.epoch = 0
         self._cache: Optional[dict[int, np.ndarray]] = (
             {} if cache_images else None)
-        self.indices = np.arange(len(features))
+        self.indices = np.arange(len(features))[process_index::process_count]
 
     def __len__(self) -> int:
-        return (len(self.indices) + self.batch_size - 1) // self.batch_size
+        per_step = self.batch_size * self.accum_steps
+        if self.train:
+            return max(1, len(self.indices) // per_step)
+        return (len(self.indices) + per_step - 1) // per_step
 
     def _path(self, row: int) -> str:
         img_id = self.features.img_ids[row]
@@ -109,6 +122,9 @@ class MNERLoader:
         return batch
 
     def _batches(self) -> Iterator[Dict[str, np.ndarray]]:
+        if self.train:
+            yield from self._train_batches()
+            return
         B = self.batch_size
         for i in range(len(self)):
             rows = self.indices[i * B:(i + 1) * B]
@@ -123,6 +139,19 @@ class MNERLoader:
             valid[:n_valid] = 1
             batch["row_valid"] = valid
             yield batch
+
+    def _train_batches(self) -> Iterator[Dict[str, np.ndarray]]:
+        idx = self.indices.copy()
+        np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        self.epoch += 1
+        per_step = self.batch_size * self.accum_steps
+        for i in range(len(self)):
+            rows = idx[i * per_step:(i + 1) * per_step]
+            if len(rows) < per_step:
+                break                    # the ragged tail is dropped
+            yield {k: v.reshape(self.accum_steps, self.batch_size,
+                                *v.shape[1:])
+                   for k, v in self._assemble(rows).items()}
 
     def __iter__(self):
         if self.prefetch <= 0:

@@ -173,9 +173,35 @@ def crop_heads(x, num_heads: int, hd: int):
         B, S, num_heads * hd)
 
 
+class _NoBackward(torch.autograd.Function):
+    """Runs `run(*inputs)` as a node of the autograd graph whose backward
+    raises: the kernel, like the JAX package's, has no backward, and a
+    gradient through it is refused rather than taken from another path."""
+
+    @staticmethod
+    def forward(ctx, run, *inputs):
+        return run(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            "fused_attention (K1) has no backward: train with attention "
+            "dropout (the plain core) or without use_pallas")
+
+
 def fused_attention(q, k, v, bias, num_heads: int):
     """q (B, Sq, D), k/v (B, Sk, D), bias broadcastable to (B, Sq, Sk)
-    additive fp32. Returns (B, Sq, D) in q.dtype."""
+    additive fp32. Returns (B, Sq, D) in q.dtype. Where autograd records
+    the call, the result's backward raises, on the card and on the CPU
+    alike."""
+    inputs = (q, k, v, torch.as_tensor(bias))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _NoBackward.apply(
+            lambda *t: _fused_attention(*t, num_heads), *inputs)
+    return _fused_attention(*inputs, num_heads)
+
+
+def _fused_attention(q, k, v, bias, num_heads: int):
     name = "fused_attention"
     B, Sq, Sk, D = _check_shapes(name, q, k, v, num_heads)
     bias3 = _normalize_bias(bias, B, Sq, Sk)

@@ -1,4 +1,4 @@
-"""The flagship ICKA model (port of `icka_tpu.models.icka`, inference).
+"""The flagship ICKA model (port of `icka_tpu.models.icka`).
 
 Pipeline: RoBERTa text encoding -> 7x7 visual grid mapped to H -> txt2img
 cross-attention fusion -> CLIP knowledge alignment over the fused text ->
@@ -6,7 +6,7 @@ two prompt prefixes from mapping networks spliced into the prompted
 RoBERTa -> relevance gate -> BiLSTM -> classifier -> CRF Viterbi.
 Visual features arrive NHWC (B, 7, 7, C). `forward` has the JAX model's
 three modes: "test" (tags), "dev" (tags and the loss) and "train" (the
-loss); dropout is not ported, so every mode runs deterministically.
+loss, with dropout drawn from the caller's generator).
 `forward_packed` is the sequence-packed inference path of
 `icka_tpu_torch.serving.packing`.
 """
@@ -21,19 +21,21 @@ from icka_tpu_torch.core.device import generator_for, resolve_device
 from icka_tpu_torch.nn.attention import CrossEncoder
 from icka_tpu_torch.nn.bert import PromptSpliceEncoder, TextEncoder
 from icka_tpu_torch.nn.crf import CRF
-from icka_tpu_torch.nn.layers import Dense, additive_mask
+from icka_tpu_torch.nn.layers import Dense, additive_mask, dropout
 from icka_tpu_torch.nn.lstm import BiLSTM
 
 
 class MappingNetwork(nn.Module):
-    """Prompt mapping network: Linear(in, W*P) -> Tanh -> Linear(W*P, H*P),
-    reshaped to (B, P, H)."""
+    """Prompt mapping network: Dropout -> Linear(in, W*P) -> Tanh ->
+    Dropout -> Linear(W*P, H*P), reshaped to (B, P, H)."""
 
     def __init__(self, in_dim: int, prompt_len: int, width: int, hidden: int,
-                 dtype=torch.float32, device="cuda", generator=None):
+                 dropout: float = 0.3, dtype=torch.float32, device="cuda",
+                 generator=None):
         super().__init__()
         dev = resolve_device(device)
         gen = generator_for(dev, None, generator)
+        self.dropout = dropout
         self.prompt_len = prompt_len
         self.hidden = hidden
         self.wi = Dense(in_dim, width * prompt_len, dtype=dtype, device=dev,
@@ -41,8 +43,9 @@ class MappingNetwork(nn.Module):
         self.wo = Dense(width * prompt_len, hidden * prompt_len, dtype=dtype,
                         device=dev, generator=gen)
 
-    def forward(self, x):
-        x = self.wo(torch.tanh(self.wi(x)))
+    def forward(self, x, dropout_gen=None):
+        x = torch.tanh(self.wi(dropout(x, self.dropout, dropout_gen)))
+        x = self.wo(dropout(x, self.dropout, dropout_gen))
         return x.reshape(x.shape[0], self.prompt_len, self.hidden)
 
 
@@ -128,20 +131,23 @@ class ICKAModel(nn.Module):
     def emissions(self, *, input_ids, segment_ids, input_mask,
                   ori_input_ids, ori_input_mask, ori_segment_ids,
                   img_mask, clip_features, visual_mean, visual_grid,
-                  mask_positions, offset: int):
-        """Everything up to the CRF: returns (emissions, aux dict)."""
+                  mask_positions, offset: int, dropout_gen=None):
+        """Everything up to the CRF: returns (emissions, aux dict). Dropout
+        masks come from `dropout_gen`; None runs deterministically."""
         cfg = self.cfg
         B = ori_input_ids.shape[0]
 
-        # 1. text encoding
+        # 1. text encoding (+ dropout)
         seq, _ = self.embedding(ori_input_ids, ori_input_mask,
-                                ori_segment_ids)
+                                ori_segment_ids, dropout_gen=dropout_gen)
+        seq = dropout(seq, cfg.embedding.hidden_dropout_prob, dropout_gen)
 
         # 2-3. visual grid -> txt2img fusion
         if cfg.use_txt2img:
             grid = visual_grid.reshape(B, -1, visual_grid.shape[-1])
             grid = self.vismap2text(grid)                      # (B, 49, H)
-            cross = self.txt2img(seq, grid, additive_mask(img_mask))
+            cross = self.txt2img(seq, grid, additive_mask(img_mask),
+                                 dropout_gen)
         else:
             cross = seq
 
@@ -153,11 +159,12 @@ class ICKAModel(nn.Module):
         else:
             clip_tok = cross[:, 0:1, :]
         for layer in (self.align_0, self.align_1):
-            clip_tok = layer(clip_tok, cross, text_bias)
+            clip_tok = layer(clip_tok, cross, text_bias, dropout_gen)
 
         # 5. instruction construction
-        align_prompt = self.map_alignment(clip_tok.reshape(B, -1))
-        vision_prompt = self.map_vision(visual_mean)
+        align_prompt = self.map_alignment(clip_tok.reshape(B, -1),
+                                          dropout_gen)
+        vision_prompt = self.map_vision(visual_mean, dropout_gen)
         if not cfg.use_vision_prompt:
             vision_prompt = align_prompt
         if not cfg.use_alignment_prompt:
@@ -167,7 +174,8 @@ class ICKAModel(nn.Module):
             prefix = self.lastproj(prefix)
         prompt_mask = input_mask[:, :1].expand(-1, 2 * cfg.prompt_len)
         out, _ = self.last_encoder(input_ids, input_mask, segment_ids,
-                                   prefix, prompt_mask, mask_positions)
+                                   prefix, prompt_mask, mask_positions,
+                                   dropout_gen=dropout_gen)
         # the sentence starts at offset - 2 + 2P of the spliced layout; its
         # width is the bare-sentence width (shorter under bucketed serving)
         tok_start = offset - 2 + 2 * cfg.prompt_len
@@ -189,7 +197,8 @@ class ICKAModel(nn.Module):
         return emissions, {"gate": g, "cross": cross,
                            "token_embedding": token_embedding}
 
-    def batch_emissions(self, batch, mask_positions, offset: int):
+    def batch_emissions(self, batch, mask_positions, offset: int,
+                        dropout_gen=None):
         """`emissions` over a batch dict; returns the emissions only."""
         emissions, _ = self.emissions(
             input_ids=batch["input_ids"],
@@ -204,25 +213,40 @@ class ICKAModel(nn.Module):
             visual_grid=batch["visual_grid"],
             mask_positions=mask_positions,
             offset=offset,
+            dropout_gen=dropout_gen,
         )
         return emissions
 
     def forward(self, batch, mask_positions, offset: int, mode: str = "test",
                 labels=None, deterministic=None,
-                loss_reduction: str = "token_mean"):
+                loss_reduction: str = "token_mean", dropout_gen=None):
         """`batch` is a dict of tensors on the model's device (the keys of
         `icka_tpu_torch.data.features`). As the JAX model's `__call__`:
         "test" returns (B, L) int32 Viterbi tags; "dev" returns (tags, the
         negative log-likelihood of `labels` under `loss_reduction`, where
         "none" gives each row's NLL (B,)); "train" returns the token-mean
-        NLL. Dropout is not ported: every mode runs deterministically, and
-        `deterministic=False` raises."""
-        if deterministic is False:
-            raise NotImplementedError(
-                "dropout is not ported; the model runs deterministically")
+        NLL. `deterministic` defaults to `mode != "train"`; a call that is
+        not deterministic draws its dropout masks from `dropout_gen`, a
+        `torch.Generator` on the model's device, and raises without one.
+        Rematerialisation (`EncoderConfig.remat`) is not ported: "train"
+        with it set raises."""
         if mode not in ("train", "dev", "test"):
             raise ValueError(f"unknown mode {mode!r}")
-        emissions = self.batch_emissions(batch, mask_positions, offset)
+        cfg = self.cfg
+        if mode == "train" and (cfg.embedding.remat
+                                or cfg.last_encoder.remat):
+            raise NotImplementedError(
+                "EncoderConfig.remat=True is not ported: training keeps "
+                "every activation")
+        if deterministic is None:
+            deterministic = mode != "train"
+        if not deterministic and dropout_gen is None:
+            raise ValueError("deterministic=False draws dropout masks: pass "
+                             "dropout_gen, a torch.Generator on the model's "
+                             "device")
+        emissions = self.batch_emissions(
+            batch, mask_positions, offset,
+            dropout_gen=None if deterministic else dropout_gen)
         output_mask = batch["output_mask"]
         if mode == "train":
             return -self.crf(emissions, labels, output_mask,

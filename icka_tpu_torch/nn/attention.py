@@ -7,7 +7,11 @@
   - `Encoder` / `CrossEncoder` ≙ BertEncoder / BertCrossEncoder
   - `Pooler` ≙ BertPooler
 
-Inference only: dropout is the identity. Heads are laid out (B, S, N, H).
+Dropout follows the JAX package's sites (attention probabilities of the
+plain core, the attention output and the FFN output, before each residual):
+every `forward` takes `dropout_gen`, a `torch.Generator` on the device that
+draws the masks, and None (the default) runs deterministically. Heads are
+laid out (B, S, N, H).
 Submodule names are the flax names (`layer_0`, `attn`, `query`, ...), so a
 flax parameter path is a `state_dict` key. `EncoderConfig.quant` reaches
 every projection of a layer (query, key, value, the attention output and
@@ -23,7 +27,7 @@ from torch import nn
 from icka_tpu_torch.core.config import EncoderConfig
 from icka_tpu_torch.core.device import generator_for, resolve_device
 from icka_tpu_torch.kernels.attention import fused_attention
-from icka_tpu_torch.nn.layers import ACT2FN, Dense, LayerNorm
+from icka_tpu_torch.nn.layers import ACT2FN, Dense, LayerNorm, dropout
 
 
 def _split_heads(x, num_heads):
@@ -37,16 +41,24 @@ def _merge_heads(x):
 
 
 def dot_product_attention(q, k, v, bias=None, dtype=torch.float32,
-                          softmax_dtype=torch.float32):
+                          softmax_dtype=torch.float32, dropout_rate=0.0,
+                          dropout_gen=None):
     """Plain attention core. q, k, v: (B, S, N, H); bias broadcastable to
     (B, N, Sq, Sk). Scores are summed in `softmax_dtype` (fp32 by default
     whatever the compute dtype), probabilities cast to `dtype` for P.V.
-    (The JAX core's tau, neg_type and prior are not ported.)"""
+    With `dropout_gen`, each probability is kept with probability
+    1 - dropout_rate and scaled by its inverse, as the JAX core does. (The
+    JAX core's tau, neg_type and prior are not ported.)"""
     scores = torch.einsum("bqnh,bknh->bnqk", q.to(softmax_dtype),
                           k.to(softmax_dtype)) * q.shape[-1] ** -0.5
     if bias is not None:
         scores = scores + bias.to(softmax_dtype)
-    probs = torch.softmax(scores, dim=-1).to(dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if dropout_rate > 0.0 and dropout_gen is not None:
+        keep = torch.rand(probs.shape, generator=dropout_gen,
+                          device=probs.device) < 1.0 - dropout_rate
+        probs = probs * keep / (1.0 - dropout_rate)
+    probs = probs.to(dtype)
     return torch.einsum("bnqk,bknh->bqnh", probs, v.to(dtype))
 
 
@@ -63,72 +75,87 @@ class MultiHeadAttention(nn.Module):
     `kv` is None). `use_pallas=True` routes the core through the fused
     attention kernel, which always takes an fp32 softmax (`softmax_dtype`
     applies to the plain core only); a missing bias becomes a zero
-    (B, 1, 1, Sk) key bias. `quant` is the projections' `Dense` mode."""
+    (B, 1, 1, Sk) key bias. The kernel has no dropout and no backward, so,
+    as in the JAX package, it runs only when the call is deterministic or
+    `dropout_rate` is 0: training with attention dropout takes the plain
+    core. `quant` is the projections' `Dense` mode."""
 
     def __init__(self, hidden: int, num_heads: int, dtype=torch.float32,
                  use_pallas: bool = False, softmax_dtype=torch.float32,
-                 quant: str = "none", device="cuda", generator=None):
+                 quant: str = "none", dropout_rate: float = 0.1,
+                 device="cuda", generator=None):
         super().__init__()
         dev = resolve_device(device)
         gen = generator_for(dev, None, generator)
         self.num_heads = num_heads
         self.dtype = dtype
         self.use_pallas = use_pallas
+        self.dropout_rate = dropout_rate
         self.softmax_dtype = softmax_dtype
         for name in ("query", "key", "value"):
             self.add_module(name, Dense(hidden, hidden, dtype=dtype,
                                         quant=quant, device=dev,
                                         generator=gen))
 
-    def forward(self, x, kv=None, bias=None):
+    def forward(self, x, kv=None, bias=None, dropout_gen=None):
         kv = x if kv is None else kv
         q, k, v = self.query(x), self.key(kv), self.value(kv)
-        if self.use_pallas:
+        if self.use_pallas and (dropout_gen is None
+                                or self.dropout_rate == 0.0):
             if bias is None:
                 bias = torch.zeros(q.shape[0], 1, 1, k.shape[1],
                                    device=q.device)
             return fused_attention(q, k, v, bias, num_heads=self.num_heads)
         q, k, v = (_split_heads(t, self.num_heads) for t in (q, k, v))
         ctx = dot_product_attention(q, k, v, bias=bias, dtype=self.dtype,
-                                    softmax_dtype=self.softmax_dtype)
+                                    softmax_dtype=self.softmax_dtype,
+                                    dropout_rate=self.dropout_rate,
+                                    dropout_gen=dropout_gen)
         return _merge_heads(ctx)
 
 
 class AttentionOutput(nn.Module):
-    """Projection + residual + LayerNorm (BertSelfOutput)."""
+    """Projection + dropout + residual + LayerNorm (BertSelfOutput)."""
 
     def __init__(self, hidden: int, eps: float, dtype=torch.float32,
-                 quant: str = "none", device="cuda", generator=None):
+                 quant: str = "none", dropout_rate: float = 0.1,
+                 device="cuda", generator=None):
         super().__init__()
         dev = resolve_device(device)
+        self.dropout_rate = dropout_rate
         self.dense = Dense(hidden, hidden, dtype=dtype, quant=quant,
                            device=dev,
                            generator=generator_for(dev, None, generator))
         self.norm = LayerNorm(hidden, eps=eps, dtype=dtype, device=dev)
 
-    def forward(self, x, residual):
-        return self.norm(self.dense(x) + residual)
+    def forward(self, x, residual, dropout_gen=None):
+        x = dropout(self.dense(x), self.dropout_rate, dropout_gen)
+        return self.norm(x + residual)
 
 
 class FeedForward(nn.Module):
-    """Intermediate + output FFN with post-LN residual (BertIntermediate /
-    BertOutput). The Pfeiffer adapter of the JAX module is not ported."""
+    """Intermediate + output FFN with dropout and post-LN residual
+    (BertIntermediate / BertOutput). The Pfeiffer adapter of the JAX module
+    is not ported."""
 
     def __init__(self, hidden: int, intermediate: int, eps: float,
                  act: str = "gelu", dtype=torch.float32, quant: str = "none",
-                 device="cuda", generator=None):
+                 dropout_rate: float = 0.1, device="cuda", generator=None):
         super().__init__()
         dev = resolve_device(device)
         gen = generator_for(dev, None, generator)
         self.act = ACT2FN[act]
+        self.dropout_rate = dropout_rate
         self.wi = Dense(hidden, intermediate, dtype=dtype, quant=quant,
                         device=dev, generator=gen)
         self.wo = Dense(intermediate, hidden, dtype=dtype, quant=quant,
                         device=dev, generator=gen)
         self.norm = LayerNorm(hidden, eps=eps, dtype=dtype, device=dev)
 
-    def forward(self, x):
-        return self.norm(self.wo(self.act(self.wi(x))) + x)
+    def forward(self, x, dropout_gen=None):
+        h = dropout(self.wo(self.act(self.wi(x))), self.dropout_rate,
+                    dropout_gen)
+        return self.norm(h + x)
 
 
 class _AttentionLayer(nn.Module):
@@ -145,13 +172,15 @@ class _AttentionLayer(nn.Module):
         self.attn = MultiHeadAttention(
             H, cfg.num_attention_heads, dtype=dtype, use_pallas=use_pallas,
             softmax_dtype=getattr(torch, cfg.softmax_dtype), quant=cfg.quant,
+            dropout_rate=cfg.attention_probs_dropout_prob, device=dev,
+            generator=gen)
+        self.attn_out = AttentionOutput(
+            H, cfg.layer_norm_eps, dtype=dtype, quant=cfg.quant,
+            dropout_rate=cfg.hidden_dropout_prob, device=dev, generator=gen)
+        self.ffn = FeedForward(
+            H, cfg.intermediate_size, cfg.layer_norm_eps, dtype=dtype,
+            quant=cfg.quant, dropout_rate=cfg.hidden_dropout_prob,
             device=dev, generator=gen)
-        self.attn_out = AttentionOutput(H, cfg.layer_norm_eps, dtype=dtype,
-                                        quant=cfg.quant, device=dev,
-                                        generator=gen)
-        self.ffn = FeedForward(H, cfg.intermediate_size, cfg.layer_norm_eps,
-                               dtype=dtype, quant=cfg.quant, device=dev,
-                               generator=gen)
 
 
 class SelfAttentionLayer(_AttentionLayer):
@@ -162,9 +191,9 @@ class SelfAttentionLayer(_AttentionLayer):
                  device="cuda", generator=None):
         super().__init__(cfg, cfg.use_pallas, dtype, device, generator)
 
-    def forward(self, x, bias=None):
-        a = self.attn(x, bias=bias)
-        return self.ffn(self.attn_out(a, x))
+    def forward(self, x, bias=None, dropout_gen=None):
+        a = self.attn(x, bias=bias, dropout_gen=dropout_gen)
+        return self.ffn(self.attn_out(a, x, dropout_gen), dropout_gen)
 
 
 class CrossAttentionLayer(_AttentionLayer):
@@ -176,9 +205,9 @@ class CrossAttentionLayer(_AttentionLayer):
                  device="cuda", generator=None):
         super().__init__(cfg, False, dtype, device, generator)
 
-    def forward(self, x, kv, bias=None):
-        a = self.attn(x, kv=kv, bias=bias)
-        return self.ffn(self.attn_out(a, x))
+    def forward(self, x, kv, bias=None, dropout_gen=None):
+        a = self.attn(x, kv=kv, bias=bias, dropout_gen=dropout_gen)
+        return self.ffn(self.attn_out(a, x, dropout_gen), dropout_gen)
 
 
 class _Stack(nn.Module):
@@ -205,9 +234,9 @@ class Encoder(_Stack):
         super().__init__(SelfAttentionLayer, cfg, cfg.num_hidden_layers,
                          dtype, device, generator)
 
-    def forward(self, x, bias=None):
+    def forward(self, x, bias=None, dropout_gen=None):
         for layer in self.layers():
-            x = layer(x, bias)
+            x = layer(x, bias, dropout_gen)
         return x
 
 
@@ -219,9 +248,9 @@ class CrossEncoder(_Stack):
         super().__init__(CrossAttentionLayer, cfg, num_layers, dtype, device,
                          generator)
 
-    def forward(self, x, kv, bias=None):
+    def forward(self, x, kv, bias=None, dropout_gen=None):
         for layer in self.layers():
-            x = layer(x, kv, bias)
+            x = layer(x, kv, bias, dropout_gen)
         return x
 
 

@@ -1,6 +1,8 @@
 """Text encoders: legacy-BERT and RoBERTa semantics on one stack (port of
 `icka_tpu.nn.bert`). `EncoderConfig.position_offset` selects the dialect:
 0 gives BERT-style 0-based positions, >0 RoBERTa-style pad-aware cumsum.
+Every `forward` takes `dropout_gen` (see `icka_tpu_torch.nn.attention`):
+None runs deterministically.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from torch import nn
 from icka_tpu_torch.core.config import EncoderConfig
 from icka_tpu_torch.core.device import generator_for, resolve_device
 from icka_tpu_torch.nn.attention import Encoder, Pooler
-from icka_tpu_torch.nn.layers import LayerNorm, additive_mask
+from icka_tpu_torch.nn.layers import LayerNorm, additive_mask, dropout
 
 
 def roberta_position_ids(input_ids, pad_token_id: int):
@@ -30,7 +32,7 @@ def mask_position_ids(attention_mask, pad_token_id: int):
 
 
 class TextEmbeddings(nn.Module):
-    """word + position + token-type embeddings -> LayerNorm.
+    """word + position + token-type embeddings -> LayerNorm -> dropout.
 
     `embed_tokens` / `finalize` split the pipeline so callers can transform
     token embeddings (prompt splicing) before positions are assigned."""
@@ -56,13 +58,16 @@ class TextEmbeddings(nn.Module):
     def embed_tokens(self, input_ids):
         return F.embedding(input_ids, self.word_embeddings)
 
-    def finalize(self, inputs_embeds, position_ids, token_type_ids):
+    def finalize(self, inputs_embeds, position_ids, token_type_ids,
+                 dropout_gen=None):
         x = (inputs_embeds
              + F.embedding(position_ids, self.position_embeddings)
              + F.embedding(token_type_ids, self.token_type_embeddings))
-        return self.norm(x.to(self.dtype))
+        return dropout(self.norm(x.to(self.dtype)),
+                       self.cfg.hidden_dropout_prob, dropout_gen)
 
-    def forward(self, input_ids, token_type_ids=None, position_ids=None):
+    def forward(self, input_ids, token_type_ids=None, position_ids=None,
+                dropout_gen=None):
         cfg = self.cfg
         B, S = input_ids.shape
         dev = input_ids.device
@@ -75,7 +80,7 @@ class TextEmbeddings(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros(B, S, dtype=torch.long, device=dev)
         return self.finalize(self.embed_tokens(input_ids), position_ids,
-                             token_type_ids)
+                             token_type_ids, dropout_gen)
 
 
 class TextEncoder(nn.Module):
@@ -97,11 +102,12 @@ class TextEncoder(nn.Module):
                               generator=gen) if with_pooler else None)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
-                position_ids=None):
+                position_ids=None, dropout_gen=None):
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
-        x = self.embeddings(input_ids, token_type_ids, position_ids)
-        x = self.encoder(x, additive_mask(attention_mask))
+        x = self.embeddings(input_ids, token_type_ids, position_ids,
+                            dropout_gen)
+        x = self.encoder(x, additive_mask(attention_mask), dropout_gen)
         pooled = self.pooler(x) if self.pooler is not None else None
         return x, pooled
 
@@ -143,7 +149,7 @@ class PromptSpliceEncoder(nn.Module):
 
     def forward(self, input_ids, attention_mask, token_type_ids,
                 prompt_embeddings, prompt_mask, mask_positions,
-                position_ids=None, prompt_gather=None):
+                position_ids=None, prompt_gather=None, dropout_gen=None):
         emb = self.embeddings
         tok = emb.embed_tokens(input_ids)
         if prompt_gather is not None:
@@ -152,9 +158,10 @@ class PromptSpliceEncoder(nn.Module):
                                tok.new_zeros(B, 1, H)], dim=1)
             pv = table.gather(1, prompt_gather[:, :, None].expand(-1, -1, H))
             spliced = torch.where((prompt_gather < K)[:, :, None], pv, tok)
-            x = emb.finalize(spliced, position_ids, token_type_ids)
-            return (self.encoder(x, additive_mask(attention_mask)),
-                    attention_mask)
+            x = emb.finalize(spliced, position_ids, token_type_ids,
+                             dropout_gen)
+            return (self.encoder(x, additive_mask(attention_mask),
+                                 dropout_gen), attention_mask)
         m1, m2 = mask_positions
         P = prompt_embeddings.shape[1] // 2
         spliced = splice_prompt(tok, prompt_embeddings.to(tok.dtype), m1, m2)
@@ -166,6 +173,6 @@ class PromptSpliceEncoder(nn.Module):
             [token_type_ids[:, :m1], type1, token_type_ids[:, m1 + 1:m2],
              type2, token_type_ids[:, m2 + 1:]], dim=1)
         position_ids = mask_position_ids(spliced_mask, self.cfg.pad_token_id)
-        x = emb.finalize(spliced, position_ids, spliced_types)
-        x = self.encoder(x, additive_mask(spliced_mask))
+        x = emb.finalize(spliced, position_ids, spliced_types, dropout_gen)
+        x = self.encoder(x, additive_mask(spliced_mask), dropout_gen)
         return x, spliced_mask

@@ -39,6 +39,19 @@ ACT2FN = {
 }
 
 
+def dropout(x, rate: float, dropout_gen=None):
+    """flax `nn.Dropout`: each element kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), the mask drawn from `dropout_gen` (a
+    `torch.Generator` on x's device; no module touches the global RNG).
+    The identity when `dropout_gen` is None (deterministic) or rate is 0."""
+    if dropout_gen is None or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=dropout_gen,
+                      device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
+
+
 def additive_mask(mask, dtype=torch.float32):
     """{0,1} key mask (B, S) -> additive (B, 1, 1, S): 0 -> -10000, 1 -> 0."""
     m = torch.as_tensor(mask).to(dtype)

@@ -1,12 +1,29 @@
-"""Evaluation loop (port of the eval half of `icka_tpu.train.trainer`).
+"""Training and evaluation loops (port of `icka_tpu.train.trainer`).
 
-`ICKATrainer` holds the flagship model and the float visual backbone on
-one device, takes their weights from a JAX `Checkpointer` state, and runs
-the reference `test()` loop: images -> eval preprocessing -> backbone ->
-`ICKAModel(mode="dev", loss_reduction="none")`, the padded tail rows
-dropped, the exact token-mean loss, the reference's label filtering and the
-chunk-F1 evaluator. The optimiser, the fit loop and checkpoint resume wait
-for training to be ported.
+`ICKATrainer` holds the flagship model and the frozen float visual
+backbone on one device (the card unless the caller asks for the CPU).
+
+Training (the reference's `train_and_dev`): a loader batch (accum,
+micro_batch, ...) runs microbatch by microbatch through train-mode image
+preprocessing (random crop and flip), the frozen backbone, `ICKAModel(mode=
+"train")` with dropout and the CRF token-mean NLL; the microbatch gradients
+are summed and divided by `accum`; a step whose loss or any gradient is not
+finite is skipped outright (params, moments, step count and schedule stay
+put); otherwise the port's AdamW (`train.optimizer`) clips by global norm
+and updates the fp32 master weights in place. The backbone runs without
+gradients and never joins the optimizer: the JAX package differentiates
+`params` only, so `fine_tune_cnn` moves no backbone weight there either.
+Each step's random draws come from generators seeded by (seed, epoch,
+batch, microbatch), so a resumed run draws what the uninterrupted run drew.
+`fit` checks preemption before each step, evaluates dev every epoch and
+saves the best-F1 state and a step snapshot; `state_tree` is the JAX
+`ICKATrainState`'s state dict, so both packages resume each other's
+snapshots.
+
+Evaluation (the reference's `test()`): images -> eval preprocessing ->
+backbone -> `ICKAModel(mode="dev", loss_reduction="none")`, the padded
+tail rows dropped, the exact token-mean loss, the reference's label
+filtering and the chunk-F1 evaluator.
 """
 
 from __future__ import annotations
@@ -18,7 +35,13 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from icka_tpu_torch.convert import backbone_state_dict, icka_state_dict
+from icka_tpu_torch.convert import (backbone_state_dict,
+                                    backbone_variables_from_state_dict,
+                                    flax_tree_from_state_dict,
+                                    icka_state_dict,
+                                    icka_variables_from_state_dict,
+                                    state_dict_from_flax)
+from icka_tpu_torch.core.checkpoint import Bfloat16Array
 from icka_tpu_torch.core.config import ICKAConfig, TrainConfig
 from icka_tpu_torch.core.device import resolve_device
 from icka_tpu_torch.data.features import PromptSpec
@@ -31,6 +54,7 @@ from icka_tpu_torch.evaluation import (
 )
 from icka_tpu_torch.models.icka import ICKAModel
 from icka_tpu_torch.models.resnet import VisualBackbone
+from icka_tpu_torch.train.optimizer import make_optimizer
 
 CROP_SIZE = 224
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -77,10 +101,34 @@ class EvalResult:
     seconds: float = 0.0    # wall time of the loop, host clock
 
 
+@dataclass
+class StepRecord:
+    """One train step: its global number before the step, the mean
+    microbatch loss, whether it was applied (False: skipped as not
+    finite), the gradients' global norm before clipping (None when
+    skipped), and host-clock seconds of the whole step and of the optimizer
+    update, each ending in a synchronise."""
+
+    step: int
+    loss: float
+    applied: bool
+    grad_norm: float | None
+    seconds: float
+    update_seconds: float
+
+
+def _seed(*words: int) -> int:
+    """A 63-bit seed from a tuple of integers (numpy's SeedSequence)."""
+    return int(np.random.SeedSequence(list(words)).generate_state(
+        1, np.uint64)[0] >> np.uint64(1))
+
+
 class ICKATrainer:
-    """The flagship model and its visual backbone for evaluation, on
-    `device` (the card unless the caller asks for the CPU). Both compute in
-    `train_cfg.compute_dtype` with fp32 parameters, as the JAX trainer."""
+    """The flagship model and its frozen visual backbone on `device` (the
+    card unless the caller asks for the CPU). Both compute in
+    `train_cfg.compute_dtype` with fp32 parameters, as the JAX trainer;
+    the model's weights come from `train_cfg.seed`. `init_state` (or `fit`)
+    builds the optimizer; `step` counts the updates applied."""
 
     def __init__(self, model_cfg: ICKAConfig, train_cfg: TrainConfig,
                  spec: PromptSpec, label_list=None,
@@ -91,30 +139,93 @@ class ICKATrainer:
         self.label_list = label_list
         self.device = resolve_device(device)
         dtype = COMPUTE_DTYPES[train_cfg.compute_dtype]
-        self.model = ICKAModel(model_cfg, dtype=dtype,
-                               device=self.device).eval()
+        self.model = ICKAModel(model_cfg, dtype=dtype, device=self.device,
+                               seed=train_cfg.seed).eval()
         self.backbone = VisualBackbone(resnet_layers, dtype=dtype,
-                                       device=self.device).eval()
+                                       device=self.device,
+                                       seed=train_cfg.seed + 1).eval()
+        self.backbone.requires_grad_(False)
+        self.optimizer = None
+        self.opt_state = None
+        self.step = 0
+        self.records: list[StepRecord] = []
+
+    # -- state ---------------------------------------------------------------
+
+    def params(self) -> dict:
+        return dict(self.model.named_parameters())
+
+    def init_state(self, total_steps: int) -> None:
+        """The optimizer of `total_steps` updates (the warmup-linear
+        schedule's length) and its zero state; the step count restarts."""
+        params = self.params()
+        self.optimizer = make_optimizer(self.train_cfg, total_steps, params)
+        self.opt_state = self.optimizer.init(params)
+        self.step = 0
+
+    def state_tree(self) -> dict:
+        """The JAX `ICKATrainState`'s state dict: `step`, `params`,
+        `opt_state` in optax's chain layout ((clip), (adam, masked decay,
+        schedule)) and `backbone_variables`, as numpy trees with flax's
+        leaf names and layouts (a bf16 first moment as bf16)."""
+        count = np.asarray(int(self.opt_state.count), np.int32)
+        mu = flax_tree_from_state_dict(self.opt_state.mu)
+        if self.optimizer.mu_dtype == torch.bfloat16:
+            mu = _map_leaves(Bfloat16Array.from_float32, mu)
+        return {
+            "step": np.asarray(self.step, np.int32),
+            "params": icka_variables_from_state_dict(
+                self.model.state_dict())["params"],
+            "opt_state": {"0": {}, "1": {
+                "0": {"count": count, "mu": mu,
+                      "nu": flax_tree_from_state_dict(self.opt_state.nu)},
+                "1": {"inner_state": {}},
+                "2": {"count": count}}},
+            "backbone_variables": backbone_variables_from_state_dict(
+                self.backbone.state_dict()),
+        }
 
     def state_from_checkpoint(self, state: Mapping) -> None:
-        """Load `params` and `backbone_variables` of a JAX train state (as
-        `Checkpointer.restore_best` gives it) into the model and the
-        backbone, every name checked; `opt_state` and `step` are not
-        read."""
+        """Load a JAX train state (as `Checkpointer.restore_best` or
+        `resume` gives it): `params` and `backbone_variables` into the model
+        and the backbone, every name checked; and, once the optimizer
+        exists, `step` and the moments and count of `opt_state`."""
         self.model.load_state_dict(
             icka_state_dict({"params": state["params"]}), strict=True)
         self.backbone.load_state_dict(
             backbone_state_dict(state["backbone_variables"]), strict=True)
+        if self.optimizer is None:
+            return
+        adam = state["opt_state"]["1"]["0"]
+        params = self.params()
+        for key, dtype in (("mu", self.optimizer.mu_dtype),
+                           ("nu", torch.float32)):
+            moments = state_dict_from_flax(adam[key])
+            if moments.keys() != params.keys():
+                raise ValueError(f"opt_state {key} names differ from the "
+                                 f"model's parameters")
+            setattr(self.opt_state, key, {
+                n: moments[n].to(self.device, dtype) for n in params})
+        self.opt_state.count = torch.tensor(int(adam["count"]),
+                                            dtype=torch.int32)
+        self.step = int(state["step"])
 
-    def model_inputs(self, batch: Mapping) -> dict:
+    # -- steps ---------------------------------------------------------------
+
+    def model_inputs(self, batch: Mapping, image_gen=None) -> dict:
         """A loader batch -> the model's tensors on the device: the images
-        through eval preprocessing and the backbone, `visual_mean` as fp32
-        and the 7x7 grid. An image smaller than the crop passes whole, as
-        the JAX package's slice passes the tiny CLI's 64x64 decode."""
+        through preprocessing (train-mode crop and flip drawn from
+        `image_gen` when given, else eval) and the backbone, `visual_mean`
+        as fp32 and the 7x7 grid. An image smaller than the crop passes
+        whole, as the JAX package's slice passes the tiny CLI's 64x64
+        decode."""
         images = batch["images"]
         pixels = preprocess_images(images, min(CROP_SIZE, images.shape[1]),
-                                   device=self.device)
-        _, mean, att = self.backbone(pixels)
+                                   device=self.device,
+                                   train=image_gen is not None,
+                                   generator=image_gen)
+        with torch.no_grad():
+            _, mean, att = self.backbone(pixels)
         out = {k: torch.from_numpy(np.asarray(v)).to(self.device)
                for k, v in batch.items() if k not in ("images", "row_valid")}
         for k, v in out.items():
@@ -123,6 +234,61 @@ class ICKATrainer:
         out["visual_mean"] = mean.float()
         out["visual_grid"] = att
         return out
+
+    def loss(self, batch: Mapping, image_gen=None, dropout_gen=None):
+        """The token-mean CRF NLL of one microbatch in train mode: crop and
+        flip drawn from `image_gen` (a CPU generator) and dropout from
+        `dropout_gen` (a generator on the device); either None runs that
+        part deterministically (eval preprocessing, no dropout)."""
+        inputs = self.model_inputs(batch, image_gen)
+        labels = inputs.pop("label_ids")
+        return self.model(inputs, self.spec.mask_positions, self.spec.offset,
+                          mode="train", labels=labels,
+                          deterministic=dropout_gen is None,
+                          dropout_gen=dropout_gen)
+
+    def train_step(self, batch: Mapping, key) -> StepRecord:
+        """One optimizer step over a loader batch (accum, micro_batch,
+        ...). `key` (epoch, batch index) seeds its random draws. Returns
+        (and appends to `records`) the step's record; the loss is the mean
+        over the microbatches."""
+        t0 = time.perf_counter()
+        params = self.params()
+        for p in params.values():
+            p.grad = None
+        accum = len(batch["input_ids"])
+        loss_sum = torch.zeros((), device=self.device)
+        for a in range(accum):
+            seed = _seed(self.train_cfg.seed, *key, a)
+            image_gen = torch.Generator().manual_seed(seed)
+            dropout_gen = torch.Generator(self.device).manual_seed(seed)
+            loss = self.loss({k: v[a] for k, v in batch.items()},
+                             image_gen, dropout_gen)
+            loss.backward()
+            loss_sum = loss_sum + loss.detach()
+        grads = {}
+        finite = torch.isfinite(loss_sum)
+        for n, p in params.items():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            grads[n] = g.div_(accum)
+            finite = finite & torch.isfinite(g).all()
+        # a step with a non-finite loss or gradient is a TRUE skip: params,
+        # moments, step count and so the schedule stay put
+        applied = bool(finite)
+        t1 = time.perf_counter()
+        norm = None
+        if applied:
+            norm = float(self.optimizer.update(grads, self.opt_state, params))
+            self.step += 1
+        for p in params.values():
+            p.grad = None
+        record = StepRecord(
+            step=self.step - applied, loss=float(loss_sum / accum),
+            applied=applied, grad_norm=norm,
+            seconds=time.perf_counter() - t0,
+            update_seconds=time.perf_counter() - t1)
+        self.records.append(record)
+        return record
 
     def eval_step(self, batch: Mapping):
         """(tags (B, L), each row's NLL (B,)) of a loader batch."""
@@ -134,6 +300,69 @@ class ICKATrainer:
             return self.model(inputs, self.spec.mask_positions,
                               self.spec.offset, mode="dev", labels=labels,
                               loss_reduction="none")
+
+    def fit(self, train_loader, dev_loader=None, epochs=None,
+            total_steps=None, checkpointer=None, log=print,
+            preemption_guard=None) -> list:
+        """The JAX package's `fit`: `epochs` (default
+        `num_train_epochs`) over `train_loader`, dev evaluation after each
+        epoch and a best-F1 save (state and step snapshot) through
+        `checkpointer`. A checkpointer that holds step snapshots resumes
+        the latest one (params, moments and step) and continues at its
+        epoch and batch; each epoch's shuffle is its own (the loader's
+        `epoch` is set), so a resumed run sees the uninterrupted run's
+        batches. A `preemption_guard` that is set before a step snapshots
+        the last completed step and returns. Returns each epoch's mean
+        train loss."""
+        cfg = self.train_cfg
+        epochs = epochs or cfg.num_train_epochs
+        steps_per_epoch = len(train_loader)
+        total_steps = total_steps or steps_per_epoch * epochs
+        if self.optimizer is None:
+            self.init_state(total_steps)
+        start_epoch, skip_batches = 0, 0
+        if checkpointer is not None and checkpointer.manifest["steps"]:
+            tree, ck_step = checkpointer.resume()
+            self.state_from_checkpoint(tree)
+            del tree
+            start_epoch, skip_batches = divmod(ck_step, steps_per_epoch)
+            log(f"resumed from step {ck_step} "
+                f"(epoch {start_epoch}, batch {skip_batches})")
+        best_f1 = (checkpointer.manifest["best_metric"]
+                   if checkpointer is not None
+                   and checkpointer.manifest["best_metric"] is not None
+                   else -1.0)
+        history = []
+        for epoch in range(start_epoch, epochs):
+            t0 = time.time()
+            losses = []
+            train_loader.epoch = epoch
+            for i, batch in enumerate(train_loader):
+                if epoch == start_epoch and i < skip_batches:
+                    continue                  # trained before the resume
+                if preemption_guard is not None and \
+                        preemption_guard.requested:
+                    if checkpointer is not None:
+                        checkpointer.save(self.state_tree(), step=self.step)
+                    log(f"preempted: saved step {self.step}, exiting fit")
+                    return history
+                losses.append(self.train_step(batch, (epoch, i)).loss)
+            train_loss = (float(np.mean(np.asarray(losses, np.float32)))
+                          if losses else float("nan"))
+            msg = (f"epoch {epoch}: train_loss={train_loss:.4f} "
+                   f"({time.time() - t0:.1f}s)")
+            if dev_loader is not None:
+                result = self.evaluate(dev_loader)
+                msg += (f" dev_loss={result.loss:.4f} f1={result.f1:.4f} "
+                        f"p={result.precision:.4f} r={result.recall:.4f}")
+                if result.f1 > best_f1:
+                    best_f1 = result.f1
+                    if checkpointer is not None:
+                        checkpointer.save(self.state_tree(), step=self.step,
+                                          metric=result.f1)
+            log(msg)
+            history.append(train_loss)
+        return history
 
     def evaluate(self, loader) -> EvalResult:
         y_true_all, y_pred_all = [], []
@@ -178,3 +407,9 @@ class ICKATrainer:
                           report=report, per_class=per_class,
                           rows=rows, batches=batches,
                           seconds=time.perf_counter() - t0)
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)

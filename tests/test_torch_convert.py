@@ -23,14 +23,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_no_jax_in_the_port():
-    """Importing the evaluation entry point and its data plane, then every
-    module of icka_tpu_torch, pulls in no jax, flax, optax or icka_tpu, and
-    none of regex, msgpack or PIL, which the card's machine lacks. A fresh
-    interpreter: this process has jax loaded."""
+    """Importing the evaluation and training entry points, the optimizer
+    and the data plane, then every module of icka_tpu_torch, pulls in no
+    jax, flax, optax or icka_tpu, and none of regex, msgpack or PIL, which
+    the card's machine lacks. A fresh interpreter: this process has jax
+    loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for m in ('cli.evaluate', 'data.loader', 'data.features', "
-        "'data.tokenization', 'core.checkpoint', 'train.trainer'):\n"
+        "'data.tokenization', 'core.checkpoint', 'train.trainer', "
+        "'train.optimizer', 'cli.train'):\n"
         "    importlib.import_module('icka_tpu_torch.' + m)\n"
         "import icka_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages("

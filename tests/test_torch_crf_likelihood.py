@@ -6,6 +6,8 @@ the tiny `ICKAModel`'s dev-mode tags identical and each row's NLL within
 one fp32 step is 1.5e-5, and XLA's exp and log round differently from
 torch's."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -133,9 +135,13 @@ def test_train_mode_is_the_deterministic_token_mean_loss(flagship):
     tm, tbatch, labels, want = flagship
     with torch.no_grad():
         got = tm(tbatch, MASKS, OFFSET, mode="train",
-                 labels=torch.from_numpy(labels))
+                 labels=torch.from_numpy(labels), deterministic=True)
     np.testing.assert_allclose(got.numpy(), want["train"], atol=TOL,
                                rtol=RTOL)
+    # rematerialisation is not ported: training with remat=True raises
+    remat = dataclasses.replace(tm.cfg.last_encoder, remat=True)
     with pytest.raises(NotImplementedError):
-        tm(tbatch, MASKS, OFFSET, mode="train",
-           labels=torch.from_numpy(labels), deterministic=False)
+        ICKAModel(dataclasses.replace(tm.cfg, last_encoder=remat),
+                  device="cpu")(tbatch, MASKS, OFFSET, mode="train",
+                                labels=torch.from_numpy(labels),
+                                deterministic=True)

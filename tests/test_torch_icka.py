@@ -158,8 +158,10 @@ def test_server_validates_buckets_and_device(flagship):
     tm = flagship[2]
     with pytest.raises(ValueError):
         BucketedICKAServer(tm, buckets=(16,), device="cpu")
-    # dropout is not ported: training mode runs only deterministically
+    # rematerialisation is not ported: training with remat=True raises
+    remat = dataclasses.replace(tm.cfg.embedding, remat=True)
     with pytest.raises(NotImplementedError):
-        tm({}, MASKS, OFFSET, mode="train", deterministic=False)
+        ICKAModel(dataclasses.replace(tm.cfg, embedding=remat),
+                  device="cpu")({}, MASKS, OFFSET, mode="train")
     with pytest.raises(ValueError):
         tm({}, MASKS, OFFSET, mode="predict")

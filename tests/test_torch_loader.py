@@ -17,6 +17,7 @@ from icka_tpu.data.conll import read_mm_conll  # noqa: E402
 from icka_tpu.data.features import convert_examples  # noqa: E402
 from icka_tpu.data.loader import MNERLoader as JaxLoader  # noqa: E402
 from icka_tpu.data.synthetic import generate_dataset, tiny_tokenizer  # noqa: E402
+from icka_tpu_torch.core.config import TrainConfig  # noqa: E402
 from icka_tpu_torch.data import native  # noqa: E402
 from icka_tpu_torch.data.loader import MNERLoader  # noqa: E402
 
@@ -85,8 +86,11 @@ def test_batches_equal_the_jax_loaders(split, prefetch, cache, batch_size):
 
 def test_train_mode_is_not_ported_and_errors_reach_the_consumer(split):
     feats, images = split
+    # training batches are ported; the mesh that would shard them over a
+    # data axis is not
+    assert len(MNERLoader(feats, images, 2)) == 3
     with pytest.raises(NotImplementedError):
-        MNERLoader(feats, images, 2)
+        TrainConfig(data_axis=2)
     loader = MNERLoader(feats, images, 2, train=False, prefetch=2)
 
     def broken(rows):

@@ -549,3 +549,94 @@ def test_int8_static_text_modules_equal_cpu(cuda_device, dtype):
             want = fn(mod, x)
             got = fn(mod.to(cuda_device), x.to(cuda_device)).cpu()
         assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_k1_refuses_a_gradient_on_the_card(cuda_device):
+    """The kernel launches in the forward; autograd's backward through it
+    raises instead of taking the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(2, 24, 64, device=cuda_device, generator=gen,
+                           requires_grad=True) for _ in range(3))
+    bias = torch.zeros(2, 1, 1, 24, device=cuda_device)
+    before = tattn.fused_attention.launches
+    out = tattn.fused_attention(q, k, v, bias, 4)
+    assert tattn.fused_attention.launches == before + 1
+    with pytest.raises(RuntimeError, match="no backward"):
+        out.sum().backward()
+
+
+def test_tiny_train_steps_on_the_card_equal_the_cpus(cuda_device, tmp_path):
+    """Two fp32 train steps of the tiny flagship, TF32 off and dropout 0,
+    from the same weights and batches: the losses and gradient norms within
+    1e-5 and 1e-4 relative, the moments after the first step (lr 0 under
+    warmup) within 1e-4 in relative L2, and the second step's parameter
+    updates within 1e-3 in relative L2 (`chip_smoke.py` phase 8's bounds,
+    where the full-width step at depth two reads 4.4e-5)."""
+    import dataclasses
+
+    from icka_tpu_torch.core.config import EncoderConfig, ICKAConfig, \
+        TrainConfig
+    from icka_tpu_torch.data.clip_store import ClipFeatureStore
+    from icka_tpu_torch.data.conll import read_mm_conll
+    from icka_tpu_torch.data.features import convert_examples
+    from icka_tpu_torch.data.loader import MNERLoader
+    from icka_tpu_torch.data.synthetic import (generate_dataset,
+                                               tiny_tokenizer)
+    from icka_tpu_torch.train.trainer import ICKATrainer
+
+    ds = str(tmp_path)
+    generate_dataset(ds, n_train=8, n_valid=0, n_test=0, clip_dim=8,
+                     write_images=False)
+    tok = tiny_tokenizer(ds + "/tok")
+    feats = convert_examples(read_mm_conll(ds + "/train.txt"), tok, 24,
+                             ClipFeatureStore.from_split(ds, "train"), 8)
+    enc = dataclasses.replace(EncoderConfig.tiny(len(tok.vocab) + 8),
+                              hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    cfg = dataclasses.replace(ICKAConfig.tiny(), embedding=enc,
+                              last_encoder=enc, clip_dim=8,
+                              max_seq_length=24, region_dim=2048)
+    tcfg = TrainConfig(learning_rate=1e-3, train_batch_size=2,
+                       gradient_accumulation_steps=2,
+                       compute_dtype="float32")
+    batches = list(MNERLoader(feats, ds + "/images", 2, 2, train=True,
+                              decode_size=40, prefetch=0))
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu, card = (ICKATrainer(cfg, tcfg, feats.spec,
+                                 resnet_layers=(1, 1, 1, 1), device=d)
+                     for d in ("cpu", cuda_device))
+        for t in (cpu, card):
+            t.model.load_state_dict(cpu.model.state_dict())
+            t.backbone.load_state_dict(cpu.backbone.state_dict())
+            t.model.map_alignment.dropout = 0.0
+            t.model.map_vision.dropout = 0.0
+            t.init_state(4)
+        p0 = {n: p.detach().clone() for n, p in cpu.params().items()}
+
+        def rel_l2(pairs):
+            num = den = 0.0
+            for a, b in pairs:
+                a, b = a.detach().cpu().double(), b.detach().cpu().double()
+                num += float((a - b).square().sum())
+                den += float(b.square().sum())
+            return (num / den) ** 0.5
+
+        for i, batch in enumerate(batches):
+            want, got = (t.train_step(batch, (0, i)) for t in (cpu, card))
+            assert abs(got.loss - want.loss) <= 1e-5 * abs(want.loss)
+            assert abs(got.grad_norm - want.grad_norm) <= \
+                1e-4 * want.grad_norm
+            if i == 0:
+                assert rel_l2((getattr(card.opt_state, k)[n],
+                               getattr(cpu.opt_state, k)[n])
+                              for k in ("mu", "nu") for n in p0) <= 1e-4
+        cards = card.params()
+        assert rel_l2((cards[n].cpu() - p0[n], p - p0[n])
+                      for n, p in cpu.params().items()) <= 1e-3
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
