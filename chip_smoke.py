@@ -31,7 +31,7 @@ Phases; any failure exits non-zero:
      preprocess_images -> VisualBackbone -> BucketedICKAServer.predict,
      once with `use_pallas=True` (the kernel) and once with the plain
      attention core on the same weights, in fp32; then the kernel path
-     once in bf16;
+     once in bf16; `warmup` before the timed runs;
   4. serve the same requests with the int8-static visual half: phase 3's
      float ResNet-152 is calibrated in the dynamic int8 mode on the request
      images, quantised offline, and served with `fused_pallas=True` (K5 once
@@ -60,6 +60,26 @@ Phases; any failure exits non-zero:
      with batches of 8 (K1 48 times a batch, the loss finite, every row
      evaluated), then hold the first batch's fp32 emissions through K1 to
      the plain core's on the same checkpoint;
+  9. the gate_cl family (run before 8 and 7): K1 at BERT-base's 12 heads
+     of 64 against its plain version (bucketed 16, 24 and 128 with key
+     biases, packed 48 block-diagonal, fp32 and bf16); `GateCLConfig()`
+     at full width (BERT-base, `layer_num1` 1, region_dim 2048,
+     max_seq_length 128, random weights from `--seed`) behind phase 3's
+     ResNet-152 on phase 3's requests (bare sentences and images):
+     `BucketedGateCLServer` ("gate_cl", `masked_crs=True`, `warmup`
+     first) through K1 against the plain core in fp32 (tags >= 0.99,
+     first-batch emissions within 1e-3), then in bf16;
+     `PackedGateCLServer` in fp32 (tags >= 0.99 against the bucketed
+     server); "cl" and "ip" once each in bf16; `TokenClassifier` logits
+     through K1 against the plain core (1e-3); K1 12 times a batch
+     everywhere. After phase 8, `GateCLTrainer.fit` in bf16 (micro-batches
+     of 32 so the reference's negative_rate 16 swap runs, 2 epochs of 3
+     steps, dev evaluation and best-F1 save each epoch; losses finite and
+     falling, K1 0 in the steps and 12 a dev batch), a fresh trainer
+     resuming the first epoch's snapshot (next loss within 1e-4), one
+     step each of "cl" and "ip", one fp32 step at depth 2 card vs CPU
+     (loss 1e-5, gradient norm 1e-4, moments 1e-4); walls, device busy
+     and launches, step median, train pairs/s and peak memory printed;
   8. train (run before 7, whose K1 row carries its launches):
      `ICKATrainer.fit` at full width in bf16 over fp32 master weights on a
      synthetic corpus without image files, two epochs of three steps with
@@ -77,8 +97,9 @@ Phases; any failure exits non-zero:
      PyTorch library call for the same function where there is one, its
      bound and its recorded time before its redesign (comment lines only);
      K1's tilings in bf16 and in fp32; K1 and K2 in fp32 at K1's two
-     shapes; both at the first head width above 256; time the served
-     requests end to end.
+     shapes; both at the first head width above 256; K1 at the gate_cl
+     family's 12 heads (S=128 key bias, S=48 full bias, both types); time
+     the served requests end to end.
 
 The line before the last is the `{"kernels": [...]}` JSON object; the last
 line is `{"ok": true, "device": {...}}`. Needs CUDA; imports nothing of JAX.
@@ -110,7 +131,8 @@ from icka_tpu_torch.cli import evaluate as evaluate_cli
 from icka_tpu_torch.convert import (backbone_variables_from_state_dict,
                                     icka_variables_from_state_dict)
 from icka_tpu_torch.core.checkpoint import Checkpointer, restore_pytree
-from icka_tpu_torch.core.config import ICKAConfig, TrainConfig, to_json
+from icka_tpu_torch.core.config import (GateCLConfig, ICKAConfig,
+                                        TrainConfig, to_json)
 from icka_tpu_torch.core.device import strict_fp32
 from icka_tpu_torch.data import native, synthetic
 from icka_tpu_torch.data.clip_store import ClipFeatureStore
@@ -131,13 +153,18 @@ from icka_tpu_torch.models.convert import (calibration_amax,
                                            quantize_params_like,
                                            static_quantize_backbone,
                                            static_quantize_params_like)
+from icka_tpu_torch.models.gate_cl import GateCLModel
 from icka_tpu_torch.models.icka import ICKAModel
 from icka_tpu_torch.models.resnet import (Bottleneck, ConvBN, StemPoolS2D,
                                           VisualBackbone)
+from icka_tpu_torch.models.token_classifier import TokenClassifier
 from icka_tpu_torch.nn.quant import column_major, int8_matmul
-from icka_tpu_torch.serving.bucketed import (BucketedICKAServer,
+from icka_tpu_torch.serving.bucketed import (BucketedGateCLServer,
+                                             BucketedICKAServer,
                                              sample_tweet_lengths)
-from icka_tpu_torch.serving.packing import PackedICKAServer
+from icka_tpu_torch.serving.packing import (PackedGateCLServer,
+                                            PackedICKAServer)
+from icka_tpu_torch.train.gate_cl_trainer import GateCLTrainer
 from icka_tpu_torch.train.trainer import ICKATrainer
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
@@ -248,6 +275,14 @@ RESUME_REL_TOL = 1e-4
 TRAIN_CHECK_LAYERS = 2
 STEP_LOSS_RTOL, STEP_NORM_RTOL, MOMENT_RTOL, UPDATE_RTOL = \
     1e-5, 1e-4, 1e-4, 1e-3
+# phase 9, the gate_cl family (GateCLConfig(): BERT-base): K1 launches a
+# batch (one per self-attention layer); training in micro-batches of 32,
+# above the reference's negative_rate of 16, so the negative swap and the
+# relation loss run, 3 steps of 2 x 32 an epoch, dev 2 batches of 8, the
+# corpus's CLIP width (the family reads no CLIP feature)
+BERT_LAYERS_PER_BATCH = 12
+GC_TRAIN_BATCH, GC_TRAIN_ACCUM, GC_TRAIN_ROWS = 32, 2, 192
+GC_DEV_ROWS, GC_EVAL_BATCH, GC_CLIP_DIM = 16, 8, 16
 
 
 class SmokeFailure(RuntimeError):
@@ -832,6 +867,28 @@ def agreement(a, b):
     return same / sum(len(x) for x in a)
 
 
+def report_walls(name, run, card, n):
+    """Best of 3 walls of `run`, which serves `n` requests (it returns
+    `serve`'s result), and a device profile of one more run. Returns the
+    pairs/s of the best wall."""
+    best = min((run()[3] for _ in range(3)), key=sum)
+    print(f"#   {name}: {n / sum(best):.2f} pairs/s end to end, a smoke "
+          f"figure ({n} requests, best of 3: visual {best[0] * 1e3:.1f} ms "
+          f"+ predict {best[1] * 1e3:.1f} ms) on {card}")
+    try:
+        busy, rows, launches = device_profile(run)
+    except Exception as e:   # the profiler is a report, not a check
+        print(f"#   {name}: device profile not measured ({e!r})")
+        return n / sum(best)
+    print(f"#   {name}: device busy {busy * 1e3:.1f} ms of "
+          f"{sum(best) * 1e3:.1f} ms wall ({busy / sum(best):.3f}) in "
+          f"{launches} device kernel launches; top kernels by device time, "
+          f"then K1 (profiled run):")
+    for key, ms, calls in rows:
+        print(f"#     {ms:9.3f} ms {calls:6d}x {key[:90]}")
+    return n / sum(best)
+
+
 def phase_slice(args, card, dev, base, resnet_layers, tokenizer):
     print("# phase 3: full-width flagship serving (ICKAConfig(), ResNet-152)")
     strict_fp32()
@@ -922,24 +979,13 @@ def phase_slice(args, card, dev, base, resnet_layers, tokenizer):
 
     pairs_per_s = {}
     for name in ("kernel", "kernel_bf16"):
-        run = lambda: serve(servers[name], backbones[name], texts, images)
-        best = min((run()[3] for _ in range(3)), key=sum)
-        pairs_per_s[name] = len(texts) / sum(best)
-        print(f"#   {name}: {pairs_per_s[name]:.2f} pairs/s end to end "
-              f"({len(texts)} requests, max_batch {MAX_BATCH}, best of 3: "
-              f"visual {best[0] * 1e3:.1f} ms + predict {best[1] * 1e3:.1f} "
-              f"ms) on {card}")
-        try:
-            busy, rows, n = device_profile(run)
-        except Exception as e:   # the profiler is a report, not a check
-            print(f"#   {name}: device profile not measured ({e!r})")
-            continue
-        print(f"#   {name}: device busy {busy * 1e3:.1f} ms of "
-              f"{sum(best) * 1e3:.1f} ms wall ({busy / sum(best):.3f}) in "
-              f"{n} device kernel launches; top kernels by device time, "
-              f"then K1 (profiled run):")
-        for key, ms, calls in rows:
-            print(f"#     {ms:9.3f} ms {calls:6d}x {key[:90]}")
+        t0 = time.perf_counter()
+        servers[name].warmup()
+        print(f"#   {name}: warmup of buckets {servers[name].buckets} in "
+              f"{time.perf_counter() - t0:.2f} s")
+        pairs_per_s[name] = report_walls(
+            name, lambda: serve(servers[name], backbones[name], texts,
+                                images), card, len(texts))
     ctx = dict(texts=texts, images=images, backbone=backbone, spec=spec,
                cfgs=cfgs, weights=model.state_dict(),
                backbone_bf16=backbone16, server_bf16=servers["kernel_bf16"],
@@ -1016,23 +1062,8 @@ def phase_packed(args, card, dev, ctx):
             ("packed fp32", packed["kernel"], ctx["backbone"]),
             ("bucketed fp32 (masked_lstm)", bucketed, ctx["backbone"]),
             ("packed bf16", packed["kernel_bf16"], ctx["backbone_bf16"])):
-        run = lambda: serve(server, backbone, texts, images)
-        best = min((run()[3] for _ in range(3)), key=sum)
-        print(f"#   {name}: {len(texts) / sum(best):.2f} pairs/s end to end, "
-              f"a smoke figure ({len(texts)} requests, best of 3: visual "
-              f"{best[0] * 1e3:.1f} ms + predict {best[1] * 1e3:.1f} ms) on "
-              f"{card}")
-        try:
-            busy, rows, n = device_profile(run)
-        except Exception as e:   # the profiler is a report, not a check
-            print(f"#   {name}: device profile not measured ({e!r})")
-            continue
-        print(f"#   {name}: device busy {busy * 1e3:.1f} ms of "
-              f"{sum(best) * 1e3:.1f} ms wall ({busy / sum(best):.3f}) in "
-              f"{n} device kernel launches; top kernels by device time, "
-              f"then K1 (profiled run):")
-        for key, ms, calls in rows:
-            print(f"#     {ms:9.3f} ms {calls:6d}x {key[:90]}")
+        report_walls(name, lambda: serve(server, backbone, texts, images),
+                     card, len(texts))
     return runs["kernel"]["counts"]
 
 
@@ -1222,47 +1253,20 @@ def rel_l2(pairs) -> float:
     return math.sqrt(num / max(den, 1e-300))
 
 
-def phase_train(args, card, dev, base, layers):
-    """The training entry point, `ICKATrainer.fit`, at full width: bf16
-    over fp32 master weights, `use_pallas` for the dev evaluation (training
-    runs dropout, so attention takes the plain core), the frozen backbone
-    (BatchNorm statistics calibrated on the corpus's images), TRAIN_EPOCHS
-    epochs with accumulation, a dev evaluation and a best-F1 save each
-    epoch. Then a fresh trainer resumes the first epoch's snapshot and runs
-    the next step; then one fp32 step on the card against the CPU at depth
-    TRAIN_CHECK_LAYERS. Returns every kernel's launch count over `fit`."""
-    cfg = dataclasses.replace(
-        base, embedding=dataclasses.replace(base.embedding, use_pallas=True),
-        last_encoder=dataclasses.replace(base.last_encoder, use_pallas=True))
-    print(f"# phase 8: train: ICKATrainer.fit at full width (bf16 over fp32 "
-          f"master weights, {TRAIN_EPOCHS} epochs of {TRAIN_ROWS} rows in "
-          f"steps of {TRAIN_ACCUM} x {TRAIN_BATCH}, dev {DEV_ROWS} rows, "
-          f"lr {TRAIN_LR}, dropout on)")
-    root = WORK_DIR / "train"
-    shutil.rmtree(root, ignore_errors=True)
-    feats = train_corpus(args, cfg, root / "ds")
-    spec, images = feats["train"].spec, str(root / "ds" / "images")
-    tcfg = TrainConfig(learning_rate=TRAIN_LR, train_batch_size=TRAIN_BATCH,
-                       eval_batch_size=TRAIN_BATCH,
-                       gradient_accumulation_steps=TRAIN_ACCUM,
-                       seed=args.seed, compute_dtype="bfloat16")
-
-    def loader(split, prefetch=2):
-        if split == "train":
-            return MNERLoader(feats["train"], images, TRAIN_BATCH,
-                              TRAIN_ACCUM, train=True,
-                              decode_size=TRAIN_DECODE, seed=args.seed,
-                              prefetch=prefetch)
-        return MNERLoader(feats["valid"], images, TRAIN_BATCH, train=False,
-                          decode_size=TRAIN_DECODE, prefetch=prefetch)
-
-    def train_batches(epoch, n):
-        data = loader("train", prefetch=0)
-        data.epoch = epoch
-        return [b for _, b in zip(range(n), data)]
-
+def fit_and_resume(make_trainer, loader, train_batches, out, card, dev,
+                   layers_per_batch):
+    """Phases 8 and 9: `fit` of a fresh trainer from `make_trainer()` for
+    TRAIN_EPOCHS epochs over `loader("train")` with a dev evaluation on
+    `loader("valid")` and best-F1 saves into `out`, its frozen backbone's
+    BatchNorm statistics calibrated on the first batch's images; every loss
+    finite, the last epoch's mean below the first's, K1 0 times in the
+    train steps and `layers_per_batch` times a dev batch. Then a fresh
+    trainer resumes the first epoch's snapshot and runs the next step (its
+    loss within RESUME_REL_TOL of the run's), and one more step is
+    profiled. Returns (every kernel's launch count over `fit`, the resumed
+    trainer, the first train batch)."""
     t0 = time.perf_counter()
-    trainer = ICKATrainer(cfg, tcfg, spec, resnet_layers=layers, device=dev)
+    trainer = make_trainer()
     if dev.type == "cuda":           # the peak from here: the model on
         torch.cuda.reset_peak_memory_stats(dev)
     first = train_batches(0, 1)[0]
@@ -1281,7 +1285,7 @@ def phase_train(args, card, dev, base, layers):
         return record
     trainer.train_step = counted_step
     train_loader, dev_loader = loader("train"), loader("valid")
-    ck = Checkpointer(str(root / "out"))
+    ck = Checkpointer(str(out))
     lines = []
     zero_counts()
     t0 = time.perf_counter()
@@ -1301,11 +1305,12 @@ def phase_train(args, card, dev, base, layers):
             else 0)
     step_s = float(np.median([r.seconds for r in records[1:]]))
     update_s = float(np.median([r.update_seconds for r in records[1:]]))
-    pairs = TRAIN_BATCH * TRAIN_ACCUM
+    tcfg = trainer.train_cfg
+    pairs = tcfg.train_batch_size * tcfg.gradient_accumulation_steps
     k1 = counts["fused_attention"]
-    print(f"#   {n_params / 1e9:.4f} B parameters (model and ResNet "
-          f"{layers} built in {build_s:.1f} s); optimizer state "
-          f"{opt_bytes / 1e9:.3f} GB (mu and nu fp32); peak allocated "
+    print(f"#   {n_params / 1e6:.1f} M parameters (model and ResNet built "
+          f"in {build_s:.1f} s); optimizer "
+          f"state {opt_bytes / 1e9:.3f} GB (mu and nu fp32); peak allocated "
           f"{peak / 1e9:.3f} GB; fit {fit_s:.1f} s; on {card}")
     print(f"#   {len(records)} steps: losses "
           f"{[round(r.loss, 4) for r in records]}, grad norms "
@@ -1319,23 +1324,23 @@ def phase_train(args, card, dev, base, layers):
           f"a train step was not finite: {records}")
     check(history[-1] < history[0], f"train loss did not fall: {history}")
     check(sum(steps_k1) == 0, f"K1 launched in train steps: {steps_k1}")
-    if LAYERS_PER_BATCH:
-        want = LAYERS_PER_BATCH * len(dev_loader) * TRAIN_EPOCHS
+    if layers_per_batch:
+        want = layers_per_batch * len(dev_loader) * TRAIN_EPOCHS
         check(k1 == want, f"K1 launched {k1} times in fit, want {want}")
     steps_per_epoch = len(train_loader)
     snap = steps_per_epoch               # the first epoch's best-F1 save
     check(ck.manifest["best_step"] is not None, "no best-F1 checkpoint")
     check(snap in ck.manifest["steps"], f"no snapshot of step {snap}: "
                                         f"{ck.manifest}")
-    snap_path = root / "out" / f"state_step{snap}.msgpack"
-    check(snap_path.exists() and (root / "out" / "state_best.msgpack")
-          .exists(), "checkpoint files missing")
+    snap_path = out / f"state_step{snap}.msgpack"
+    check(snap_path.exists() and (out / "state_best.msgpack").exists(),
+          "checkpoint files missing")
     want_loss = records[snap].loss
     del trainer, run_step
     torch.cuda.empty_cache()
 
     # resume: a fresh trainer from the snapshot, the next step of the run
-    fresh = ICKATrainer(cfg, tcfg, spec, resnet_layers=layers, device=dev)
+    fresh = make_trainer()
     fresh.init_state(steps_per_epoch * TRAIN_EPOCHS)
     t0 = time.perf_counter()
     fresh.state_from_checkpoint(restore_pytree(str(snap_path)))
@@ -1361,6 +1366,60 @@ def phase_train(args, card, dev, base, layers):
             print(f"#     {ms:9.3f} ms {calls:6d}x {key[:90]}")
     except Exception as e:       # the profiler is a report, not a check
         print(f"#   train step device profile not measured ({e!r})")
+    shutil.rmtree(out)
+    return counts, fresh, first
+
+
+def train_loaders(feats, images, batch, accum, eval_batch, seed):
+    """`loader(split, prefetch)` over the train or dev features, and
+    `train_batches(epoch, n)`, the train loader's first n batches of an
+    epoch."""
+    def loader(split, prefetch=2):
+        if split == "train":
+            return MNERLoader(feats["train"], images, batch, accum,
+                              train=True, decode_size=TRAIN_DECODE,
+                              seed=seed, prefetch=prefetch)
+        return MNERLoader(feats["valid"], images, eval_batch, train=False,
+                          decode_size=TRAIN_DECODE, prefetch=prefetch)
+
+    def train_batches(epoch, n):
+        data = loader("train", prefetch=0)
+        data.epoch = epoch
+        return [b for _, b in zip(range(n), data)]
+    return loader, train_batches
+
+
+def phase_train(args, card, dev, base, layers):
+    """The training entry point, `ICKATrainer.fit`, at full width: bf16
+    over fp32 master weights, `use_pallas` for the dev evaluation (training
+    runs dropout, so attention takes the plain core), the frozen backbone,
+    TRAIN_EPOCHS epochs with accumulation, a dev evaluation and a best-F1
+    save each epoch, the resumed snapshot (`fit_and_resume`); bf16 against
+    fp32 dev tags on the trained weights; two fp32 steps on the card
+    against the CPU at depth TRAIN_CHECK_LAYERS. Returns every kernel's
+    launch count over `fit`."""
+    cfg = dataclasses.replace(
+        base, embedding=dataclasses.replace(base.embedding, use_pallas=True),
+        last_encoder=dataclasses.replace(base.last_encoder, use_pallas=True))
+    print(f"# phase 8: train: ICKATrainer.fit at full width (bf16 over fp32 "
+          f"master weights, {TRAIN_EPOCHS} epochs of {TRAIN_ROWS} rows in "
+          f"steps of {TRAIN_ACCUM} x {TRAIN_BATCH}, dev {DEV_ROWS} rows, "
+          f"lr {TRAIN_LR}, dropout on)")
+    root = WORK_DIR / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    feats = train_corpus(args, cfg, root / "ds")
+    spec = feats["train"].spec
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, train_batch_size=TRAIN_BATCH,
+                       eval_batch_size=TRAIN_BATCH,
+                       gradient_accumulation_steps=TRAIN_ACCUM,
+                       seed=args.seed, compute_dtype="bfloat16")
+    loader, train_batches = train_loaders(
+        feats, str(root / "ds" / "images"), TRAIN_BATCH, TRAIN_ACCUM,
+        TRAIN_BATCH, args.seed)
+    counts, fresh, _ = fit_and_resume(
+        lambda: ICKATrainer(cfg, tcfg, spec, resnet_layers=layers,
+                            device=dev),
+        loader, train_batches, root / "out", card, dev, LAYERS_PER_BATCH)
     # bf16 against fp32 tags on the dev split, the trained weights
     model32 = ICKAModel(cfg, device=dev).eval()
     model32.load_state_dict(fresh.model.state_dict())
@@ -1381,36 +1440,43 @@ def phase_train(args, card, dev, base, layers):
           f"than O: {entities}")
     del fresh, model32
     torch.cuda.empty_cache()
-    shutil.rmtree(root / "out")
-    phase_train_step_vs_cpu(card, base, tcfg, spec, train_batches, dev)
-    shutil.rmtree(root)
-    return counts
 
-
-def phase_train_step_vs_cpu(card, base, tcfg, spec, train_batches, dev):
-    """Two fp32 train steps at depth TRAIN_CHECK_LAYERS on the card and on
-    the CPU from the same weights and batches (see UPDATE_RTOL)."""
-    strict_fp32()
     enc = {k: dataclasses.replace(
         getattr(base, k), num_hidden_layers=TRAIN_CHECK_LAYERS,
         hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
         for k in ("embedding", "last_encoder")}
-    cfg = dataclasses.replace(base, layer_num1=TRAIN_CHECK_LAYERS, **enc)
-    tcfg = dataclasses.replace(tcfg, compute_dtype="float32")
+    shallow = dataclasses.replace(base, layer_num1=TRAIN_CHECK_LAYERS, **enc)
+    tcfg32 = dataclasses.replace(tcfg, compute_dtype="float32")
+
+    def shallow_trainer(d):
+        t = ICKATrainer(shallow, tcfg32, spec, resnet_layers=(1, 1, 1, 1),
+                        device=d)
+        t.model.map_alignment.dropout = t.model.map_vision.dropout = 0.0
+        return t
+    phase_train_step_vs_cpu(card, shallow_trainer, train_batches(0, 2), dev)
+    shutil.rmtree(root)
+    return counts
+
+
+def phase_train_step_vs_cpu(card, make_trainer, batches, dev):
+    """fp32 train steps, one per batch, on the card and on the CPU from the
+    same weights and batches: `make_trainer(device)` gives a trainer at
+    depth TRAIN_CHECK_LAYERS in fp32 with dropout 0. The loss and the
+    gradient norm of every step, the moments after the first (lr 0 under
+    warmup) and the updates of a second (see UPDATE_RTOL)."""
+    strict_fp32()
     cpu = torch.device("cpu")
-    trainers = {d: ICKATrainer(cfg, tcfg, spec, resnet_layers=(1, 1, 1, 1),
-                               device=d) for d in (cpu, dev)}
-    batches = train_batches(0, 2)
+    trainers = {d: make_trainer(d) for d in (cpu, dev)}
     ref = trainers[cpu]
     calibrate_batch_stats(ref.backbone, preprocess_images(
         batches[0]["images"][0], 224, cpu))
     for t in trainers.values():
         t.model.load_state_dict(ref.model.state_dict())
         t.backbone.load_state_dict(ref.backbone.state_dict())
-        t.model.map_alignment.dropout = t.model.map_vision.dropout = 0.0
         t.init_state(4)
     p0 = {n: p.detach().clone() for n, p in ref.params().items()}
     n_params = sum(p.numel() for p in p0.values())
+    what = type(ref.model).__name__
     for i, batch in enumerate(batches):
         t0 = time.perf_counter()
         rec = {d: t.train_step(batch, (0, i)) for d, t in trainers.items()}
@@ -1418,7 +1484,7 @@ def phase_train_step_vs_cpu(card, base, tcfg, spec, train_batches, dev):
         loss_rel = abs(rec[dev].loss - rec[cpu].loss) / abs(rec[cpu].loss)
         norm_rel = abs(rec[dev].grad_norm - rec[cpu].grad_norm) / abs(
             rec[cpu].grad_norm)
-        msg = (f"#   fp32 step {i} at depth {TRAIN_CHECK_LAYERS} "
+        msg = (f"#   {what} fp32 step {i} at depth {TRAIN_CHECK_LAYERS} "
                f"({n_params / 1e6:.1f} M params), card vs CPU: loss "
                f"{rec[dev].loss:.6f} vs {rec[cpu].loss:.6f} (relative "
                f"{loss_rel:.2e}), grad norm {rec[dev].grad_norm:.6f} vs "
@@ -1440,6 +1506,295 @@ def phase_train_step_vs_cpu(card, base, tcfg, spec, train_batches, dev):
             check(update <= UPDATE_RTOL, f"updates differ: {update}")
         print(msg + f" ({time.perf_counter() - t0:.1f} s for both, the "
                     f"card {card})")
+
+
+def gate_cl_cfg(base, variant="gate_cl", pallas=True, **kw):
+    """`base` as `variant`, its encoder's self-attention on K1 (`pallas`)
+    or on the plain core."""
+    enc = dataclasses.replace(base.encoder, use_pallas=pallas)
+    return dataclasses.replace(base, encoder=enc, variant=variant, **kw)
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+    return total
+
+
+def phase_k1_bert_heads(gen):
+    """K1 against its plain version at the gate_cl family's shapes: 12
+    heads of 64, bucketed lengths 16 and 24 (below K1's (64, 32) tile) and
+    128 with key biases, packed rows of 48 with a block-diagonal full
+    bias, in fp32 and bf16, to phase 2's tolerances."""
+    print("# phase 9: K1 fused_attention vs attention_reference at "
+          "BERT-base's 12 heads of 64 (B=8): bucketed 16, 24, 128 (key "
+          "bias), packed 48 (block-diagonal)")
+    for dtype in (torch.float32, torch.bfloat16):
+        for S, kinds in ((16, BIAS_KINDS), (24, ("B11Sk",)),
+                         (128, BIAS_KINDS), (48, ("packed",))):
+            for kind in kinds:
+                q, k, v, bias = attention_inputs(8, S, S, dtype, kind, gen,
+                                                 N=12)
+                before = fused_attention.launches
+                out = fused_attention(q, k, v, bias, 12)
+                torch.cuda.synchronize()
+                check(fused_attention.launches == before + 1
+                      and out.shape == q.shape and out.dtype == dtype,
+                      f"K1 12 heads: {out.dtype} {tuple(out.shape)}")
+                err, share = attention_close(
+                    out, attention_reference(q, k, v, bias, 12),
+                    f"K1 12x64 {dtype} S={S} {kind}")
+                print(f"#   {str(dtype)[6:]:8s} Sq=Sk={S:3d} bias={kind:6s} "
+                      f"max_abs_err={err:.3e} ({share:.2f} of its bound)")
+
+
+def phase_gate_cl_serving(args, card, dev, base, ctx):
+    """The gate_cl family served at full width behind phase 3's ResNet-152
+    on phase 3's requests (their bare sentences and images), random weights
+    from `--seed`: `BucketedGateCLServer` ("gate_cl", `masked_crs=True`)
+    through K1 against the plain core in fp32, then in bf16;
+    `PackedGateCLServer` in fp32; the "cl" and "ip" variants once each in
+    bf16; `TokenClassifier` at BERT-base width through K1 against the plain
+    core. Returns every kernel's launch count over these runs, each set to
+    0 just before it."""
+    print(f"# phase 9: the gate_cl family at full width (GateCLConfig(): "
+          f"BERT-base {base.encoder.num_hidden_layers} x "
+          f"{base.encoder.hidden_size}, layer_num1 {base.layer_num1}, "
+          f"region_dim {base.region_dim}, max_seq_length "
+          f"{base.max_seq_length}) behind phase 3's ResNet-152, "
+          f"max_batch {MAX_BATCH}")
+    strict_fp32()
+    texts = [{"input_ids": t["ori_input_ids"]} for t in ctx["texts"]]
+    images = ctx["images"]
+    cfg = gate_cl_cfg(base, masked_crs=True)
+    t0 = time.perf_counter()
+    model = GateCLModel(cfg, device=dev, seed=args.seed).eval()
+    plain = GateCLModel(gate_cl_cfg(base, pallas=False, masked_crs=True),
+                        device=dev, seed=args.seed).eval()
+    plain.load_state_dict(model.state_dict(), assign=True)
+    model16 = GateCLModel(cfg, dtype=torch.bfloat16, device=dev,
+                          seed=args.seed).eval()
+    model16.load_state_dict(model.state_dict(), assign=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"#   built GateCLModel ({n_params / 1e6:.1f} M params, "
+          f"crs_classifier {tuple(model.crs_classifier.weight.shape)}) in "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+    servers = {name: BucketedGateCLServer(m, max_batch=MAX_BATCH, device=dev)
+               for name, m in (("kernel", model), ("plain", plain),
+                               ("kernel_bf16", model16))}
+    backbones = {"kernel": ctx["backbone"], "plain": ctx["backbone"],
+                 "kernel_bf16": ctx["backbone_bf16"]}
+    for name in ("kernel", "kernel_bf16"):
+        t0 = time.perf_counter()
+        servers[name].warmup()
+        print(f"#   {name}: warmup of buckets {servers[name].buckets} in "
+              f"{time.perf_counter() - t0:.2f} s")
+    total, runs = {}, {}
+
+    def run_counted(name, server, backbone):
+        zero_counts()
+        tags, stats, examples, _ = serve(server, backbone, texts, images)
+        counts = read_counts()
+        add_counts(total, counts)
+        batches = (stats.batches if hasattr(stats, "batches")
+                   else sum(stats.batches_per_bucket.values()))
+        runs[name] = dict(tags=tags, stats=stats, examples=examples,
+                          launches=counts["fused_attention"],
+                          batches=batches)
+        print(f"#   {name}: {stats}, K1 launches "
+              f"{counts['fused_attention']}")
+        for t, tx in zip(tags, texts):
+            check(t is not None
+                  and len(t) == min(len(tx["input_ids"]),
+                                    base.max_seq_length)
+                  and t.min() >= 0 and t.max() < base.num_labels,
+                  f"gate_cl {name}: bad tags {t}")
+        if name != "plain":
+            check(runs[name]["launches"] == BERT_LAYERS_PER_BATCH * batches,
+                  f"gate_cl {name}: K1 launched {runs[name]['launches']} "
+                  f"times for {batches} batches")
+
+    for name in ("kernel", "plain", "kernel_bf16"):
+        run_counted(name, servers[name], backbones[name])
+    check(runs["plain"]["launches"] == 0, "gate_cl plain path launched K1")
+    with torch.inference_mode():
+        _, _, _, batch = next(servers["kernel"].batches(
+            runs["kernel"]["examples"]))
+        em_k, em_p = (m(**batch, return_emissions=True)
+                      for m in (model, plain))
+    check(bool(torch.isfinite(em_k).all()), "gate_cl: non-finite emissions")
+    em_err = (em_k - em_p).abs().max().item()
+    agree = agreement(runs["kernel"]["tags"], runs["plain"]["tags"])
+    agree16 = agreement(runs["kernel_bf16"]["tags"], runs["kernel"]["tags"])
+    print(f"#   fp32 first-batch emissions kernel vs plain: max_abs_err "
+          f"{em_err:.3e} (tol {EMISSIONS_TOL:.0e}); tags kernel vs plain "
+          f"{agree:.6f}, bf16 vs fp32 {agree16:.6f} (random weights)")
+    check(em_err <= EMISSIONS_TOL, f"gate_cl emissions differ by {em_err}")
+    check(agree >= 0.99, f"gate_cl tag agreement {agree} < 0.99")
+
+    packed = PackedGateCLServer(model, tiers=PACKED_TIERS,
+                                max_batch=MAX_BATCH, device=dev)
+    t0 = time.perf_counter()
+    packed.warmup()
+    print(f"#   packed: warmup of tiers {PACKED_TIERS} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    run_counted("packed", packed, ctx["backbone"])
+    agree_b = agreement(runs["packed"]["tags"], runs["kernel"]["tags"])
+    print(f"#   packed vs bucketed tags (fp32, K1): {agree_b:.6f}")
+    check(agree_b >= 0.99, f"gate_cl packed vs bucketed {agree_b} < 0.99")
+
+    for variant in ("cl", "ip"):
+        m = GateCLModel(gate_cl_cfg(base, variant), dtype=torch.bfloat16,
+                        device=dev, seed=args.seed).eval()
+        run_counted(f"{variant} bf16",
+                    BucketedGateCLServer(m, max_batch=MAX_BATCH, device=dev),
+                    ctx["backbone_bf16"])
+        del m
+
+    heads = {p: TokenClassifier(dataclasses.replace(base.encoder,
+                                                    use_pallas=p),
+                                base.num_labels, device=dev,
+                                seed=args.seed).eval() for p in (True, False)}
+    heads[False].load_state_dict(heads[True].state_dict(), assign=True)
+    args_tc = (batch["input_ids"], batch["input_mask"], batch["segment_ids"])
+    with torch.inference_mode():
+        zero_counts()
+        logits = heads[True](*args_tc)
+        sync(dev)
+        counts = read_counts()
+        add_counts(total, counts)
+        want = heads[False](*args_tc)
+    tc_err = (logits - want).abs().max().item()
+    print(f"#   TokenClassifier (BERT-base, "
+          f"{sum(p.numel() for p in heads[True].parameters()) / 1e6:.1f} M "
+          f"params) on the first batch {tuple(args_tc[0].shape)}: fp32 "
+          f"logits K1 vs plain core max_abs_err {tc_err:.3e} (tol "
+          f"{EMISSIONS_TOL:.0e}), K1 launches {counts['fused_attention']}")
+    check(tc_err <= EMISSIONS_TOL, f"TokenClassifier logits differ by "
+                                   f"{tc_err}")
+    check(counts["fused_attention"] == BERT_LAYERS_PER_BATCH,
+          f"TokenClassifier launched K1 {counts['fused_attention']} times")
+    del heads
+
+    for name, server, backbone in (
+            ("gate_cl bucketed fp32", servers["kernel"], ctx["backbone"]),
+            ("gate_cl bucketed bf16", servers["kernel_bf16"],
+             ctx["backbone_bf16"]),
+            ("gate_cl packed fp32", packed, ctx["backbone"])):
+        report_walls(name, lambda: serve(server, backbone, texts, images),
+                     card, len(texts))
+    return total
+
+
+def phase_gate_cl_train(args, card, dev, base, layers):
+    """The gate_cl family's training entry point, `GateCLTrainer.fit`, at
+    full width (`fit_and_resume`): bf16 over fp32 master weights, the
+    reference's negative_rate 16 under micro-batches of GC_TRAIN_BATCH (so
+    the swap and the relation loss run), dropout on (the train steps keep
+    off K1), K1 in the dev evaluation, a best-F1 save each epoch, the
+    resumed snapshot. Then one train step each of "cl" and "ip", and one
+    fp32 step at depth TRAIN_CHECK_LAYERS on the card against the CPU (its
+    loss, gradient norm and moments; the update is phase 8's to hold).
+    Returns every kernel's launch count over `fit`."""
+    cfg = gate_cl_cfg(base)
+    print(f"# phase 9: train: GateCLTrainer.fit at full width (bf16 over "
+          f"fp32 master weights, {TRAIN_EPOCHS} epochs of {GC_TRAIN_ROWS} "
+          f"rows in steps of {GC_TRAIN_ACCUM} x {GC_TRAIN_BATCH}, "
+          f"negative_rate {cfg.negative_rate}, dev {GC_DEV_ROWS} rows, lr "
+          f"{TRAIN_LR}, dropout on)")
+    root = WORK_DIR / "gate_cl_train"
+    shutil.rmtree(root, ignore_errors=True)
+    ds = root / "ds"
+    generate_dataset(str(ds), n_train=GC_TRAIN_ROWS, n_valid=GC_DEV_ROWS,
+                     n_test=0, clip_dim=GC_CLIP_DIM, seed=args.seed,
+                     write_images=False)
+    tokenizer = tiny_tokenizer(str(ds / "tokenizer"))
+    feats = {split: convert_examples(
+        read_mm_conll(str(ds / f"{split}.txt")), tokenizer,
+        cfg.max_seq_length, ClipFeatureStore.from_split(str(ds), split),
+        GC_CLIP_DIM) for split in ("train", "valid")}
+    tcfg = TrainConfig(learning_rate=TRAIN_LR,
+                       train_batch_size=GC_TRAIN_BATCH,
+                       eval_batch_size=GC_EVAL_BATCH,
+                       gradient_accumulation_steps=GC_TRAIN_ACCUM,
+                       seed=args.seed, compute_dtype="bfloat16")
+    loader, train_batches = train_loaders(
+        feats, str(ds / "images"), GC_TRAIN_BATCH, GC_TRAIN_ACCUM,
+        GC_EVAL_BATCH, args.seed)
+    counts, fresh, first = fit_and_resume(
+        lambda: GateCLTrainer(cfg, tcfg, resnet_layers=layers, device=dev),
+        loader, train_batches, root / "out", card, dev,
+        BERT_LAYERS_PER_BATCH)
+    backbone = fresh.backbone.state_dict()
+    del fresh
+    torch.cuda.empty_cache()
+    for variant in ("cl", "ip"):
+        tr = GateCLTrainer(gate_cl_cfg(base, variant), tcfg,
+                           resnet_layers=layers, device=dev)
+        tr.backbone.load_state_dict(backbone)
+        tr.init_state(4)
+        rec = tr.train_step(first, (0, 0))
+        print(f"#   {variant}: one train step, loss {rec.loss:.4f}, grad "
+              f"norm {rec.grad_norm}")
+        check(rec.applied and math.isfinite(rec.loss),
+              f"{variant} train step not finite: {rec}")
+        del tr
+        torch.cuda.empty_cache()
+
+    # the depth-2 check runs self-attention on the plain core: with
+    # dropout 0 the kernel would take it, and K1 refuses a gradient
+    enc = dataclasses.replace(base.encoder,
+                              num_hidden_layers=TRAIN_CHECK_LAYERS,
+                              hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    shallow = gate_cl_cfg(dataclasses.replace(base, encoder=enc),
+                          pallas=False)
+    tcfg32 = dataclasses.replace(tcfg, compute_dtype="float32")
+    phase_train_step_vs_cpu(
+        card, lambda d: GateCLTrainer(shallow, tcfg32,
+                                      resnet_layers=(1, 1, 1, 1), device=d),
+        [first], dev)
+    shutil.rmtree(root)
+    return counts
+
+
+def phase_bert_times(gen, row):
+    """K1 at BERT-base's heads (12 x 64), B=128, at the longest bucket
+    (S=128, key bias) and the short packed tier (S=48, block-diagonal full
+    bias), bf16 and fp32, beside its plain version, SDPA (TF32 off in
+    fp32) and its bound. Adds `bert_*` keys to K1's row."""
+    B, N = 128, 12
+    print(f"# phase 7: K1 at the gate_cl family's shapes, B={B}, {N} heads "
+          f"of 64")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dtype in (torch.bfloat16, torch.float32):
+        for S, kind in ((128, "B11Sk"), (48, "packed")):
+            q, k, v, bias = attention_inputs(B, S, S, dtype, kind, gen, N=N)
+            if kind == "packed":
+                bias = bias.contiguous()  # one mask per row, as the model's
+            out = fused_attention(q, k, v, bias, N)
+            torch.cuda.synchronize()
+            err, _ = attention_close(out, attention_reference(
+                q, k, v, bias, N), f"K1 12x64 {dtype} S={S} at B={B}")
+            del out
+            ms = cuda_time_ms(lambda: fused_attention(q, k, v, bias, N))
+            plain_ms = cuda_time_ms(lambda: attention_reference(
+                q, k, v, bias, N), iters=10, warmup=2)
+            library_ms = sdpa_ms(q, k, v, bias, N, 50)
+            bound_ms, bound_by, byts, flops = attention_bound(q, k, bias, N)
+            tag = f"bert_{str(dtype)[6:]}_s{S}"
+            row.update({f"{tag}_{key}": val for key, val in (
+                ("shape", f"B={B} Sq=Sk={S} {N}x64 {str(dtype)[6:]} "
+                          f"bias={kind}"),
+                ("max_abs_err", err), ("ms", ms), ("plain_ms", plain_ms),
+                ("bound_ms", bound_ms), ("bound_by", bound_by),
+                ("library_ms", library_ms))})
+            print(f"#   {str(dtype)[6:]} Sq=Sk={S} bias={kind}: max_abs_err "
+                  f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"SDPA {library_ms:.4f} ms ({ms / library_ms:.2f}x), bound "
+                  f"{bound_ms:.4f} ms ({ms / bound_ms:.1f}x; {bound_by}: "
+                  f"{byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            del q, k, v, bias
 
 
 def cosine(a, b):
@@ -1952,7 +2307,9 @@ def k1_tiling_ms(q, k, v, bias, N, iters):
 
 
 def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
-                int8_static_launches, train_launches):
+                int8_static_launches, train_launches, gate_cl_launches):
+    """K1's row: `launches` counts phase 3 and phase 9 (the gate_cl family),
+    the other paths' counts beside it."""
     B, S, N, hd, dtype = 128, 150, 16, 64, torch.bfloat16
     print(f"# phase 7: K1 at B={B} Sq=Sk={S} {N}x{hd} bf16, key-mask bias "
           f"(the tensor-core body at {K1_TILES}; the prompted encoder's "
@@ -1970,7 +2327,10 @@ def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
     tilings = k1_tiling_ms(q, k, v, bias, N, 50)
     row = {"name": "fused_attention", "route": "cuda", "source": K2_SOURCE,
            "replaces": "icka_tpu/kernels/attention.py:87",
-           "launches": launches, "packed_launches": packed_launches,
+           "launches": launches + gate_cl_launches,
+           "flagship_launches": launches,
+           "gate_cl_launches": gate_cl_launches,
+           "packed_launches": packed_launches,
            "eval_launches": eval_launches,
            "int8_static_launches": int8_static_launches,
            "train_launches": train_launches,
@@ -1988,6 +2348,7 @@ def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
           + " ms")
     rows = [row, phase_blockwise_times(gen, row, k2_launches)]
     phase_fp32_times(gen, *rows)
+    phase_bert_times(gen, row)
     phase_wide_times(gen)
     return rows
 
@@ -2236,21 +2597,29 @@ def main(argv=None) -> int:
         int8_text_counts = phase_int8_text(args, card, dev, ctx)
         packed_counts = phase_packed(args, card, dev, ctx)
         eval_counts = phase_evaluate(args, card, dev, ctx)
+        phase_k1_bert_heads(gen)
+        gc_base = GateCLConfig()
+        gc_serve_counts = phase_gate_cl_serving(args, card, dev, gc_base,
+                                                ctx)
         del ctx
         torch.cuda.empty_cache()
         train_counts = phase_train(args, card, dev, base, layers)
-        # over the six main paths, each driven from counts of 0
+        gc_train_counts = phase_gate_cl_train(args, card, dev, gc_base,
+                                              layers)
+        # over the eight main paths, each driven from counts of 0
         runs = (counts, conv_counts, int8_text_counts, packed_counts,
-                eval_counts, train_counts)
+                eval_counts, train_counts, gc_serve_counts, gc_train_counts)
         total = {name: sum(c[name] for c in runs) for name in COUNTERS}
-        print(f"#   kernel launches over the six main paths: {total}")
+        print(f"#   kernel launches over the eight main paths: {total}")
         for name in NO_CALLER:
             check(total[name] == 0, f"{name} has no caller in the model, yet "
                                     f"the main paths launched it "
                                     f"{total[name]} times")
         for name in ("int8_bottleneck_v2", "int8_stem_pool"):
             for what, c in (("evaluation", eval_counts),
-                            ("training", train_counts)):
+                            ("training", train_counts),
+                            ("gate_cl serving", gc_serve_counts),
+                            ("gate_cl training", gc_train_counts)):
                 check(c[name] == 0, f"{what} runs the float backbone, yet "
                                     f"launched {name}")
         kernels = phase_times(gen, counts["fused_attention"],
@@ -2258,7 +2627,9 @@ def main(argv=None) -> int:
                               eval_counts["fused_attention"],
                               total["fused_attention_blockwise"],
                               int8_text_counts["fused_attention"],
-                              train_counts["fused_attention"])
+                              train_counts["fused_attention"],
+                              gc_serve_counts["fused_attention"]
+                              + gc_train_counts["fused_attention"])
         kernels += phase_conv_times(gen, total, conv_errs)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

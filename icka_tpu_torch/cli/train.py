@@ -1,18 +1,24 @@
-"""Training CLI (port of `icka_tpu.cli.train`), for the flagship model.
+"""Training CLI (port of `icka_tpu.cli.train`): the flagship model or the
+gate_cl family.
 
     python -m icka_tpu_torch.cli.train --data_dir ... --path_image ... \
         --tokenizer_dir ... --output_dir out/
     python -m icka_tpu_torch.cli.train --synthetic DIR --tiny --device cpu
+    python -m icka_tpu_torch.cli.train --synthetic DIR --tiny --model gate_cl
 
 The flags are the JAX CLI's, with `--device {cuda,cpu}` (default cuda) in
 place of `--platform`/`--cpu_devices`/`--multihost`: the port trains on one
 device, so `--data_axis` takes 1 or -1 and `--model_axis` 1. `--model
-gate_cl|cl|ip` (the my_bert family) is not ported and raises. `--synthetic
-DIR` writes the JAX CLI's corpus (32/8/8 rows, 64x64 JPEGs) and trains on
-it; `--tiny` is its tiny configuration (ResNet layers (1, 1, 1, 1), decode
-size 64). It prints one line per epoch and `done; best dev F1 = ...`, as
-the JAX CLI does; SIGTERM/SIGINT snapshot the last completed step, and
-rerunning the same command resumes it.
+gate_cl|cl|ip` trains that variant of the my_bert family
+(`GateCLTrainer`) on BERT-base, or with `--tiny` on
+`GateCLConfig.tiny(variant)` with `region_dim` 2048 and the tiny ICKA
+configuration's `max_seq_length`, exactly as the JAX CLI builds it; the
+output directory's config.json is the ICKA configuration in either case,
+as there. `--synthetic DIR` writes the JAX CLI's corpus (32/8/8 rows,
+64x64 JPEGs) and trains on it; `--tiny` is its tiny configuration (ResNet
+layers (1, 1, 1, 1), decode size 64). It prints one line per epoch and
+`done; best dev F1 = ...`, as the JAX CLI does; SIGTERM/SIGINT snapshot the
+last completed step, and rerunning the same command resumes it.
 """
 
 from __future__ import annotations
@@ -22,14 +28,15 @@ import dataclasses
 import os
 
 from icka_tpu_torch.core.checkpoint import Checkpointer, PreemptionGuard
-from icka_tpu_torch.core.config import (ICKAConfig, TrainConfig, load_config,
-                                        to_json)
+from icka_tpu_torch.core.config import (GateCLConfig, ICKAConfig,
+                                        TrainConfig, load_config, to_json)
 from icka_tpu_torch.data.clip_store import ClipFeatureStore
 from icka_tpu_torch.data.conll import read_mm_conll
 from icka_tpu_torch.data.features import convert_examples
 from icka_tpu_torch.data.loader import MNERLoader
 from icka_tpu_torch.data.synthetic import generate_dataset, tiny_tokenizer
 from icka_tpu_torch.data.tokenization import ByteLevelBPETokenizer
+from icka_tpu_torch.train.gate_cl_trainer import GateCLTrainer
 from icka_tpu_torch.train.trainer import ICKATrainer
 
 
@@ -45,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dir with vocab.json + merges.txt (RoBERTa BPE)")
     p.add_argument("--model", default="icka",
                    choices=["icka", "gate_cl", "cl", "ip"],
-                   help="flagship ICKA (the gate_cl family is not ported)")
+                   help="flagship ICKA or the my_bert gate_cl family")
     p.add_argument("--model_config", default=None,
                    help="ICKAConfig JSON; default = roberta-large flagship")
     p.add_argument("--max_seq_length", type=int, default=128)
@@ -76,10 +83,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.model != "icka":
-        raise NotImplementedError(
-            f"--model {args.model}: the gate_cl family is not ported")
-
     if args.synthetic:
         root = generate_dataset(args.synthetic, n_train=32, n_valid=8,
                                 n_test=8, image_size=64,
@@ -132,8 +135,21 @@ def main(argv=None):
 
     resnet_layers = (1, 1, 1, 1) if args.tiny else (3, 8, 36, 3)
     decode_size = 64 if args.tiny else 256
-    trainer = ICKATrainer(model_cfg, train_cfg, features["train"].spec,
-                          resnet_layers=resnet_layers, device=args.device)
+    if args.model != "icka":
+        if args.tiny:
+            gcfg = dataclasses.replace(
+                GateCLConfig.tiny(vocab_size=len(tokenizer.vocab) + 8,
+                                  variant=args.model),
+                region_dim=2048, max_seq_length=model_cfg.max_seq_length)
+        else:
+            gcfg = GateCLConfig(variant=args.model,
+                                max_seq_length=model_cfg.max_seq_length)
+        trainer = GateCLTrainer(gcfg, train_cfg, resnet_layers=resnet_layers,
+                                device=args.device)
+    else:
+        trainer = ICKATrainer(model_cfg, train_cfg, features["train"].spec,
+                              resnet_layers=resnet_layers,
+                              device=args.device)
     train_loader = MNERLoader(
         features["train"], args.path_image, train_cfg.train_batch_size,
         train_cfg.gradient_accumulation_steps, train=True,

@@ -25,10 +25,13 @@ tree (`wq` int8 (k*k*Cin, F) tap major, `w_scale`, `fused_bias`, 0-d
 `backbone_static_state_dict`; the port stores these leaves in the same
 layout, as buffers.
 
+The models' pairs (`icka_state_dict`, `gate_cl_state_dict`,
+`token_classifier_state_dict` and their inverses) differ only in the model
+they name: each model's parameters are one flax collection, "params".
 The inverse (`flax_tree_from_state_dict`, `icka_variables_from_state_dict`,
-`backbone_variables_from_state_dict`) turns a state_dict back into the flax
-trees, `weight` back into `kernel` in (in, out) or HWIO and int8 kept, so
-the port can write the JAX package's checkpoints where flax is not
+`backbone_variables_from_state_dict`, ...) turns a state_dict back into the
+flax trees, `weight` back into `kernel` in (in, out) or HWIO and int8 kept,
+so the port can write the JAX package's checkpoints where flax is not
 installed.
 """
 
@@ -78,6 +81,20 @@ def icka_state_dict(variables: Mapping) -> dict:
     every quant mode (the int8 leaves stay int8).
     `ICKAModel.forward_packed` uses the parameters of `emissions`, so the
     packed path needs no further leaf."""
+    return state_dict_from_flax(variables["params"])
+
+
+def gate_cl_state_dict(variables: Mapping) -> dict:
+    """`GateCLModel` variables {"params": ...} -> `GateCLModel` state_dict,
+    every variant. `crs_classifier`'s kernel ((max_seq_length * 2H, 2)) is
+    transposed like any Dense: its rows keep the flatten order of the
+    (L, 2H) input on both sides. `forward_packed` needs no further leaf."""
+    return state_dict_from_flax(variables["params"])
+
+
+def token_classifier_state_dict(variables: Mapping) -> dict:
+    """`TokenClassifier` or `SequenceClassifier` variables {"params": ...}
+    -> its state_dict."""
     return state_dict_from_flax(variables["params"])
 
 
@@ -144,6 +161,18 @@ def flax_tree_from_state_dict(sd: Mapping) -> dict:
 def icka_variables_from_state_dict(sd: Mapping) -> dict:
     """`ICKAModel` state_dict -> {"params": ...}, in every quant mode: the
     inverse of `icka_state_dict`."""
+    return {"params": flax_tree_from_state_dict(sd)}
+
+
+def gate_cl_variables_from_state_dict(sd: Mapping) -> dict:
+    """`GateCLModel` state_dict -> {"params": ...}: the inverse of
+    `gate_cl_state_dict`."""
+    return {"params": flax_tree_from_state_dict(sd)}
+
+
+def token_classifier_variables_from_state_dict(sd: Mapping) -> dict:
+    """`TokenClassifier` or `SequenceClassifier` state_dict -> {"params":
+    ...}: the inverse of `token_classifier_state_dict`."""
     return {"params": flax_tree_from_state_dict(sd)}
 
 

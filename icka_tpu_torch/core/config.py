@@ -1,5 +1,5 @@
-"""Typed configuration, a copy of `icka_tpu.core.config`'s encoder, ICKA
-and training dataclasses.
+"""Typed configuration, a copy of `icka_tpu.core.config`'s dataclasses:
+encoder, ICKA, gate_cl family, training and data.
 
 Field names and defaults are identical to the JAX package's, so a
 ``config.json`` written there loads here unchanged. In this package
@@ -131,6 +131,43 @@ class ICKAConfig:
 
 
 @dataclass(frozen=True)
+class GateCLConfig:
+    """The my_bert model family: one BERT encoder + txt2img fusion + gate +
+    CRF, with optional contrastive knowledge alignment and relation-
+    classifier gating.
+
+    variant:
+      - "ip":      plain concat fusion + CRF
+      - "cl":      + InfoNCE contrastive, fixed mix cl_alpha
+      - "gate_cl": + relation classifier P-gate + alpha
+    """
+
+    encoder: EncoderConfig = field(default_factory=EncoderConfig.bert_base)
+    num_labels: int = 15
+    layer_num1: int = 1
+    num_regions: int = 49
+    region_dim: int = 2048
+    max_seq_length: int = 128
+    variant: str = "gate_cl"
+    alpha: float = 0.62                 # loss mix
+    cl_alpha: float = 0.88              # the "cl" variant's fixed mix
+    temp: float = 0.179                 # InfoNCE temperature
+    temp_lamb: float = 0.7              # directional mix
+    negative_rate: int = 16             # negative-pair swap count
+    # Serving-exactness knob for variant="gate_cl": zero the masked
+    # positions of the relation classifier's input before its (L*2H)
+    # flatten, so bucketed decode equals the 128-padded layout. False =
+    # reference parity: the flatten takes padding-position activations.
+    masked_crs: bool = False
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 128,
+             variant: str = "gate_cl") -> "GateCLConfig":
+        return cls(encoder=EncoderConfig.tiny(vocab_size), layer_num1=1,
+                   region_dim=64, max_seq_length=16, variant=variant)
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Training-loop hyperparameters (reference defaults), every field of
     the JAX package's `TrainConfig` with its name and default. This package
@@ -167,9 +204,21 @@ class TrainConfig:
                     f"is not ported; this package trains on one device")
 
 
+@dataclass(frozen=True)
+class DataConfig:
+    """Dataset locations and preprocessing."""
+
+    data_dir: str = "data/twitter2015"
+    path_image: str = "data/twitter2015_images"
+    crop_size: int = 224
+    max_seq_length: int = 128
+    task_name: str = "twitter2015"
+
+
 _NESTED = {
     ("ICKAConfig", "embedding"): EncoderConfig,
     ("ICKAConfig", "last_encoder"): EncoderConfig,
+    ("GateCLConfig", "encoder"): EncoderConfig,
 }
 
 

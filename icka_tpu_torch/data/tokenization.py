@@ -16,11 +16,13 @@ Both load from local files only (no hub access). A `tiny_bpe_files` helper
 builds a miniature-but-real vocab for tests and synthetic benchmarks.
 
 The JAX package splits BPE words with the `regex` module's `\p{L}`/`\p{N}`
-classes. Here the same pattern is built for stdlib `re`: the letter class
-is every code point whose `unicodedata.category` is L*, the number class
-Nd/Nl/No, and whitespace the Unicode White_Space property (what `regex`'s
-`\s` matches; stdlib `\s` also takes U+001C..U+001F). The classes are
-explicit code-point ranges, built once at the first BPE tokenizer.
+classes. Here the same pattern is built for stdlib `re` from explicit
+code-point ranges: the letter and number classes are `regex`'s own, kept as
+a table (`icka_tpu_torch.data._unicode_classes`, which names the `regex`
+version), so the split does not depend on the interpreter's Unicode; and
+whitespace is the Unicode White_Space property (what `regex`'s `\s`
+matches; stdlib `\s` also takes U+001C..U+001F). The pattern is built once
+at the first BPE tokenizer.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from functools import lru_cache
 from typing import Iterable, List
 
 import re
-import sys
+
+from icka_tpu_torch.data._unicode_classes import LETTER, NUMBER
 
 
 # ---------------------------------------------------------------------------
@@ -234,18 +237,6 @@ _WHITE_SPACE = ((0x09, 0x0D), (0x20, 0x20), (0x85, 0x85), (0xA0, 0xA0),
                 (0x202F, 0x202F), (0x205F, 0x205F), (0x3000, 0x3000))
 
 
-def _ranges(pred) -> list[tuple[int, int]]:
-    """Maximal runs of code points whose category satisfies `pred`."""
-    out: list[tuple[int, int]] = []
-    for cp in range(sys.maxunicode + 1):
-        if pred(unicodedata.category(chr(cp))):
-            if out and out[-1][1] == cp - 1:
-                out[-1] = (out[-1][0], cp)
-            else:
-                out.append((cp, cp))
-    return out
-
-
 def _char_class(ranges) -> str:
     """Ranges as the body of a `re` character class."""
     def esc(cp):
@@ -259,8 +250,8 @@ def bpe_pattern() -> re.Pattern:
     """The GPT-2 split pattern
     `'s|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|\\s+(?!\\S)|\\s+`
     with explicit letter, number and whitespace classes."""
-    letter = _char_class(_ranges(lambda c: c[0] == "L"))
-    number = _char_class(_ranges(lambda c: c in ("Nd", "Nl", "No")))
+    letter = _char_class(LETTER)
+    number = _char_class(NUMBER)
     space = _char_class(_WHITE_SPACE)
     return re.compile(
         rf"""'s|'t|'re|'ve|'m|'ll|'d| ?[{letter}]+| ?[{number}]+"""

@@ -1,13 +1,26 @@
-"""Length-bucketed serving of the flagship ICKA model (port of
-`icka_tpu.serving.bucketed`, without the data-parallel `mesh`).
+"""Length-bucketed serving of the flagship ICKA model and of the gate_cl
+family (port of `icka_tpu.serving.bucketed`, without the data-parallel
+`mesh`).
 
 Each request goes to the smallest length bucket that holds it, and bucket
 queues run as fixed-size batches: short tweets pass through a 16- or
 24-token encoder instead of the 128-token reference layout. Partial batches
 are padded by repeating the chunk's first request; padded rows' outputs are
-dropped. With `ICKAConfig.masked_lstm=True` bucketed decode equals the
-128-padded layout at valid positions; with the torch-parity default the
-agreement is statistical (the BiLSTM runs through a shorter padding tail).
+dropped. Additive -10000 key masks keep padding keys out of every valid
+token's attention, so:
+
+  - gate_cl's "ip" and "cl" variants decode bucketed exactly as in the
+    128-padded layout; "gate_cl" does with `GateCLConfig.masked_crs=True`,
+    and with the reference-quirk default (its relation gate flattens
+    padding-position activations) the agreement is statistical;
+  - the flagship decodes exactly with `ICKAConfig.masked_lstm=True`; with
+    the torch-parity default the agreement is statistical (the BiLSTM runs
+    through a shorter padding tail).
+
+`warmup` runs every bucket's batch once, so that the first request does
+not pay for the first launches (kernel builds, library handles, the
+allocator's growth). The servers run eager PyTorch: there is no program to
+compile per bucket as there is under `jax.jit`.
 """
 
 from __future__ import annotations
@@ -41,6 +54,145 @@ class ServingStats:
     @property
     def total_pairs(self) -> int:
         return sum(self.pairs_per_bucket.values())
+
+
+def _features(examples, rows, key, shape, device):
+    """One float32 feature of each row's example, stacked on `device`
+    (tensors already there are not copied through the host)."""
+    return torch.stack([torch.as_tensor(examples[i][key]).to(
+        device, torch.float32).reshape(shape) for i in rows])
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class BucketedGateCLServer:
+    """Bucketed request-level inference for `GateCLModel` (every variant).
+
+    model: a `GateCLModel` whose parameters live on `device`, built at
+        max_seq_length = the largest bucket (the relation classifier's
+        flatten width; that bucket is the reference layout).
+    buckets: ascending padded lengths.
+    max_batch: rows per device batch: one int for every bucket, a
+        {bucket: batch} mapping (128 for buckets it does not list), or None
+        for `RECOMMENDED_BATCH`.
+
+    Examples are dicts with a variable-length 1-D ``input_ids`` (optional
+    ``segment_ids``), ``visual_mean`` (R,), ``visual_grid`` (7, 7, R) and
+    optional ``img_mask`` (49,), as numpy arrays or tensors.
+    """
+
+    #: the JAX package's per-bucket batches (buckets not listed take 128);
+    #: part of the `_batch_of` contract, untuned on the H100
+    RECOMMENDED_BATCH = {16: 512, 24: 256, 32: 256}
+
+    def __init__(self, model, buckets: Sequence[int] = (16, 24, 32, 48, 64,
+                                                        128),
+                 max_batch=None, device="cuda"):
+        buckets = tuple(sorted(buckets))
+        if buckets[-1] != model.cfg.max_seq_length:
+            raise ValueError(
+                f"largest bucket {buckets[-1]} must equal "
+                f"max_seq_length {model.cfg.max_seq_length}")
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"model lives on {model.device}, server on "
+                             f"{self.device}")
+        self.model = model
+        self.buckets = buckets
+        self.max_batch = max_batch
+
+    def _batch_of(self, bucket: int) -> int:
+        if self.max_batch is None:
+            return self.RECOMMENDED_BATCH.get(bucket, 128)
+        if isinstance(self.max_batch, dict):
+            return self.max_batch.get(bucket, 128)
+        return self.max_batch
+
+    def _empty_batch(self, B: int, b: int):
+        cfg = self.model.cfg
+        return {
+            "input_ids": np.full((B, b), cfg.encoder.pad_token_id, np.int64),
+            "segment_ids": np.zeros((B, b), np.int64),
+            "input_mask": np.zeros((B, b), np.int64),
+            "img_mask": np.ones((B, cfg.num_regions), np.int64),
+        }
+
+    def _to_device(self, batch):
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in batch.items()}
+
+    def warmup(self) -> None:
+        """Run every bucket's batch once (one valid token a row, zero
+        images)."""
+        cfg = self.model.cfg
+        for b in self.buckets:
+            B = self._batch_of(b)
+            batch = self._empty_batch(B, b)
+            batch["input_ids"][:, 0] = 0
+            batch["input_mask"][:, 0] = 1
+            batch = self._to_device(batch)
+            batch["visual_mean"] = torch.zeros(B, cfg.region_dim,
+                                               device=self.device)
+            batch["visual_grid"] = torch.zeros(B, 7, 7, cfg.region_dim,
+                                               device=self.device)
+            with torch.inference_mode():
+                self.model(**batch)
+        _sync(self.device)
+
+    def batches(self, examples: Sequence[dict]):
+        """Yields (bucket, chunk, lens, batch): `chunk` the example indices
+        of one device batch, `lens` their (possibly truncated) lengths, and
+        `batch` the model's keyword inputs on the device, rows padded by
+        repeating `chunk[0]`."""
+        order: dict[int, list[int]] = {b: [] for b in self.buckets}
+        for i, ex in enumerate(examples):
+            L = min(len(ex["input_ids"]), self.buckets[-1])
+            order[pick_bucket(L, self.buckets)].append(i)
+        for b, idxs in order.items():
+            B = self._batch_of(b)
+            for lo in range(0, len(idxs), B):
+                chunk = idxs[lo:lo + B]
+                rows = chunk + [chunk[0]] * (B - len(chunk))
+                batch = self._empty_batch(B, b)
+                lens = []
+                for r, i in enumerate(rows):
+                    ex = examples[i]
+                    L = min(len(ex["input_ids"]), b)
+                    lens.append(L)
+                    batch["input_ids"][r, :L] = np.asarray(
+                        ex["input_ids"][:L])
+                    if "segment_ids" in ex:
+                        batch["segment_ids"][r, :L] = np.asarray(
+                            ex["segment_ids"][:L])
+                    batch["input_mask"][r, :L] = 1
+                    if "img_mask" in ex:
+                        batch["img_mask"][r] = np.asarray(ex["img_mask"])
+                batch = self._to_device(batch)
+                batch["visual_mean"] = _features(examples, rows,
+                                                 "visual_mean", (-1,),
+                                                 self.device)
+                batch["visual_grid"] = _features(examples, rows,
+                                                 "visual_grid", (7, 7, -1),
+                                                 self.device)
+                yield b, chunk, lens, batch
+
+    def predict(self, examples: Sequence[dict]):
+        """Returns (tags, stats): ``tags[i]`` is a 1-D int32 numpy array of
+        decoded labels at the example's true (possibly truncated) length."""
+        results: list = [None] * len(examples)
+        pairs: dict[int, int] = {}
+        batches: dict[int, int] = {}
+        with torch.inference_mode():
+            for b, chunk, lens, batch in self.batches(examples):
+                tags = self.model(**batch).cpu().numpy()
+                pairs[b] = pairs.get(b, 0) + len(chunk)
+                batches[b] = batches.get(b, 0) + 1
+                for r, i in enumerate(chunk):
+                    results[i] = tags[r, :lens[r]].astype(np.int32)
+        return results, ServingStats(pairs, batches)
 
 
 class BucketedICKAServer:
@@ -93,10 +245,26 @@ class BucketedICKAServer:
             "output_mask": np.zeros((B, b), np.int64),
         }
 
-    def _features(self, examples, rows, key, shape):
-        return torch.stack([
-            torch.as_tensor(examples[i][key]).to(
-                self.device, torch.float32).reshape(shape) for i in rows])
+    def warmup(self) -> None:
+        """Run every bucket's batch once (one valid token a row, the prompt
+        head, zero features)."""
+        cfg = self.model.cfg
+        B = self.max_batch
+        for b in self.buckets:
+            batch = self._empty_batch(b)
+            batch["input_mask"][:, :self.offset + 1] = 1
+            batch["ori_input_mask"][:, 0] = 1
+            batch["output_mask"][:, 0] = 1
+            batch = {k: torch.from_numpy(v).to(self.device)
+                     for k, v in batch.items()}
+            for key, shape in (("clip_features", (1, cfg.clip_dim)),
+                               ("visual_mean", (cfg.region_dim,)),
+                               ("visual_grid", (7, 7, cfg.region_dim))):
+                batch[key] = torch.zeros(B, *shape, device=self.device)
+            with torch.inference_mode():
+                self.model(batch, self.mask_positions, self.offset,
+                           mode="test")
+        _sync(self.device)
 
     def batches(self, examples: Sequence[dict]):
         """Yields (bucket, chunk, lens, batch): `chunk` the example indices
@@ -133,12 +301,11 @@ class BucketedICKAServer:
                         batch["img_mask"][r] = np.asarray(ex["img_mask"])
                 batch = {k: torch.from_numpy(v).to(self.device)
                          for k, v in batch.items()}
-                batch["clip_features"] = self._features(
-                    examples, rows, "clip_features", (1, -1))
-                batch["visual_mean"] = self._features(
-                    examples, rows, "visual_mean", (-1,))
-                batch["visual_grid"] = self._features(
-                    examples, rows, "visual_grid", (7, 7, -1))
+                for key, shape in (("clip_features", (1, -1)),
+                                   ("visual_mean", (-1,)),
+                                   ("visual_grid", (7, 7, -1))):
+                    batch[key] = _features(examples, rows, key, shape,
+                                           self.device)
                 yield b, chunk, lens, batch
 
     def predict(self, examples: Sequence[dict]):

@@ -38,8 +38,6 @@ import torch
 from icka_tpu_torch.convert import (backbone_state_dict,
                                     backbone_variables_from_state_dict,
                                     flax_tree_from_state_dict,
-                                    icka_state_dict,
-                                    icka_variables_from_state_dict,
                                     state_dict_from_flax)
 from icka_tpu_torch.core.checkpoint import Bfloat16Array
 from icka_tpu_torch.core.config import ICKAConfig, TrainConfig
@@ -139,8 +137,7 @@ class ICKATrainer:
         self.label_list = label_list
         self.device = resolve_device(device)
         dtype = COMPUTE_DTYPES[train_cfg.compute_dtype]
-        self.model = ICKAModel(model_cfg, dtype=dtype, device=self.device,
-                               seed=train_cfg.seed).eval()
+        self.model = self._build_model(dtype)
         self.backbone = VisualBackbone(resnet_layers, dtype=dtype,
                                        device=self.device,
                                        seed=train_cfg.seed + 1).eval()
@@ -149,6 +146,11 @@ class ICKATrainer:
         self.opt_state = None
         self.step = 0
         self.records: list[StepRecord] = []
+
+    def _build_model(self, dtype):
+        """The model, its weights from `train_cfg.seed`, in eval mode."""
+        return ICKAModel(self.model_cfg, dtype=dtype, device=self.device,
+                         seed=self.train_cfg.seed).eval()
 
     # -- state ---------------------------------------------------------------
 
@@ -174,8 +176,7 @@ class ICKATrainer:
             mu = _map_leaves(Bfloat16Array.from_float32, mu)
         return {
             "step": np.asarray(self.step, np.int32),
-            "params": icka_variables_from_state_dict(
-                self.model.state_dict())["params"],
+            "params": flax_tree_from_state_dict(self.model.state_dict()),
             "opt_state": {"0": {}, "1": {
                 "0": {"count": count, "mu": mu,
                       "nu": flax_tree_from_state_dict(self.opt_state.nu)},
@@ -190,8 +191,8 @@ class ICKATrainer:
         `resume` gives it): `params` and `backbone_variables` into the model
         and the backbone, every name checked; and, once the optimizer
         exists, `step` and the moments and count of `opt_state`."""
-        self.model.load_state_dict(
-            icka_state_dict({"params": state["params"]}), strict=True)
+        self.model.load_state_dict(state_dict_from_flax(state["params"]),
+                                   strict=True)
         self.backbone.load_state_dict(
             backbone_state_dict(state["backbone_variables"]), strict=True)
         if self.optimizer is None:
@@ -353,8 +354,7 @@ class ICKATrainer:
                    f"({time.time() - t0:.1f}s)")
             if dev_loader is not None:
                 result = self.evaluate(dev_loader)
-                msg += (f" dev_loss={result.loss:.4f} f1={result.f1:.4f} "
-                        f"p={result.precision:.4f} r={result.recall:.4f}")
+                msg += self._dev_message(result)
                 if result.f1 > best_f1:
                     best_f1 = result.f1
                     if checkpointer is not None:
@@ -364,7 +364,15 @@ class ICKATrainer:
             history.append(train_loss)
         return history
 
+    def _dev_message(self, result: EvalResult) -> str:
+        return (f" dev_loss={result.loss:.4f} f1={result.f1:.4f} "
+                f"p={result.precision:.4f} r={result.recall:.4f}")
+
     def evaluate(self, loader) -> EvalResult:
+        """Every batch through `eval_step`, the padded tail rows dropped,
+        the reference's label filtering and the chunk-F1 evaluator. The
+        loss is the exact token mean of the rows' NLLs; 0.0 where
+        `eval_step` gives none."""
         y_true_all, y_pred_all = [], []
         yt_idx_all, yp_idx_all = [], []
         nll_sum = 0.0
@@ -384,7 +392,8 @@ class ICKATrainer:
             n = (int(np.sum(row_valid)) if row_valid is not None
                  else len(batch["label_ids"]))
             pred, row_nll = self.eval_step(batch)
-            nll_sum += float(np.sum(row_nll.cpu().numpy()[:n]))
+            if row_nll is not None:
+                nll_sum += float(np.sum(row_nll.cpu().numpy()[:n]))
             token_sum += float(
                 np.sum(np.asarray(batch["output_mask"])[:n]))
             yt, yp, yt_idx, yp_idx = filter_predictions(

@@ -126,6 +126,55 @@ def test_bpe_split_equals_regex(text):
         regex.findall(jtok._BPE_PATTERN, text)
 
 
+def test_bpe_classes_equal_regex_on_every_code_point():
+    """The port's letter and number classes (its table, compiled into the
+    stdlib pattern) against `regex`'s \\p{L} and \\p{N}, and its whitespace
+    class against `regex`'s \\s, on every code point from 0 to 0x10FFFF:
+    one pass each over a string of all code points in order, whose maximal
+    runs are the classes' ranges."""
+    from icka_tpu_torch.data import _unicode_classes as table
+
+    assert table.REGEX_VERSION == regex.__version__
+    text = "".join(chr(c) for c in range(0x110000))
+    cls = ttok._char_class
+    space = cls(ttok._WHITE_SPACE)
+    for port, want in ((cls(table.LETTER), r"\p{L}+"),
+                       (cls(table.NUMBER), r"\p{N}+"), (space, r"\s+")):
+        got = [m.span() for m in ttok.re.finditer(f"[{port}]+", text)]
+        assert got == [m.span() for m in regex.finditer(want, text)], want
+    # and the table is what the pattern is built from
+    assert cls(table.LETTER) in ttok.bpe_pattern().pattern
+
+
+def test_bpe_split_of_a_letter_newer_than_the_interpreter():
+    """U+088F is a letter to `regex` 2026.7.19 (Unicode 17) and unassigned
+    in Python 3.12's Unicode 15.0: the split keeps it in the word, as the
+    JAX package does."""
+    text = "ok ࢏abc"
+    assert ttok.bpe_pattern().findall(text) == \
+        regex.findall(jtok._BPE_PATTERN, text) == ["ok", " ࢏abc"]
+
+
+def test_bpe_ids_with_a_merge_across_that_letter(tmp_path):
+    """One merge added to the tiny files, `ı a` (the last byte of U+088F's
+    UTF-8 and the letter after it), applies only where U+088F and "abc" are
+    one word: both packages give the same 7 ids, the merged one among them
+    (a split before "abc" gives 8)."""
+    vpath, mpath = ttok.tiny_bpe_files(str(tmp_path), ["ok"])
+    vocab = ttok.json.loads(open(vpath, encoding="utf-8").read())
+    vocab["ıa"] = len(vocab)
+    with open(vpath, "w", encoding="utf-8") as f:
+        ttok.json.dump(vocab, f, ensure_ascii=False)
+    with open(mpath, "a", encoding="utf-8") as f:
+        f.write("ı a\n")
+    jt = jtok.ByteLevelBPETokenizer(vpath, mpath)
+    tt = ttok.ByteLevelBPETokenizer(vpath, mpath)
+    text = "ok ࢏abc"
+    ids = tt.convert_tokens_to_ids(tt.tokenize(text))
+    assert ids == jt.convert_tokens_to_ids(jt.tokenize(text))
+    assert len(ids) == 7 and vocab["ıa"] in ids
+
+
 def test_bpe_token_ids(tokenizers):
     jt, tt = tokenizers
     assert tt.vocab == jt.vocab and tt.bpe_ranks == jt.bpe_ranks

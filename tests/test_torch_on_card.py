@@ -4,7 +4,9 @@ same backbone on the plain versions, and the two attention kernels against
 their plain versions and against each other, within a stated tolerance. All
 six kernels are covered. Besides, the exact int8 product (`torch._int_mm`)
 and an int8-static `Dense` and BiLSTM input projection on the card against
-the float64 product and the CPU, bit for bit.
+the float64 product and the CPU, bit for bit; K1 at the gate_cl family's
+12 heads, and a small gate_cl model served through K1 against the plain
+core.
 
 This file imports only torch and the port, so it also runs on a machine that
 has a card but not the JAX package's dependencies:
@@ -640,3 +642,66 @@ def test_tiny_train_steps_on_the_card_equal_the_cpus(cuda_device, tmp_path):
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,bias_kind", [(16, "B11Sk"), (24, "B11Sk"),
+                                         (128, "B11Sk"), (48, "full")])
+def test_fused_attention_at_bert_base_heads(cuda_device, S, bias_kind,
+                                            dtype):
+    """K1 at the gate_cl family's shapes: 12 heads of 64, the bucketed
+    lengths below and at the kernel's (64, 32) tile with a key bias, and a
+    packed row of 48 with a block-diagonal full bias."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, bias = _attn_case(cuda_device, dtype, 4, S, S, 12, 64,
+                               bias_kind)
+    before = tattn.fused_attention.launches
+    got = tattn.fused_attention(q, k, v, bias, 12)
+    torch.cuda.synchronize()
+    assert tattn.fused_attention.launches == before + 1
+    _assert_attn_close(got, tattn.attention_reference(q, k, v, bias, 12))
+
+
+def test_gate_cl_bucketed_kernel_path_equals_plain_core(cuda_device):
+    """A small gate_cl model (BERT dialect, 12 heads of 64) served bucketed
+    in fp32 through K1 and through the plain attention core on the same
+    weights: one launch per self-attention layer a batch, emissions within
+    1e-4 and the same tags."""
+    import dataclasses
+
+    import numpy as np
+
+    from icka_tpu_torch.core.config import EncoderConfig, GateCLConfig
+    from icka_tpu_torch.models.gate_cl import GateCLModel
+    from icka_tpu_torch.serving.bucketed import BucketedGateCLServer
+
+    enc = dataclasses.replace(EncoderConfig.bert_base(),
+                              num_hidden_layers=2, vocab_size=200)
+    flags = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        models = {p: GateCLModel(GateCLConfig(
+            encoder=dataclasses.replace(enc, use_pallas=p), region_dim=64,
+            max_seq_length=32, masked_crs=True), device=cuda_device,
+            seed=3).eval() for p in (True, False)}
+        rng = np.random.default_rng(0)
+        exs = [{"input_ids": rng.integers(1, 200, n).astype(np.int64),
+                "visual_mean": rng.standard_normal(64).astype(np.float32),
+                "visual_grid": rng.standard_normal((7, 7, 64))
+                .astype(np.float32)} for n in (5, 16, 17, 30, 40)]
+        servers = {p: BucketedGateCLServer(m, buckets=(16, 32), max_batch=4,
+                                           device=cuda_device)
+                   for p, m in models.items()}
+        before = tattn.fused_attention.launches
+        tags, stats = servers[True].predict(exs)
+        batches = sum(stats.batches_per_bucket.values())
+        assert tattn.fused_attention.launches == before + 2 * batches
+        want, _ = servers[False].predict(exs)
+        for g, w in zip(tags, want):
+            np.testing.assert_array_equal(g, w)
+        with torch.inference_mode():
+            _, _, _, batch = next(servers[True].batches(exs))
+            em = [m(**batch, return_emissions=True) for m in models.values()]
+        assert (em[0] - em[1]).abs().max().item() <= 1e-4
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags

@@ -2,8 +2,8 @@
 preempted by a real signal and resumed from its snapshot ends bit-equal to
 the uninterrupted run (dropout on, so the seeded draws must line up); the
 training CLI prints the JAX CLI's line shapes and writes its checkpoint
-directory; and what stays unported raises: the mesh in `TrainConfig`,
-rematerialisation in training, and the gate_cl family in the CLI."""
+directory; and what stays unported raises: the mesh in `TrainConfig` and
+rematerialisation in training, the flagship's and the gate_cl family's."""
 
 import dataclasses
 import os
@@ -18,12 +18,14 @@ import torch
 
 from icka_tpu_torch.cli import train as train_cli
 from icka_tpu_torch.core.checkpoint import Checkpointer, PreemptionGuard
-from icka_tpu_torch.core.config import EncoderConfig, ICKAConfig, TrainConfig
+from icka_tpu_torch.core.config import (EncoderConfig, GateCLConfig,
+                                        ICKAConfig, TrainConfig)
 from icka_tpu_torch.data.clip_store import ClipFeatureStore
 from icka_tpu_torch.data.conll import read_mm_conll
 from icka_tpu_torch.data.features import convert_examples
 from icka_tpu_torch.data.loader import MNERLoader
 from icka_tpu_torch.data.synthetic import generate_dataset, tiny_tokenizer
+from icka_tpu_torch.models.gate_cl import GateCLModel
 from icka_tpu_torch.models.icka import ICKAModel
 from icka_tpu_torch.train.trainer import ICKATrainer
 
@@ -148,8 +150,12 @@ def test_remat_and_gate_cl_raise():
     with pytest.raises(ValueError, match="dropout_gen"):
         ICKAModel(ICKAConfig.tiny(), device="cpu")({}, (3, 14), 18,
                                                    mode="train")
-    with pytest.raises(NotImplementedError, match="gate_cl"):
-        train_cli.main(["--model", "gate_cl", "--synthetic", "unused"])
+    gate_cl = GateCLModel(dataclasses.replace(GateCLConfig.tiny(),
+                                              encoder=enc), device="cpu")
+    ids = torch.ones(2, 4, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="remat"):
+        gate_cl(ids, ids * 0, ids, torch.ones(2, 49), torch.zeros(2, 64),
+                torch.zeros(2, 7, 7, 64), labels=ids * 0)
 
 
 def test_step_seeds_differ_by_epoch_batch_and_microbatch(corpus):
