@@ -80,6 +80,33 @@ Phases; any failure exits non-zero:
      step each of "cl" and "ip", one fp32 step at depth 2 card vs CPU
      (loss 1e-5, gradient norm 1e-4, moments 1e-4); walls, device busy
      and launches, step median, train pairs/s and peak memory printed;
+ 10. weights from files on disk (after 9's serving, before 8): from random
+     weights (`--seed`) it writes, with HF key names it maps itself (no
+     `transformers`), a BERT-base HF directory (`pytorch_model.bin`,
+     `bert.` prefix, legacy LayerNorm gamma/beta), a RoBERTa-large-width
+     `model.safetensors` directory at depth 2 in BF16 (the format written
+     here), a TF bundle at BERT-base widths and depth 2, and a torchvision
+     `resnet152.pth` of phase 3's ResNet-152, under the gitignored build/
+     (removed when the phase ends); runs `icka_tpu_torch.cli.convert` for
+     `bert` and `resnet`, then `load_text_encoder` (the HF directory, the
+     native directory `save_text_encoder` writes, by bare name under a
+     cache directory; the safetensors directory, RoBERTa's position offset
+     2), `load_tf_encoder` and `load_backbone`, every loaded leaf bit-equal
+     to its source (BF16 to its bf16 values), sizes and seconds printed.
+     Then `GateCLConfig()` ("gate_cl", `masked_crs=True`, K1) on the loaded
+     encoder, unfused and fused (`fuse_qkv_params`), served in fp32 behind
+     phase 3's ResNet-152: tags identical, first-batch emissions within
+     1e-5, K1 12 times a batch (on strided q/k/v views when fused); then
+     bench.py's gate_cl serving configuration: calibrated in the dynamic
+     int8 mode on the requests, fused and quantised int8-static with a bf16
+     softmax, bf16, K1, behind the int8-static ResNet-152 built from
+     `load_backbone`'s weights as phase 4 builds its own (K5 once, K4 46
+     times a call), through `BucketedGateCLServer` and `PackedGateCLServer`:
+     every request tagged, emissions finite, K1 12 times a batch on strided
+     views, packed tags against bucketed >= 0.99, the fused `qkv` Dense
+     bit-equal on the card and the CPU; tags and emission cosines against
+     the plain core and the fp32 model, and walls, device busy and
+     launches beside phase 9's float bf16 gate_cl, printed;
   8. train (run before 7, whose K1 row carries its launches):
      `ICKATrainer.fit` at full width in bf16 over fp32 master weights on a
      synthetic corpus without image files, two epochs of three steps with
@@ -98,8 +125,9 @@ Phases; any failure exits non-zero:
      bound and its recorded time before its redesign (comment lines only);
      K1's tilings in bf16 and in fp32; K1 and K2 in fp32 at K1's two
      shapes; both at the first head width above 256; K1 at the gate_cl
-     family's 12 heads (S=128 key bias, S=48 full bias, both types); time
-     the served requests end to end.
+     family's 12 heads (S=128 key bias, S=48 full bias, both types; at 128
+     also on the strided q/k/v views of one fused projection); time the
+     served requests end to end.
 
 The line before the last is the `{"kernels": [...]}` JSON object; the last
 line is `{"ok": true, "device": {...}}`. Needs CUDA; imports nothing of JAX.
@@ -118,6 +146,7 @@ import math
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -127,12 +156,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from icka_tpu_torch.cli import convert as convert_cli
 from icka_tpu_torch.cli import evaluate as evaluate_cli
-from icka_tpu_torch.convert import (backbone_variables_from_state_dict,
-                                    icka_variables_from_state_dict)
+from icka_tpu_torch.convert import (backbone_state_dict,
+                                    backbone_variables_from_state_dict,
+                                    icka_variables_from_state_dict,
+                                    state_dict_from_flax)
 from icka_tpu_torch.core.checkpoint import Checkpointer, restore_pytree
-from icka_tpu_torch.core.config import (GateCLConfig, ICKAConfig,
-                                        TrainConfig, to_json)
+from icka_tpu_torch.core.config import (EncoderConfig, GateCLConfig,
+                                        ICKAConfig, TrainConfig, to_json)
 from icka_tpu_torch.core.device import strict_fp32
 from icka_tpu_torch.data import native, synthetic
 from icka_tpu_torch.data.clip_store import ClipFeatureStore
@@ -150,13 +182,20 @@ from icka_tpu_torch.kernels.attention import (
     fused_attention_blockwise, kernel_width)
 from icka_tpu_torch.models import resnet as resnet_module
 from icka_tpu_torch.models.convert import (calibration_amax,
+                                           fuse_qkv_params,
                                            quantize_params_like,
                                            static_quantize_backbone,
                                            static_quantize_params_like)
 from icka_tpu_torch.models.gate_cl import GateCLModel
 from icka_tpu_torch.models.icka import ICKAModel
+from icka_tpu_torch.models.pretrained import (load_backbone,
+                                              load_text_encoder,
+                                              load_tf_encoder,
+                                              save_text_encoder)
 from icka_tpu_torch.models.resnet import (Bottleneck, ConvBN, StemPoolS2D,
                                           VisualBackbone)
+from icka_tpu_torch.models.tf_convert import (encoder_params_to_tf,
+                                              write_tf_checkpoint)
 from icka_tpu_torch.models.token_classifier import TokenClassifier
 from icka_tpu_torch.nn.quant import column_major, int8_matmul
 from icka_tpu_torch.serving.bucketed import (BucketedGateCLServer,
@@ -283,6 +322,15 @@ STEP_LOSS_RTOL, STEP_NORM_RTOL, MOMENT_RTOL, UPDATE_RTOL = \
 BERT_LAYERS_PER_BATCH = 12
 GC_TRAIN_BATCH, GC_TRAIN_ACCUM, GC_TRAIN_ROWS = 32, 2, 192
 GC_DEV_ROWS, GC_EVAL_BATCH, GC_CLIP_DIM = 16, 8, 16
+# phase 10, weights from files on disk: the files go here (about 2.1 GB
+# with the converted copies) and are removed when the phase ends. The
+# RoBERTa-large safetensors file and the TF bundle hold 2 layers: the TF
+# bundle's pure-Python crc32c costs 0.1-0.2 s a MB each way on an H100's
+# host. The fused fp32 encoder against the unfused one differs only in the
+# QKV product's order of sums, 12 layers deep.
+WEIGHTS_DIR = WORK_DIR / "weights"
+ROBERTA_DEPTH, TF_DEPTH = 2, 2
+FUSED_EMISSIONS_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -343,6 +391,8 @@ NO_CALLER = ("fused_attention_blockwise", "int8_conv3x3", "int8_bottleneck")
 def zero_counts():
     for wrapper in COUNTERS.values():
         wrapper.launches = 0
+        if hasattr(wrapper, "strided_launches"):
+            wrapper.strided_launches = 0
 
 
 def read_counts() -> dict:
@@ -852,6 +902,24 @@ def device_profile(fn, top=8):
     return (sum(dev_us(e) for e in kernels) / 1e6,
             [(e.key, dev_us(e) / 1e3, e.count) for e in rows],
             sum(e.count for e in kernels))
+
+
+def kernel_device_ms(fn, iters=50):
+    """Device time per launch of the attention kernel that `fn` launches,
+    from torch.profiler's kernel rows: where the kernel is shorter than
+    its wrapper's host time, CUDA events around a loop of calls count the
+    gaps between launches too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if "attention" in e.key
+            and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return (sum(getattr(e, "self_device_time_total", 0) for e in rows)
+            / 1e3 / sum(e.count for e in rows))
 
 
 def first_batch_emissions(server, examples, models, spec):
@@ -1676,6 +1744,7 @@ def phase_gate_cl_serving(args, card, dev, base, ctx):
           f"TokenClassifier launched K1 {counts['fused_attention']} times")
     del heads
 
+    ctx["gc_server_bf16"] = servers["kernel_bf16"]
     for name, server, backbone in (
             ("gate_cl bucketed fp32", servers["kernel"], ctx["backbone"]),
             ("gate_cl bucketed bf16", servers["kernel_bf16"],
@@ -1683,6 +1752,455 @@ def phase_gate_cl_serving(args, card, dev, base, ctx):
             ("gate_cl packed fp32", packed, ctx["backbone"])):
         report_walls(name, lambda: serve(server, backbone, texts, images),
                      card, len(texts))
+    return total
+
+
+def random_encoder_tree(cfg, rng, layers=None):
+    """A `TextEncoder` parameter tree (the flax layout, float32, with the
+    pooler) at `cfg`'s widths and `layers` deep, drawn from `rng`: weights
+    N(0, 0.02), LayerNorm scales near 1."""
+    H, I = cfg.hidden_size, cfg.intermediate_size
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    def dense(i, o):
+        return {"kernel": w(i, o), "bias": w(o)}
+
+    def norm():
+        return {"scale": 1 + w(H), "bias": w(H)}
+    encoder = {f"layer_{i}": {
+        "attn": {n: dense(H, H) for n in ("query", "key", "value")},
+        "attn_out": {"dense": dense(H, H), "norm": norm()},
+        "ffn": {"wi": dense(H, I), "wo": dense(I, H), "norm": norm()}}
+        for i in range(cfg.num_hidden_layers if layers is None else layers)}
+    return {"embeddings": {
+        "word_embeddings": w(cfg.vocab_size, H),
+        "position_embeddings": w(cfg.max_position_embeddings, H),
+        "token_type_embeddings": w(cfg.type_vocab_size, H),
+        "norm": norm()}, "encoder": encoder,
+        "pooler": {"dense": dense(H, H)}}
+
+
+def hf_state_dict(tree, prefix, legacy_norms):
+    """A `TextEncoder` tree under HF BERT/RoBERTa key names, as
+    `transformers` writes them (no `transformers` needed): torch (out, in)
+    weights, `prefix` ("bert." / "roberta.") before every key, LayerNorm
+    `gamma`/`beta` as old BERT checkpoints name them when `legacy_norms`."""
+    sd = {}
+    g, b = ("gamma", "beta") if legacy_norms else ("weight", "bias")
+
+    def lin(name, t):
+        sd[f"{prefix}{name}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(t["kernel"].T))
+        sd[f"{prefix}{name}.bias"] = torch.from_numpy(t["bias"])
+
+    def norm(name, t):
+        sd[f"{prefix}{name}.LayerNorm.{g}"] = torch.from_numpy(t["scale"])
+        sd[f"{prefix}{name}.LayerNorm.{b}"] = torch.from_numpy(t["bias"])
+    emb = tree["embeddings"]
+    for table in ("word", "position", "token_type"):
+        sd[f"{prefix}embeddings.{table}_embeddings.weight"] = \
+            torch.from_numpy(emb[f"{table}_embeddings"])
+    norm("embeddings", emb["norm"])
+    for i in range(len(tree["encoder"])):
+        t, p = tree["encoder"][f"layer_{i}"], f"encoder.layer.{i}"
+        for n in ("query", "key", "value"):
+            lin(f"{p}.attention.self.{n}", t["attn"][n])
+        lin(f"{p}.attention.output.dense", t["attn_out"]["dense"])
+        norm(f"{p}.attention.output", t["attn_out"]["norm"])
+        lin(f"{p}.intermediate.dense", t["ffn"]["wi"])
+        lin(f"{p}.output.dense", t["ffn"]["wo"])
+        norm(f"{p}.output", t["ffn"]["norm"])
+    lin("pooler.dense", tree["pooler"]["dense"])
+    return sd
+
+
+def hf_config(cfg, model_type):
+    """`config.json` of an HF directory for `cfg`."""
+    return {"model_type": model_type, **{k: getattr(cfg, k) for k in (
+        "vocab_size", "hidden_size", "num_hidden_layers",
+        "num_attention_heads", "intermediate_size",
+        "max_position_embeddings", "type_vocab_size", "hidden_dropout_prob",
+        "attention_probs_dropout_prob", "layer_norm_eps", "pad_token_id")}}
+
+
+def write_safetensors_bf16(path, sd):
+    """`sd`'s tensors rounded to BF16 in a `.safetensors` file, written
+    here (no `safetensors` package): an 8-byte little-endian header length,
+    the JSON header {name: {dtype, shape, data_offsets}}, the raw bytes."""
+    header, blobs, offset = {"__metadata__": {"format": "pt"}}, [], 0
+    for name, t in sd.items():
+        raw = t.to(torch.bfloat16).contiguous().view(torch.int16).numpy() \
+            .tobytes()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)))
+        f.write(text)
+        for raw in blobs:
+            f.write(raw)
+
+
+def torchvision_state_dict(backbone):
+    """A float `VisualBackbone` under torchvision's ResNet key names (conv1,
+    bn1, layerS.B.convI / bnI / downsample.0 / downsample.1, OIHW)."""
+    v = backbone_variables_from_state_dict(backbone.state_dict())
+    params, stats = v["params"]["resnet"], v["batch_stats"]["resnet"]
+    sd = {}
+
+    def convbn(p, s, conv, bn):
+        sd[f"{conv}.weight"] = torch.from_numpy(np.ascontiguousarray(
+            p["conv"]["kernel"].transpose(3, 2, 0, 1)))
+        for key, val in (("weight", p["scale"]), ("bias", p["bias"]),
+                         ("running_mean", s["mean"]),
+                         ("running_var", s["var"])):
+            sd[f"{bn}.{key}"] = torch.from_numpy(np.asarray(val))
+    convbn(params["stem"], stats["stem"], "conv1", "bn1")
+    for name in params:
+        if name == "stem":
+            continue
+        p, s = params[name], stats[name]
+        pfx = "layer" + name[len("layer"):].replace("_", ".")
+        for i in (1, 2, 3):
+            convbn(p[f"conv{i}"], s[f"conv{i}"], f"{pfx}.conv{i}",
+                   f"{pfx}.bn{i}")
+        if "downsample" in p:
+            convbn(p["downsample"], s["downsample"], f"{pfx}.downsample.0",
+                   f"{pfx}.downsample.1")
+    return sd
+
+
+def flat_leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def check_same_tree(got, want, what):
+    """Every leaf of `got` bit-equal to `want`'s, the same names, dtypes
+    and shapes."""
+    got, want = flat_leaves(got), flat_leaves(want)
+    check(sorted(got) == sorted(want),
+          f"{what}: leaves {sorted(set(got) ^ set(want))[:4]} differ")
+    bad = [k for k in want if got[k].dtype != want[k].dtype
+           or got[k].shape != want[k].shape
+           or not np.array_equal(got[k], want[k])]
+    check(not bad, f"{what}: {len(bad)} leaves differ, e.g. {bad[:3]}")
+    return len(want)
+
+
+def size_mb(path) -> float:
+    path = Path(path)
+    files = [path] if path.is_file() else [
+        p for p in path.rglob("*") if p.is_file()]
+    return sum(p.stat().st_size for p in files) / 1e6
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def write_weight_files(args, base, ctx, roberta):
+    """Phase 10's files from random weights (`--seed`): a BERT-base HF
+    directory (legacy names, `bert.` prefix, `pytorch_model.bin`), a
+    RoBERTa-large-width `model.safetensors` directory at ROBERTA_DEPTH in
+    BF16, a TF bundle at BERT-base widths and TF_DEPTH, and a torchvision
+    `resnet152.pth` of phase 3's ResNet-152. Returns the source trees and
+    the paths."""
+    rng = np.random.default_rng(args.seed)
+    enc = base.encoder
+    src = {"bert": random_encoder_tree(enc, rng),
+           "roberta": random_encoder_tree(roberta, rng, ROBERTA_DEPTH),
+           "tf": random_encoder_tree(enc, rng, TF_DEPTH)}
+    paths = {"bert": WEIGHTS_DIR / "bert-base", "roberta": WEIGHTS_DIR /
+             "roberta-large", "tf": WEIGHTS_DIR / "tf" / "model.ckpt",
+             "resnet": WEIGHTS_DIR / "resnet" / "resnet152.pth"}
+    for d in (paths["bert"], paths["roberta"], paths["resnet"].parent):
+        d.mkdir(parents=True, exist_ok=True)
+    secs = {}
+    _, secs["bert"] = timed(lambda: torch.save(
+        hf_state_dict(src["bert"], "bert.", legacy_norms=True),
+        paths["bert"] / "pytorch_model.bin"))
+    (paths["bert"] / "config.json").write_text(
+        json.dumps(hf_config(enc, "bert")))
+    _, secs["roberta"] = timed(lambda: write_safetensors_bf16(
+        paths["roberta"] / "model.safetensors",
+        hf_state_dict(src["roberta"], "roberta.", legacy_norms=False)))
+    (paths["roberta"] / "config.json").write_text(json.dumps(hf_config(
+        dataclasses.replace(roberta, num_hidden_layers=ROBERTA_DEPTH),
+        "roberta")))
+    _, secs["tf"] = timed(lambda: write_tf_checkpoint(
+        str(paths["tf"]), encoder_params_to_tf(src["tf"])))
+    _, secs["resnet"] = timed(lambda: torch.save(
+        torchvision_state_dict(ctx["backbone"]), paths["resnet"]))
+    return src, paths, secs
+
+
+def load_weight_files(src, paths, secs, ctx, roberta):
+    """Phase 10's conversions and loads, each held leaf for leaf to the
+    weights its file was written from. Returns the BERT-base config and
+    params and the float ResNet-152 built from `load_backbone`."""
+    cache = WEIGHTS_DIR / "cache"
+    bert_msgpack = WEIGHTS_DIR / "bert.msgpack"
+    resnet_msgpack = WEIGHTS_DIR / "resnet" / "resnet.msgpack"
+    conv, said = {}, io.StringIO()
+    with contextlib.redirect_stdout(said):
+        _, conv["bert"] = timed(lambda: convert_cli.main(
+            ["bert", "--src", str(paths["bert"]),
+             "--dst", str(bert_msgpack)]))
+        _, conv["resnet"] = timed(lambda: convert_cli.main(
+            ["resnet", "--src", str(paths["resnet"]),
+             "--dst", str(resnet_msgpack)]))
+    for line in said.getvalue().splitlines():
+        print(f"#   cli.convert: {line}")
+    n = check_same_tree(restore_pytree(str(bert_msgpack)), src["bert"],
+                        "cli.convert bert")
+    (cfg, params), read_hf = timed(
+        lambda: load_text_encoder(str(paths["bert"])))
+    n = check_same_tree(params, src["bert"], "HF BERT-base directory")
+    _, save_native = timed(lambda: save_text_encoder(
+        str(cache / "bert-base-native"), cfg, params))
+    (cfg_n, params_n), read_native = timed(lambda: load_text_encoder(
+        "bert-base-native", cache_dir=str(cache)))
+    check(cfg_n == cfg, f"native config {cfg_n} != {cfg}")
+    check_same_tree(params_n, src["bert"], "native directory by bare name")
+    (cfg_r, params_r), read_st = timed(lambda: load_text_encoder(
+        str(paths["roberta"])))
+    bf16 = {k: torch.from_numpy(v).bfloat16().float().numpy()
+            for k, v in flat_leaves(src["roberta"]).items()}
+    n_r = check_same_tree(flat_leaves(params_r), bf16,
+                          "RoBERTa-large safetensors (BF16)")
+    check(cfg_r == dataclasses.replace(roberta,
+                                       num_hidden_layers=ROBERTA_DEPTH)
+          and cfg_r.position_offset == 2, f"RoBERTa config {cfg_r}")
+    params_t, read_tf = timed(lambda: load_tf_encoder(str(paths["tf"])))
+    n_t = check_same_tree(params_t, src["tf"], "TF bundle")
+    variables, read_pth = timed(lambda: load_backbone(
+        str(paths["resnet"].parent)))
+    want_vars = backbone_variables_from_state_dict(
+        ctx["backbone"].state_dict())
+    n_b = check_same_tree(variables, want_vars, "load_backbone(.pth dir)")
+    check_same_tree(load_backbone(str(resnet_msgpack)), want_vars,
+                    "load_backbone(resnet.msgpack)")
+    for name, path, write, read, leaves, extra in (
+            ("BERT-base HF directory (pytorch_model.bin, legacy names)",
+             paths["bert"], secs["bert"], read_hf, n,
+             f"cli.convert bert {conv['bert']:.2f} s "
+             f"({size_mb(bert_msgpack):.1f} MB msgpack)"),
+            ("native directory (save_text_encoder, read by bare name)",
+             cache / "bert-base-native", save_native, read_native, n, ""),
+            (f"RoBERTa-large {ROBERTA_DEPTH}-layer safetensors, BF16",
+             paths["roberta"], secs["roberta"], read_st, n_r,
+             "position_offset 2"),
+            (f"TF bundle, BERT-base widths, {TF_DEPTH} layers",
+             paths["tf"].parent, secs["tf"], read_tf, n_t,
+             "crc32c written and verified"),
+            ("torchvision resnet152.pth", paths["resnet"], secs["resnet"],
+             read_pth, n_b, f"cli.convert resnet {conv['resnet']:.2f} s")):
+        print(f"#   {name}: {size_mb(path):.1f} MB, written in {write:.2f} "
+              f"s, read in {read:.2f} s, {leaves} leaves bit-equal"
+              + (f"; {extra}" if extra else ""))
+    return cfg, params, variables
+
+
+def phase_weights(args, card, dev, base, ctx, resnet_layers,
+                  roberta=EncoderConfig.roberta_large()):
+    """Weights from files on disk, served in bench.py's gate_cl
+    configuration: phase 10's files written, converted and loaded (each
+    leaf held bit-equal to its source), `GateCLConfig()` on the loaded
+    BERT-base encoder fused and unfused in fp32 behind phase 3's ResNet-152,
+    then calibrated, fused and quantised int8-static (bf16, bf16 softmax,
+    K1) behind the int8-static ResNet-152 that `load_backbone`'s weights
+    give, through both gate_cl servers. Returns every kernel's launch count
+    over the served runs, each set to 0 just before it."""
+    t_phase = time.perf_counter()
+    print(f"# phase 10: weights from files on disk, then gate_cl in "
+          f"bench.py's int8-static fused-QKV configuration (GateCLConfig(): "
+          f"BERT-base {base.encoder.num_hidden_layers} x "
+          f"{base.encoder.hidden_size}), files under {WEIGHTS_DIR}")
+    strict_fp32()
+    texts = [{"input_ids": t["ori_input_ids"]} for t in ctx["texts"]]
+    images = ctx["images"]
+    total, runs = {}, {}
+    try:
+        src, paths, secs = write_weight_files(args, base, ctx, roberta)
+        cfg_enc, params, bvars = load_weight_files(src, paths, secs, ctx,
+                                                   roberta)
+    finally:
+        shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
+    check(cfg_enc == base.encoder, f"loaded config {cfg_enc} is not "
+                                   f"GateCLConfig()'s {base.encoder}")
+
+    def gc_model(quant="none", fuse=False, pallas=True, dtype=torch.float32,
+                 softmax="float32"):
+        enc = dataclasses.replace(cfg_enc, use_pallas=pallas, quant=quant,
+                                  fuse_qkv=fuse, softmax_dtype=softmax)
+        return GateCLModel(dataclasses.replace(
+            base, encoder=enc, variant="gate_cl", masked_crs=True),
+            dtype=dtype, device=dev, seed=args.seed).eval()
+
+    def run_counted(name, server, backbone, kernel=True, fused=True):
+        zero_counts()
+        tags, stats, examples, _ = serve(server, backbone, texts, images)
+        counts = read_counts()
+        counts_strided = fused_attention.strided_launches
+        add_counts(total, counts)
+        batches = (stats.batches if hasattr(stats, "batches")
+                   else sum(stats.batches_per_bucket.values()))
+        runs[name] = dict(tags=tags, examples=examples, counts=counts,
+                          batches=batches)
+        print(f"#   {name}: {batches} device batches; K1 launches "
+              f"{counts['fused_attention']} ({counts_strided} on strided "
+              f"q/k/v views), K5 {counts['int8_stem_pool']}, K4 "
+              f"{counts['int8_bottleneck_v2']}")
+        for t, tx in zip(tags, texts):
+            check(t is not None
+                  and len(t) == min(len(tx["input_ids"]),
+                                    base.max_seq_length)
+                  and t.min() >= 0 and t.max() < base.num_labels,
+                  f"{name}: bad tags {t}")
+        k1 = counts["fused_attention"]
+        check(k1 == (BERT_LAYERS_PER_BATCH * batches if kernel else 0),
+              f"{name}: K1 launched {k1} times for {batches} batches")
+        check(counts_strided == (k1 if fused else 0),
+              f"{name}: {counts_strided} of {k1} K1 launches strided")
+        return runs[name]
+
+    def first_batch(server, name, *models):
+        with torch.inference_mode():
+            _, _, _, batch = next(server.batches(runs[name]["examples"]))
+            return batch, [m(**batch, return_emissions=True) for m in models]
+
+    # fuse_qkv in fp32: the loaded encoder, unfused and fused
+    unfused = gc_model()
+    unfused.bert.load_state_dict(state_dict_from_flax(params), strict=True)
+    fused = gc_model(fuse=True)
+    fused.load_state_dict(fuse_qkv_params(fused.state_dict().keys(),
+                                          unfused.state_dict()), strict=True)
+    fp32_sd = unfused.state_dict()
+    for name, m in (("fp32 unfused", unfused), ("fp32 fused", fused)):
+        run_counted(name, BucketedGateCLServer(m, max_batch=MAX_BATCH,
+                                               device=dev), ctx["backbone"],
+                    fused=m is fused)
+    check(all(np.array_equal(a, b) for a, b in zip(
+        runs["fp32 fused"]["tags"], runs["fp32 unfused"]["tags"])),
+        "fused fp32 tags differ from the unfused ones")
+    server = BucketedGateCLServer(fused, max_batch=MAX_BATCH, device=dev)
+    _, (em_f, em_u) = first_batch(server, "fp32 fused", fused, unfused)
+    err = (em_f - em_u).abs().max().item()
+    print(f"#   fp32 fused vs unfused: tags identical, first-batch emissions "
+          f"max_abs_err {err:.3e} (tol {FUSED_EMISSIONS_TOL:.0e})")
+    check(err <= FUSED_EMISSIONS_TOL, f"fused fp32 emissions differ by {err}")
+    del unfused
+
+    # bench.py's serving configuration behind the loaded int8-static ResNet
+    t0 = time.perf_counter()
+    float_backbone = VisualBackbone(resnet_layers, device=dev).eval()
+    float_backbone.load_state_dict(backbone_state_dict(bvars), strict=True)
+    with torch.inference_mode():
+        pixels = preprocess_images(images, 224, device=dev)
+    backbones, _ = int8_static_backbones(
+        float_backbone, pixels, resnet_layers, dev,
+        fused=dict(fused_pallas=True))
+    backbone = backbones["fused"]
+    del float_backbone
+    dyn = gc_model("int8", dtype=torch.bfloat16)
+    dyn.load_state_dict(quantize_params_like(dyn.state_dict().keys(),
+                                             fp32_sd), strict=True)
+    serve(BucketedGateCLServer(dyn, max_batch=MAX_BATCH, device=dev),
+          backbone, texts, images)
+    calib = calibration_amax(dyn)
+    del dyn
+    models = {}
+    for name, pallas in (("kernel", True), ("plain", False)):
+        m = gc_model("int8_static", fuse=True, pallas=pallas,
+                     dtype=torch.bfloat16, softmax="bfloat16")
+        if not models:
+            keys = m.state_dict().keys()
+            static_sd = static_quantize_params_like(
+                keys, fuse_qkv_params(keys, fp32_sd),
+                fuse_qkv_params(keys, calib))
+        m.load_state_dict(static_sd, strict=True)
+        models[name] = m
+    n_q = sum(v.dtype == torch.int8 for v in static_sd.values())
+    print(f"#   calibrated {len(calib)} quantised modules on the requests "
+          f"(dynamic int8, bf16), fused and quantised {n_q} int8 weights "
+          f"(BERT's self-attention fused: {len(calib) - n_q} fewer), the "
+          f"int8-static ResNet-152 from load_backbone's weights, in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    servers = {"int8-static fused bucketed": BucketedGateCLServer(
+                   models["kernel"], max_batch=MAX_BATCH, device=dev),
+               "int8-static fused packed": PackedGateCLServer(
+                   models["kernel"], tiers=PACKED_TIERS,
+                   max_batch=MAX_BATCH, device=dev),
+               "int8-static fused plain core": BucketedGateCLServer(
+                   models["plain"], max_batch=MAX_BATCH, device=dev)}
+    for name, srv in servers.items():
+        run = run_counted(name, srv, backbone, kernel="plain" not in name)
+        if CHECK_CONV_LAUNCHES:
+            k4, k5 = (run["counts"][n] for n in ("int8_bottleneck_v2",
+                                                 "int8_stem_pool"))
+            check(k5 == 1 and k4 == ctx["identity_blocks"],
+                  f"{name}: K5 launched {k5} times and K4 {k4}")
+    name = "int8-static fused bucketed"
+    batch, (em_k, em_p, em_32) = first_batch(
+        servers[name], name, models["kernel"], models["plain"], fused)
+    check(bool(torch.isfinite(em_k.float()).all()),
+          "int8-static: non-finite emissions")
+    agree_p = agreement(runs["int8-static fused packed"]["tags"],
+                        runs[name]["tags"])
+    print(f"#   packed vs bucketed tags (int8-static, K1): {agree_p:.6f}")
+    check(agree_p >= 0.99, f"int8-static packed vs bucketed {agree_p}")
+
+    # the fused int8-static qkv Dense on the card against the CPU
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    qkv = models["kernel"].bert.encoder.layer_0.attn.qkv
+    L = max(servers[name].buckets)
+    x = (torch.randn(MAX_BATCH, L, cfg_enc.hidden_size, generator=gen,
+                     device=dev).to(torch.bfloat16))
+    host = copy.deepcopy(qkv).to("cpu")
+    with torch.inference_mode():
+        got, want = qkv(x).cpu(), host(x.cpu())
+    check(got.dtype == want.dtype and torch.equal(got, want),
+          f"fused int8-static qkv: card and CPU differ (max "
+          f"{(got.float() - want.float()).abs().max().item()})")
+    print(f"#   fused int8-static qkv Dense ({cfg_enc.hidden_size} -> "
+          f"{3 * cfg_enc.hidden_size}) bit-equal on the card and the CPU "
+          f"at ({MAX_BATCH}, {L}, {cfg_enc.hidden_size}) bf16 inputs")
+
+    # printed, not held: random weights (PERF.md §7)
+    valid = batch["input_mask"]
+    for what, other, tags in (
+            ("the same model on the plain core (bench.py's configuration "
+             "exactly)", em_p, runs["int8-static fused plain core"]["tags"]),
+            ("the fp32 fused model of step 3 (float ResNet-152)", em_32,
+             runs["fp32 fused"]["tags"])):
+        cos = token_cosines(em_k, other, valid)
+        print(f"#   vs {what}: tag agreement "
+              f"{agreement(runs[name]['tags'], tags):.6f}; first-batch "
+              f"emissions per-token cosine mean {cos.mean().item():.6f}, "
+              f"min {cos.min().item():.6f}")
+    for label, srv, bb in (
+            ("int8-static fused gate_cl bucketed", servers[name], backbone),
+            ("int8-static fused gate_cl packed",
+             servers["int8-static fused packed"], backbone),
+            ("phase 9's float bf16 gate_cl bucketed", ctx["gc_server_bf16"],
+             ctx["backbone_bf16"])):
+        report_walls(label, lambda: serve(srv, bb, texts, images), card,
+                     len(texts))
+    print(f"#   phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return total
 
 
@@ -1762,7 +2280,10 @@ def phase_bert_times(gen, row):
     """K1 at BERT-base's heads (12 x 64), B=128, at the longest bucket
     (S=128, key bias) and the short packed tier (S=48, block-diagonal full
     bias), bf16 and fp32, beside its plain version, SDPA (TF32 off in
-    fp32) and its bound. Adds `bert_*` keys to K1's row."""
+    fp32) and its bound; its device time per launch from the profiler
+    (these launches are shorter than the wrapper's host time), and at 128
+    on the strided views of one fused projection. Adds `bert_*` keys to
+    K1's row."""
     B, N = 128, 12
     print(f"# phase 7: K1 at the gate_cl family's shapes, B={B}, {N} heads "
           f"of 64")
@@ -1778,19 +2299,39 @@ def phase_bert_times(gen, row):
                 q, k, v, bias, N), f"K1 12x64 {dtype} S={S} at B={B}")
             del out
             ms = cuda_time_ms(lambda: fused_attention(q, k, v, bias, N))
+            device_ms = kernel_device_ms(
+                lambda: fused_attention(q, k, v, bias, N))
             plain_ms = cuda_time_ms(lambda: attention_reference(
                 q, k, v, bias, N), iters=10, warmup=2)
             library_ms = sdpa_ms(q, k, v, bias, N, 50)
             bound_ms, bound_by, byts, flops = attention_bound(q, k, bias, N)
             tag = f"bert_{str(dtype)[6:]}_s{S}"
+            if kind == "B11Sk":
+                # the same call on q, k and v read in place from one fused
+                # (B, S, 3D) projection, as phase 10's fused encoder runs it
+                qkv = torch.cat([q, k, v], dim=-1)
+                views = qkv.split(q.shape[-1], dim=-1)
+                check(torch.equal(fused_attention(*views, bias, N),
+                                  fused_attention(q, k, v, bias, N)),
+                      f"K1 12x64 {dtype} S={S}: strided views differ")
+                row[f"{tag}_strided_device_ms"] = kernel_device_ms(
+                    lambda: fused_attention(*views, bias, N))
+                del qkv, views
             row.update({f"{tag}_{key}": val for key, val in (
                 ("shape", f"B={B} Sq=Sk={S} {N}x64 {str(dtype)[6:]} "
                           f"bias={kind}"),
-                ("max_abs_err", err), ("ms", ms), ("plain_ms", plain_ms),
+                ("max_abs_err", err), ("ms", ms), ("device_ms", device_ms),
+                ("plain_ms", plain_ms),
                 ("bound_ms", bound_ms), ("bound_by", bound_by),
                 ("library_ms", library_ms))})
+            strided = (f" (on the strided views of one fused projection, "
+                       f"bit-equal: device time "
+                       f"{row[f'{tag}_strided_device_ms']:.4f} ms)"
+                       if f"{tag}_strided_device_ms" in row else "")
             print(f"#   {str(dtype)[6:]} Sq=Sk={S} bias={kind}: max_abs_err "
-                  f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"{err:.3e}; kernel {ms:.4f} ms (profiler device time "
+                  f"{device_ms:.4f} ms a launch){strided}, plain "
+                  f"{plain_ms:.4f} ms, "
                   f"SDPA {library_ms:.4f} ms ({ms / library_ms:.2f}x), bound "
                   f"{bound_ms:.4f} ms ({ms / bound_ms:.1f}x; {bound_by}: "
                   f"{byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
@@ -1839,26 +2380,10 @@ def phase_int8_visual(args, card, dev, ctx, resnet_layers):
     t0 = time.perf_counter()
     with torch.inference_mode():
         pixels = preprocess_images(images, 224, device=dev)
-        dyn = VisualBackbone(resnet_layers, dtype=torch.bfloat16,
-                             quant="int8", device=dev).eval()
-        dyn.load_state_dict(float_backbone.state_dict(), strict=True)
-        dyn(pixels)
-    calib = calibration_amax(dyn)
-    del dyn
-    models = {name: VisualBackbone(resnet_layers, dtype=torch.bfloat16,
-                                   quant="int8_static", device=dev,
-                                   **kw).eval()
-              for name, kw in (
-                  ("fused", dict(fused_pallas=True)),
-                  ("fused_plain", dict(fused_pallas=True,
-                                       plain_kernels=True)),
-                  ("unfused", {}))}
-    static_sd = static_quantize_backbone(
-        models["fused"].state_dict().keys(), float_backbone.state_dict(),
-        calib)
-    for name, m in models.items():
-        m.load_state_dict({k: v for k, v in static_sd.items()
-                           if k in m.state_dict()}, strict=True)
+    models, calib = int8_static_backbones(
+        float_backbone, pixels, resnet_layers, dev,
+        fused=dict(fused_pallas=True),
+        fused_plain=dict(fused_pallas=True, plain_kernels=True), unfused={})
     identity_blocks = sum(n - 1 for n in resnet_layers)
     print(f"#   calibrated {len(calib)} ConvBN on the request images "
           f"(act amax {min(calib.values()):.3f}..{max(calib.values()):.3f})"
@@ -1980,6 +2505,32 @@ def phase_int8_visual(args, card, dev, ctx, resnet_layers):
     except Exception as e:       # the profiler is a report, not a check
         print(f"#   int8 visual device profile not measured ({e!r})")
     return counts
+
+
+def int8_static_backbones(float_backbone, pixels, layers, dev, **variants):
+    """Phase 4's quantisation of a float ResNet: the dynamic int8 backbone
+    on its weights calibrated on `pixels`, then each of `variants` ({name:
+    `VisualBackbone` flags}) built int8-static in bf16 and loaded with the
+    statically quantised state (`static_quantize_backbone`, strict).
+    Returns ({name: backbone}, the calibration record)."""
+    with torch.inference_mode():
+        dyn = VisualBackbone(layers, dtype=torch.bfloat16, quant="int8",
+                             device=dev).eval()
+        dyn.load_state_dict(float_backbone.state_dict(), strict=True)
+        dyn(pixels)
+    calib = calibration_amax(dyn)
+    del dyn
+    models = {name: VisualBackbone(layers, dtype=torch.bfloat16,
+                                   quant="int8_static", device=dev,
+                                   **kw).eval()
+              for name, kw in variants.items()}
+    static_sd = static_quantize_backbone(
+        sorted(set().union(*(m.state_dict() for m in models.values()))),
+        float_backbone.state_dict(), calib)
+    for m in models.values():
+        m.load_state_dict({k: v for k, v in static_sd.items()
+                           if k in m.state_dict()}, strict=True)
+    return models, calib
 
 
 @contextlib.contextmanager
@@ -2307,9 +2858,11 @@ def k1_tiling_ms(q, k, v, bias, N, iters):
 
 
 def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
-                int8_static_launches, train_launches, gate_cl_launches):
-    """K1's row: `launches` counts phase 3 and phase 9 (the gate_cl family),
-    the other paths' counts beside it."""
+                int8_static_launches, train_launches, gate_cl_launches,
+                weights_launches):
+    """K1's row: `launches` counts phase 3, phase 9 (the gate_cl family)
+    and phase 10 (gate_cl on weights from disk, fused QKV), the other
+    paths' counts beside it."""
     B, S, N, hd, dtype = 128, 150, 16, 64, torch.bfloat16
     print(f"# phase 7: K1 at B={B} Sq=Sk={S} {N}x{hd} bf16, key-mask bias "
           f"(the tensor-core body at {K1_TILES}; the prompted encoder's "
@@ -2327,9 +2880,10 @@ def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
     tilings = k1_tiling_ms(q, k, v, bias, N, 50)
     row = {"name": "fused_attention", "route": "cuda", "source": K2_SOURCE,
            "replaces": "icka_tpu/kernels/attention.py:87",
-           "launches": launches + gate_cl_launches,
+           "launches": launches + gate_cl_launches + weights_launches,
            "flagship_launches": launches,
            "gate_cl_launches": gate_cl_launches,
+           "weights_launches": weights_launches,
            "packed_launches": packed_launches,
            "eval_launches": eval_launches,
            "int8_static_launches": int8_static_launches,
@@ -2601,16 +3155,18 @@ def main(argv=None) -> int:
         gc_base = GateCLConfig()
         gc_serve_counts = phase_gate_cl_serving(args, card, dev, gc_base,
                                                 ctx)
+        weights_counts = phase_weights(args, card, dev, gc_base, ctx, layers)
         del ctx
         torch.cuda.empty_cache()
         train_counts = phase_train(args, card, dev, base, layers)
         gc_train_counts = phase_gate_cl_train(args, card, dev, gc_base,
                                               layers)
-        # over the eight main paths, each driven from counts of 0
+        # over the nine main paths, each driven from counts of 0
         runs = (counts, conv_counts, int8_text_counts, packed_counts,
-                eval_counts, train_counts, gc_serve_counts, gc_train_counts)
+                eval_counts, train_counts, gc_serve_counts, gc_train_counts,
+                weights_counts)
         total = {name: sum(c[name] for c in runs) for name in COUNTERS}
-        print(f"#   kernel launches over the eight main paths: {total}")
+        print(f"#   kernel launches over the nine main paths: {total}")
         for name in NO_CALLER:
             check(total[name] == 0, f"{name} has no caller in the model, yet "
                                     f"the main paths launched it "
@@ -2629,7 +3185,8 @@ def main(argv=None) -> int:
                               int8_text_counts["fused_attention"],
                               train_counts["fused_attention"],
                               gc_serve_counts["fused_attention"]
-                              + gc_train_counts["fused_attention"])
+                              + gc_train_counts["fused_attention"],
+                              weights_counts["fused_attention"])
         kernels += phase_conv_times(gen, total, conv_errs)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

@@ -52,14 +52,18 @@ class EncoderConfig:
     # route self-attention through the fused attention kernel
     # (`icka_tpu_torch.kernels.attention`) instead of the plain core
     use_pallas: bool = False
-    # "none" only in this package so far: the encoders' int8 modes are not
-    # ported (the visual backbone's are arguments of `VisualBackbone`)
+    # every projection of the encoder's layers: "none", "int8" (dynamic
+    # per-row activation scales, the calibration mode) or "int8_static"
+    # (calibrated per-tensor scales); the visual backbone's modes are
+    # arguments of `VisualBackbone`
     quant: str = "none"
     # activation rematerialisation, a training knob: inference ignores
     # both, and training with remat=True raises (not ported)
     remat: bool = False
     remat_policy: str = "dots"
-    # one fused (H, 3H) QKV projection; not ported yet
+    # one fused (H, 3H) QKV projection in every self-attention (the
+    # serving layout; `models.convert.fuse_qkv_params` re-lays weights and
+    # calibration); cross-attention keeps query, key and value
     fuse_qkv: bool = False
     # softmax dtype of the plain attention core (the kernel path is always
     # fp32 softmax)

@@ -26,14 +26,18 @@ Every width without an instance is zero-padded per head of q, k and v to
 the next instance (`kernel_width`; above 256 the next multiple of 32), with
 the unpadded width's scale (zero columns add exact zeros to every
 product), and the padded output columns are dropped. Every body stages q,
-k and v by 16-byte copies, so a CUDA tensor must be aligned to 16 bytes:
-a misaligned view raises before the launch (the model passes fresh `Dense`
-outputs, which are).
+k and v by 16-byte copies and reads them through a row stride each, so q,
+k and v may be strided views: the (B, S, D) slices of one fused (B, S, 3D)
+projection (`fuse_qkv`) are read in place, not copied. A CUDA tensor must
+be aligned to 16 bytes, its last dimension contiguous, its rows a multiple
+of 8 elements apart and its batches S rows apart (`row_stride`); any other
+layout raises before the launch. The output is contiguous (B, Sq, D).
 
 Each wrapper takes its plain version (`attention_reference`,
 `attention_blockwise_reference`) for tensors on the CPU, and only then. For
 CUDA tensors it launches a kernel or raises. `<wrapper>.launches` counts
-kernel launches.
+kernel launches, `<wrapper>.strided_launches` those of them whose q, k or v
+was not contiguous.
 """
 
 from __future__ import annotations
@@ -128,11 +132,28 @@ def _check_kernel_inputs(name, q, k, v, num_heads):
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} kernel takes float32 or bfloat16 q/k/v of "
                         f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError(f"{name} kernel needs contiguous q, k, v")
     if min(B, Sq, Sk, hd) == 0 or max(B, num_heads) > _GRID_LIMIT:
         raise ValueError(f"{name} kernel cannot take B={B}, Sq={Sq}, "
                          f"Sk={Sk}, num_heads={num_heads}, head_dim={hd}")
+
+
+def row_stride(name, x) -> int:
+    """The elements between two rows of a (B, S, D) CUDA tensor the kernel
+    reads in place: its last dimension contiguous, rows a multiple of 8
+    elements apart (16-byte copies in either type), batches S rows apart,
+    and its first element aligned to 16 bytes. Raises otherwise."""
+    B, S, D = x.shape
+    ld = x.stride(1) if S > 1 else (x.stride(0) if B > 1 else D)
+    if ((D > 1 and x.stride(2) != 1) or ld < D or ld % 8
+            or (B > 1 and x.stride(0) != S * ld)
+            or x.data_ptr() % 16):
+        raise ValueError(
+            f"{name} kernel cannot read a (B, S, D) = {tuple(x.shape)} "
+            f"tensor with strides {x.stride()} at {x.data_ptr() % 16} bytes "
+            f"past a 16-byte boundary: it needs the last dimension "
+            f"contiguous, rows a multiple of 8 elements apart, batches S "
+            f"rows apart, and q, k, v aligned to 16 bytes")
+    return ld
 
 
 def kernel_width(hd: int) -> int:
@@ -210,11 +231,18 @@ def _fused_attention(q, k, v, bias, num_heads: int):
     _check_kernel_inputs(name, q, k, v, num_heads)
     tiles = K1_TILES if q.dtype == torch.bfloat16 else K1_FP32_TILES
     out = _blockwise_launch(name, q, k, v, bias, num_heads, *tiles)
-    fused_attention.launches += 1
+    _count(fused_attention, q, k, v)
     return out
 
 
+def _count(wrapper, q, k, v):
+    wrapper.launches += 1
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        wrapper.strided_launches += 1
+
+
 fused_attention.launches = 0
+fused_attention.strided_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -329,6 +357,7 @@ def attention_blockwise_reference(q, k, v, bias, num_heads: int,
 def _blockwise_kernel():
     fn = build.load("blockwise_attention").icka_blockwise_attention
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_longlong] * 3
                    + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 3
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -338,25 +367,27 @@ def _blockwise_kernel():
 def _blockwise_launch(name, q, k, v, bias, num_heads: int, block_q: int,
                       block_k: int):
     """One launch of `csrc/blockwise_attention.cu` on CUDA tensors that
-    passed `_check_kernel_inputs`; returns the output. Raises before the
-    launch when q, k or v (after padding) are not aligned to 16 bytes."""
+    passed `_check_kernel_inputs`; returns the output. q, k and v are read
+    in place through their row strides (`row_stride`, which raises before
+    the launch on any other layout), or as zero-padded copies at widths
+    without an instance."""
     B, Sq, D = q.shape
     Sk = k.shape[1]
     key_mode, b = _blockwise_bias(bias, B, Sq, Sk)
     hd = D // num_heads
     width = kernel_width(hd)
     q, k, v = (pad_heads(t, num_heads, width) for t in (q, k, v))
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"{name} kernel needs q, k, v aligned to 16 bytes")
+    lds = [row_stride(name, t) for t in (q, k, v)]
     bq, bk = blockwise_tiles(Sq, Sk, hd, q.dtype, block_q, block_k)
     strides = (b.stride(0), 0, b.stride(1)) if key_mode else b.stride()
-    out = torch.empty_like(q)
+    out = torch.empty(B, Sq, num_heads * width, dtype=q.dtype,
+                      device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _blockwise_kernel()(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            b.data_ptr(), out.data_ptr(), B, Sq, Sk, num_heads, width, bq,
-            bk, int(key_mode), *strides, hd ** -0.5, stream)
+            b.data_ptr(), out.data_ptr(), *lds, B, Sq, Sk, num_heads, width,
+            bq, bk, int(key_mode), *strides, hd ** -0.5, stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return crop_heads(out, num_heads, hd)
@@ -379,8 +410,9 @@ def fused_attention_blockwise(q, k, v, bias, num_heads: int,
     _check_kernel_inputs(name, q, k, v, num_heads)
     out = _blockwise_launch(name, q, k, v, bias, num_heads, block_q,
                             block_k)
-    fused_attention_blockwise.launches += 1
+    _count(fused_attention_blockwise, q, k, v)
     return out
 
 
 fused_attention_blockwise.launches = 0
+fused_attention_blockwise.strided_launches = 0

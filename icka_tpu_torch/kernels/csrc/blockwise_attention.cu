@@ -110,6 +110,14 @@ namespace {
 using namespace icka_attention;
 using namespace icka_ptx;
 
+// Row strides of q, k and v, in elements. A row is num_heads * head_dim
+// wide but may lie inside a wider one (q, k and v as views of one fused
+// (B, S, 3D) projection); batch b starts at b * S * ld. The output is
+// always contiguous (B, Sq, num_heads * head_dim).
+struct RowStrides {
+  long long q, k, v;
+};
+
 // ---------------------------------------------------------------------------
 // Head widths above 128: the CUDA-core body, in column chunks
 // ---------------------------------------------------------------------------
@@ -148,8 +156,8 @@ __global__ void __launch_bounds__(kWideThreads, 1)
                                const T* __restrict__ k,
                                const T* __restrict__ v,
                                const float* __restrict__ bias,
-                               T* __restrict__ out, int Sq, int Sk,
-                               int num_heads, int hd, int key_mode,
+                               T* __restrict__ out, RowStrides ld, int Sq,
+                               int Sk, int num_heads, int hd, int key_mode,
                                long long bias_sb, long long bias_sq,
                                long long bias_sk, float scale) {
   using Chunk = typename Num<T>::Chunk;
@@ -168,10 +176,10 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   const int q0 = blockIdx.x / nc * bq, h = blockIdx.y, b = blockIdx.z;
   const int c0 = blockIdx.x % nc * CW;    // this block's output columns:
   const int ow = min(CW, hd - c0);        // c0 .. c0 + ow - 1
-  const long long D = (long long)num_heads * hd;
-  const T* qb = q + (long long)b * Sq * D + h * hd;
-  const T* kb = k + (long long)b * Sk * D + h * hd;
-  const T* vb = v + (long long)b * Sk * D + h * hd;
+  const long long D = (long long)num_heads * hd;  // output row
+  const T* qb = q + (long long)b * Sq * ld.q + h * hd;
+  const T* kb = k + (long long)b * Sk * ld.k + h * hd;
+  const T* vb = v + (long long)b * Sk * ld.v + h * hd;
   const float* bias_b = bias + b * bias_sb;
 
   const int row0 = warp * kRows;           // this warp's rows of the tile
@@ -202,7 +210,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
           float f[kVec] = {0.f, 0.f, 0.f, 0.f};
           if (q0 + r < Sq)
             Num<T>::unpack(*reinterpret_cast<const Chunk*>(
-                               qb + (long long)(q0 + r) * D + d0 + cc * kVec),
+                               qb + (long long)(q0 + r) * ld.q + d0 + cc * kVec),
                            f);
           *reinterpret_cast<float4*>(qs + r * CW + cc * kVec) =
               make_float4(f[0], f[1], f[2], f[3]);
@@ -212,7 +220,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
         Chunk kc = Num<T>::zero();
         if (k0 + r < Sk)
           kc = *reinterpret_cast<const Chunk*>(
-              kb + (long long)(k0 + r) * D + d0 + cc * kVec);
+              kb + (long long)(k0 + r) * ld.k + d0 + cc * kVec);
         *reinterpret_cast<Chunk*>(ks + r * LD + cc * kVec) = kc;
       }
       if (c == nc - 1) {  // this block's V chunk and the tile's bias strip
@@ -222,7 +230,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
           Chunk vc = Num<T>::zero();
           if (k0 + r < Sk)
             vc = *reinterpret_cast<const Chunk*>(
-                vb + (long long)(k0 + r) * D + c0 + cc * kVec);
+                vb + (long long)(k0 + r) * ld.v + c0 + cc * kVec);
           *reinterpret_cast<Chunk*>(vs + r * LD + cc * kVec) = vc;
         }
         if (key_mode)
@@ -314,7 +322,8 @@ __global__ void __launch_bounds__(kWideThreads, 1)
 
 template <typename T, int DPL>
 cudaError_t launch_wide_chunk(const void* q, const void* k, const void* v,
-                              const float* bias, void* out, int B, int Sq,
+                              const float* bias, void* out, RowStrides ld,
+                              int B, int Sq,
                               int Sk, int num_heads, int hd, int bq,
                               int key_mode, long long sb, long long sq,
                               long long sk, float scale, cudaStream_t stream) {
@@ -328,15 +337,16 @@ cudaError_t launch_wide_chunk(const void* q, const void* k, const void* v,
   const dim3 grid((Sq + bq - 1) / bq * nc, num_heads, B);
   kernel<<<grid, bq / kRows * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<T*>(out), Sq, Sk, num_heads,
-      hd, key_mode, sb, sq, sk, scale);
+      static_cast<const T*>(v), bias, static_cast<T*>(out), ld, Sq, Sk,
+      num_heads, hd, key_mode, sb, sq, sk, scale);
   return cudaGetLastError();
 }
 
 // widths above 128 (multiples of 32): one key tile of 32, bq <= 64
 template <typename T>
 cudaError_t launch_wide(const void* q, const void* k, const void* v,
-                        const float* bias, void* out, int B, int Sq, int Sk,
+                        const float* bias, void* out, RowStrides ld, int B,
+                        int Sq, int Sk,
                         int num_heads, int hd, int bq, int key_mode,
                         long long sb, long long sq, long long sk, float scale,
                         cudaStream_t stream) {
@@ -344,7 +354,7 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v,
   switch (column_chunk(hd) / 32) {
 #define ICKA_COLS(DPL)                                                      \
   case DPL:                                                                 \
-    return launch_wide_chunk<T, DPL>(q, k, v, bias, out, B, Sq, Sk,         \
+    return launch_wide_chunk<T, DPL>(q, k, v, bias, out, ld, B, Sq, Sk,     \
                                      num_heads, hd, bq, key_mode, sb, sq,   \
                                      sk, scale, stream);
     ICKA_COLS(5)
@@ -403,8 +413,9 @@ __global__ void __launch_bounds__(kMmaMaxThreads,
                                    const bf16* __restrict__ k,
                                    const bf16* __restrict__ v,
                                    const float* __restrict__ bias,
-                                   bf16* __restrict__ out, int Sq, int Sk,
-                                   int num_heads, int key_mode,
+                                   bf16* __restrict__ out, RowStrides ld,
+                                   int Sq, int Sk, int num_heads,
+                                   int key_mode,
                                    long long bias_sb, long long bias_sq,
                                    long long bias_sk, float scale) {
   constexpr int LD = HD + kRowPad;  // staged row, in elements
@@ -420,10 +431,10 @@ __global__ void __launch_bounds__(kMmaMaxThreads,
   float* kbias = reinterpret_cast<float*>(kvs + 4 * BK * LD);  // 2 x (BK,)
 
   const int q0 = blockIdx.x * bq, h = blockIdx.y, b = blockIdx.z;
-  const long long D = (long long)num_heads * HD;
-  const bf16* qg = q + (long long)b * Sq * D + h * HD;
-  const bf16* kg = k + (long long)b * Sk * D + h * HD;
-  const bf16* vg = v + (long long)b * Sk * D + h * HD;
+  const long long D = (long long)num_heads * HD;  // output row
+  const bf16* qg = q + (long long)b * Sq * ld.q + h * HD;
+  const bf16* kg = k + (long long)b * Sk * ld.k + h * HD;
+  const bf16* vg = v + (long long)b * Sk * ld.v + h * HD;
   const float* bias_b = bias + b * bias_sb;
 
   // the query tile; rows past Sq arrive as zeros
@@ -431,7 +442,7 @@ __global__ void __launch_bounds__(kMmaMaxThreads,
     const int r = i / CH, c = i % CH;
     const bool ok = q0 + r < Sq;
     cp_async16(qs + r * LD + c * 8,
-               qg + (ok ? (long long)(q0 + r) * D + c * 8 : 0), ok);
+               qg + (ok ? (long long)(q0 + r) * ld.q + c * 8 : 0), ok);
   }
   cp_async_commit();
 
@@ -443,9 +454,9 @@ __global__ void __launch_bounds__(kMmaMaxThreads,
     for (int i = tid; i < BK * CH; i += threads) {
       const int r = i / CH, c = i % CH;
       const bool ok = k0 + r < Sk;
-      const long long off = ok ? (long long)(k0 + r) * D + c * 8 : 0;
-      cp_async16(ks + r * LD + c * 8, kg + off, ok);
-      cp_async16(vs + r * LD + c * 8, vg + off, ok);
+      const long long row = ok ? k0 + r : 0;
+      cp_async16(ks + r * LD + c * 8, kg + row * ld.k + c * 8, ok);
+      cp_async16(vs + r * LD + c * 8, vg + row * ld.v + c * 8, ok);
     }
     if (key_mode)
       for (int i = tid; i < BK; i += threads) {
@@ -735,8 +746,9 @@ __global__ void __launch_bounds__(kMmaMaxThreads, 1)
                                     const float* __restrict__ k,
                                     const float* __restrict__ v,
                                     const float* __restrict__ bias,
-                                    float* __restrict__ out, int Sq, int Sk,
-                                    int num_heads, int key_mode,
+                                    float* __restrict__ out, RowStrides ld,
+                                    int Sq, int Sk, int num_heads,
+                                    int key_mode,
                                     long long bias_sb, long long bias_sq,
                                     long long bias_sk, float scale) {
   constexpr int LD = HD + kTf32Pad;  // staged row, in elements
@@ -753,10 +765,10 @@ __global__ void __launch_bounds__(kMmaMaxThreads, 1)
   float* kbias = kvs + 4 * BK * LD;            // 2 x (BK,)
 
   const int q0 = blockIdx.x * bq, h = blockIdx.y, b = blockIdx.z;
-  const long long D = (long long)num_heads * HD;
-  const float* qg = q + (long long)b * Sq * D + h * HD;
-  const float* kg = k + (long long)b * Sk * D + h * HD;
-  const float* vg = v + (long long)b * Sk * D + h * HD;
+  const long long D = (long long)num_heads * HD;  // output row
+  const float* qg = q + (long long)b * Sq * ld.q + h * HD;
+  const float* kg = k + (long long)b * Sk * ld.k + h * HD;
+  const float* vg = v + (long long)b * Sk * ld.v + h * HD;
   const float* bias_b = bias + b * bias_sb;
 
   // the query tile; rows past Sq arrive as zeros
@@ -764,7 +776,7 @@ __global__ void __launch_bounds__(kMmaMaxThreads, 1)
     const int r = i / CH, c = i % CH;
     const bool ok = q0 + r < Sq;
     cp_async16(qs + r * LD + c * 4,
-               qg + (ok ? (long long)(q0 + r) * D + c * 4 : 0), ok);
+               qg + (ok ? (long long)(q0 + r) * ld.q + c * 4 : 0), ok);
   }
   cp_async_commit();
 
@@ -776,9 +788,9 @@ __global__ void __launch_bounds__(kMmaMaxThreads, 1)
     for (int i = tid; i < BK * CH; i += threads) {
       const int r = i / CH, c = i % CH;
       const bool ok = k0 + r < Sk;
-      const long long off = ok ? (long long)(k0 + r) * D + c * 4 : 0;
-      cp_async16(ks + r * LD + c * 4, kg + off, ok);
-      cp_async16(vs + r * LD + c * 4, vg + off, ok);
+      const long long row = ok ? k0 + r : 0;
+      cp_async16(ks + r * LD + c * 4, kg + row * ld.k + c * 4, ok);
+      cp_async16(vs + r * LD + c * 4, vg + row * ld.v + c * 4, ok);
     }
     if (key_mode)
       for (int i = tid; i < BK; i += threads) {
@@ -1005,12 +1017,13 @@ __global__ void __launch_bounds__(kMmaMaxThreads, 1)
 
 template <typename T>
 using MmaKernel = void (*)(const T*, const T*, const T*, const float*, T*,
-                           int, int, int, int, long long, long long,
-                           long long, float);
+                           RowStrides, int, int, int, int, long long,
+                           long long, long long, float);
 
 template <typename T, int BK, int HD>
 cudaError_t launch_mma_tile(const void* q, const void* k, const void* v,
-                            const float* bias, void* out, int B, int Sq,
+                            const float* bias, void* out, RowStrides ld,
+                            int B, int Sq,
                             int Sk, int num_heads, int bq, int key_mode,
                             long long sb, long long sq, long long sk,
                             float scale, cudaStream_t stream) {
@@ -1029,7 +1042,7 @@ cudaError_t launch_mma_tile(const void* q, const void* k, const void* v,
   const dim3 grid((Sq + bq - 1) / bq, num_heads, B);
   kernel<<<grid, bq / kMmaRows * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<T*>(out), Sq, Sk,
+      static_cast<const T*>(v), bias, static_cast<T*>(out), ld, Sq, Sk,
       num_heads, key_mode, sb, sq, sk, scale);
   return cudaGetLastError();
 }
@@ -1037,13 +1050,13 @@ cudaError_t launch_mma_tile(const void* q, const void* k, const void* v,
 template <typename T, int BK>
 cudaError_t launch_mma_width(int hd, const void* q, const void* k,
                              const void* v, const float* bias, void* out,
-                             int B, int Sq, int Sk, int num_heads, int bq,
+                             RowStrides ld, int B, int Sq, int Sk, int num_heads, int bq,
                              int key_mode, long long sb, long long sq,
                              long long sk, float scale, cudaStream_t stream) {
   switch (hd) {
 #define ICKA_WIDTH(HD)                                                       \
   case HD:                                                                   \
-    return launch_mma_tile<T, BK, HD>(q, k, v, bias, out, B, Sq, Sk,         \
+    return launch_mma_tile<T, BK, HD>(q, k, v, bias, out, ld, B, Sq, Sk,     \
                                       num_heads, bq, key_mode, sb, sq, sk,   \
                                       scale, stream);
     ICKA_WIDTH(16)
@@ -1061,14 +1074,15 @@ cudaError_t launch_mma_width(int hd, const void* q, const void* k,
 
 template <typename T>
 cudaError_t launch_mma(int bk, const void* q, const void* k, const void* v,
-                       const float* bias, void* out, int B, int Sq, int Sk,
+                       const float* bias, void* out, RowStrides ld, int B,
+                       int Sq, int Sk,
                        int num_heads, int hd, int bq, int key_mode,
                        long long sb, long long sq, long long sk, float scale,
                        cudaStream_t stream) {
   switch (bk) {
 #define ICKA_KEYS(BK)                                                        \
   case BK:                                                                   \
-    return launch_mma_width<T, BK>(hd, q, k, v, bias, out, B, Sq, Sk,        \
+    return launch_mma_width<T, BK>(hd, q, k, v, bias, out, ld, B, Sq, Sk,    \
                                    num_heads, bq, key_mode, sb, sq, sk,      \
                                    scale, stream);
     ICKA_KEYS(32)
@@ -1076,7 +1090,7 @@ cudaError_t launch_mma(int bk, const void* q, const void* k, const void* v,
   }
   if constexpr (!std::is_same_v<T, float>)  // 3xTF32: at most 64 keys
     if (bk == 128)
-      return launch_mma_width<T, 128>(hd, q, k, v, bias, out, B, Sq, Sk,
+      return launch_mma_width<T, 128>(hd, q, k, v, bias, out, ld, B, Sq, Sk,
                                       num_heads, bq, key_mode, sb, sq, sk,
                                       scale, stream);
   return cudaErrorInvalidValue;
@@ -1089,37 +1103,44 @@ cudaError_t launch_mma(int bk, const void* q, const void* k, const void* v,
 // block_k in {32, 64, 128} (bf16) or {32, 64} (fp32); above, head_dim a
 // multiple of 32, the CUDA-core body runs in both types at block_k 32 and
 // block_q 32 or 64, in column chunks of at most 256. q, k and v aligned to
-// 16 bytes; key_mode != 0 reads `bias` as (B, Sk) through (bias_sb,
+// 16 bytes, their rows ldq, ldk and ldv elements apart (multiples of 8, at
+// least num_heads * head_dim; batch b at b * S * ld); the output is written
+// contiguous. key_mode != 0 reads `bias` as (B, Sk) through (bias_sb,
 // bias_sk), else as (B, Sq, Sk) through all three strides. Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for arguments without an instance or a tiling that
 // does not fit shared memory; the caller checks it.
 extern "C" int icka_blockwise_attention(
     int dtype, const void* q, const void* k, const void* v, const void* bias,
-    void* out, int B, int Sq, int Sk, int num_heads, int head_dim,
-    int block_q, int block_k, int key_mode, long long bias_sb,
-    long long bias_sq, long long bias_sk, float scale, void* stream) {
+    void* out, long long ldq, long long ldk, long long ldv, int B, int Sq,
+    int Sk, int num_heads, int head_dim, int block_q, int block_k,
+    int key_mode, long long bias_sb, long long bias_sq, long long bias_sk,
+    float scale, void* stream) {
   const float* b = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const RowStrides ld{ldq, ldk, ldv};
   if (head_dim <= 0 || head_dim % 16 || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   if (block_q != 32 && block_q != 64 && block_q != 128)
     return cudaErrorInvalidValue;
+  const long long D = (long long)num_heads * head_dim;
+  if (ldq < D || ldk < D || ldv < D || ldq % 8 || ldk % 8 || ldv % 8)
+    return cudaErrorInvalidValue;
   if (head_dim > 128) {
     if (head_dim % 32 || block_k != 32) return cudaErrorInvalidValue;
     return dtype == 0
-               ? launch_wide<float>(q, k, v, b, out, B, Sq, Sk, num_heads,
-                                    head_dim, block_q, key_mode, bias_sb,
-                                    bias_sq, bias_sk, scale, s)
-               : launch_wide<bf16>(q, k, v, b, out, B, Sq, Sk, num_heads,
-                                   head_dim, block_q, key_mode, bias_sb,
-                                   bias_sq, bias_sk, scale, s);
+               ? launch_wide<float>(q, k, v, b, out, ld, B, Sq, Sk,
+                                    num_heads, head_dim, block_q, key_mode,
+                                    bias_sb, bias_sq, bias_sk, scale, s)
+               : launch_wide<bf16>(q, k, v, b, out, ld, B, Sq, Sk,
+                                   num_heads, head_dim, block_q, key_mode,
+                                   bias_sb, bias_sq, bias_sk, scale, s);
   }
   return dtype == 0
-             ? launch_mma<float>(block_k, q, k, v, b, out, B, Sq, Sk,
+             ? launch_mma<float>(block_k, q, k, v, b, out, ld, B, Sq, Sk,
                                  num_heads, head_dim, block_q, key_mode,
                                  bias_sb, bias_sq, bias_sk, scale, s)
-             : launch_mma<bf16>(block_k, q, k, v, b, out, B, Sq, Sk,
+             : launch_mma<bf16>(block_k, q, k, v, b, out, ld, B, Sq, Sk,
                                 num_heads, head_dim, block_q, key_mode,
                                 bias_sb, bias_sq, bias_sk, scale, s);
 }

@@ -1,14 +1,23 @@
-"""Calibration and offline quantisation (port of the quantisers of
-`icka_tpu.models.convert`), as numpy on state_dicts.
+"""Checkpoint converters, calibration and offline quantisation (port of
+`icka_tpu.models.convert`).
 
-The flow is the JAX package's: run the `quant="int8"` (dynamic) model over
-calibration batches, read the largest |x| each quantised module saw
-(`calibration_amax`), then turn the float state_dict into the
-`quant="int8_static"` one and load it with `strict=True`. The visual
-backbone goes through `static_quantize_backbone`; the text half (`Dense`
-and `BiLSTM` in `ICKAModel` and its encoders) through
-`quantize_params_like` (the dynamic model's weights) and
-`static_quantize_params_like`.
+The converters read the reference's PyTorch state dicts (HF BERT/RoBERTa
+with the legacy gamma/beta renames, a `BertCrossEncoder`, `nn.LSTM`,
+torchcrf's CRF) and return the JAX package's flax-layout trees of float32
+numpy arrays, leaf for leaf what `icka_tpu`'s converters return;
+`icka_tpu_torch.convert` carries such a tree into a module's state_dict.
+
+The quantisers work on state_dicts. The flow is the JAX package's: run the
+`quant="int8"` (dynamic) model over calibration batches, read the largest
+|x| each quantised module saw (`calibration_amax`), then turn the float
+state_dict into the `quant="int8_static"` one and load it with
+`strict=True`. The visual backbone goes through `static_quantize_backbone`;
+the text half (`Dense` and `BiLSTM` in `ICKAModel`, `GateCLModel` and their
+encoders) through `quantize_params_like` (the dynamic model's weights) and
+`static_quantize_params_like`. The fused-QKV serving layout
+(`EncoderConfig.fuse_qkv`) is made by `fuse_qkv_params` from the unfused
+float state_dict and calibration, before quantising: fp32 -> fuse ->
+quantise.
 """
 
 from __future__ import annotations
@@ -23,6 +32,107 @@ def _np32(value) -> np.ndarray:
     if isinstance(value, torch.Tensor):
         value = value.detach().cpu().numpy()
     return np.asarray(value, np.float32)
+
+
+def _normalize_keys(sd: dict) -> dict:
+    """Strip a leading model prefix and apply legacy gamma/beta renames."""
+    out = {}
+    for k, v in sd.items():
+        k = k.replace("gamma", "weight").replace("beta", "bias")
+        out[k] = _np32(v)
+    return out
+
+
+def _linear(sd, prefix):
+    return {"kernel": sd[f"{prefix}.weight"].T, "bias": sd[f"{prefix}.bias"]}
+
+
+def _layernorm(sd, prefix):
+    return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+
+
+def _bert_layer(sd, p):
+    return {
+        "attn": {
+            "query": _linear(sd, f"{p}.attention.self.query"),
+            "key": _linear(sd, f"{p}.attention.self.key"),
+            "value": _linear(sd, f"{p}.attention.self.value"),
+        },
+        "attn_out": {
+            "dense": _linear(sd, f"{p}.attention.output.dense"),
+            "norm": _layernorm(sd, f"{p}.attention.output.LayerNorm"),
+        },
+        "ffn": {
+            "wi": _linear(sd, f"{p}.intermediate.dense"),
+            "wo": _linear(sd, f"{p}.output.dense"),
+            "norm": _layernorm(sd, f"{p}.output.LayerNorm"),
+        },
+    }
+
+
+def encoder_params_from_torch(sd: dict, num_layers: int,
+                              prefix: str = "") -> dict:
+    """Convert an HF BERT/RoBERTa-style state dict to `TextEncoder` params
+    (the flax tree; `icka_tpu_torch.convert.state_dict_from_flax` makes it a
+    state_dict). `prefix` strips e.g. "bert." / "roberta." from key names.
+    """
+    sd = _normalize_keys(sd)
+    if prefix:
+        sd = {k[len(prefix):]: v for k, v in sd.items()
+              if k.startswith(prefix)}
+
+    emb = {
+        "word_embeddings": sd["embeddings.word_embeddings.weight"],
+        "position_embeddings": sd["embeddings.position_embeddings.weight"],
+        "token_type_embeddings": sd["embeddings.token_type_embeddings.weight"],
+        "norm": _layernorm(sd, "embeddings.LayerNorm"),
+    }
+    encoder = {f"layer_{i}": _bert_layer(sd, f"encoder.layer.{i}")
+               for i in range(num_layers)}
+    params = {"embeddings": emb, "encoder": encoder}
+    if "pooler.dense.weight" in sd:
+        params["pooler"] = {"dense": _linear(sd, "pooler.dense")}
+    return params
+
+
+def cross_encoder_params_from_torch(sd: dict, num_layers: int,
+                                    prefix: str = "") -> dict:
+    """Convert a reference `BertCrossEncoder` state dict
+    (layer.N.attention.self.{query,key,value} / attention.output /
+    intermediate / output) to `CrossEncoder` params."""
+    sd = _normalize_keys(sd)
+    if prefix:
+        sd = {k[len(prefix):]: v for k, v in sd.items()
+              if k.startswith(prefix)}
+    return {f"layer_{i}": _bert_layer(sd, f"layer.{i}")
+            for i in range(num_layers)}
+
+
+def lstm_params_from_torch(sd: dict, prefix: str = "") -> dict:
+    """torch nn.LSTM(bidirectional=True, batch_first=True) -> `BiLSTM`."""
+    sd = {k[len(prefix):] if prefix and k.startswith(prefix) else k:
+          _np32(v) for k, v in sd.items()}
+    return {
+        "w_ih_fwd": sd["weight_ih_l0"],
+        "w_hh_fwd": sd["weight_hh_l0"],
+        "b_ih_fwd": sd["bias_ih_l0"],
+        "b_hh_fwd": sd["bias_hh_l0"],
+        "w_ih_bwd": sd["weight_ih_l0_reverse"],
+        "w_hh_bwd": sd["weight_hh_l0_reverse"],
+        "b_ih_bwd": sd["bias_ih_l0_reverse"],
+        "b_hh_bwd": sd["bias_hh_l0_reverse"],
+    }
+
+
+def crf_params_from_torch(sd: dict, prefix: str = "") -> dict:
+    """torchcrf CRF state dict -> `CRF` params."""
+    sd = {k[len(prefix):] if prefix and k.startswith(prefix) else k:
+          _np32(v) for k, v in sd.items()}
+    return {
+        "start_transitions": sd["start_transitions"],
+        "end_transitions": sd["end_transitions"],
+        "transitions": sd["transitions"],
+    }
 
 
 def _quantize_cols(w: np.ndarray):
@@ -167,3 +277,36 @@ def static_quantize_params_like(target_keys: Iterable[str],
     (`calibration_amax` of the dynamic model, or `calib_from_flax` of the
     JAX package's "calib" collection). A missing entry raises."""
     return _text_quantize(target_keys, fp32_state, calib)
+
+
+def fuse_qkv_params(target_keys: Iterable[str], src: Mapping) -> dict:
+    """Re-lay an unfused text model's float state_dict, or its calibration
+    record, into the `fuse_qkv=True` layout (one (H, 3H) projection per
+    self-attention), as the JAX package's `fuse_qkv_params`.
+
+    `target_keys` are the state_dict keys of any model built with
+    `fuse_qkv=True` (float, "int8" or "int8_static"): they say where the
+    `qkv` modules live. Values come from `src`. In a state_dict the
+    `query`, `key` and `value` weights (torch's (out, in)) and biases
+    concatenate along the output axis, so the fused weight is their
+    row-wise concat; in a calibration record ({module path: amax}, from
+    `calibration_amax`) the three amax collapse to their max, since all
+    three quantise the same input. Cross-attention has no `qkv` and keeps
+    its three projections. Run before `static_quantize_params_like`."""
+    fused = {key.rpartition(".")[0] for key in target_keys
+             if key.rpartition(".")[0].rpartition(".")[2] == "qkv"}
+    out, used = {}, set()
+    for path in sorted(fused):
+        parent = path[:-len("qkv")]
+        names = [parent + n for n in ("query", "key", "value")]
+        if all(n in src for n in names):            # calibration record
+            out[path] = np.float32(max(np.float32(src[n]) for n in names))
+            used.update(names)
+            continue
+        for leaf in ("weight", "bias"):
+            parts = [src[f"{n}.{leaf}"] for n in names]
+            out[f"{path}.{leaf}"] = torch.cat(
+                [torch.as_tensor(t).float() for t in parts])
+            used.update(f"{n}.{leaf}" for n in names)
+    out.update((k, v) for k, v in src.items() if k not in used)
+    return out

@@ -430,3 +430,49 @@ class VisualBackbone(nn.Module):
         else:
             att = feat.contiguous()
         return fc, fc, att
+
+
+def resnet_params_from_torch(sd: dict, layers=None) -> dict:
+    """torchvision `resnet152.pth` state dict -> the JAX package's
+    `VisualBackbone` variables {"params": ..., "batch_stats": ...} (float32
+    numpy, conv kernels OIHW -> HWIO), as `icka_tpu`'s converter returns
+    them; `icka_tpu_torch.convert.backbone_state_dict` makes them this
+    package's state_dict. `layers` is inferred from the key layout when
+    omitted."""
+    if layers is None:
+        layers = tuple(
+            1 + max((int(k.split(".")[1]) for k in sd
+                     if k.startswith(f"layer{i}.")), default=-1)
+            for i in range(1, 5))
+        layers = tuple(b for b in layers if b > 0)
+
+    def np32(x):
+        if hasattr(x, "detach"):
+            x = x.detach().cpu().numpy()
+        return np.asarray(x, dtype=np.float32)
+
+    def convbn(conv_key, bn_key):
+        p = {"conv": {"kernel": np32(sd[f"{conv_key}.weight"])
+                      .transpose(2, 3, 1, 0)},
+             "scale": np32(sd[f"{bn_key}.weight"]),
+             "bias": np32(sd[f"{bn_key}.bias"])}
+        s = {"mean": np32(sd[f"{bn_key}.running_mean"]),
+             "var": np32(sd[f"{bn_key}.running_var"])}
+        return p, s
+
+    params, stats = {}, {}
+    params["stem"], stats["stem"] = convbn("conv1", "bn1")
+    for stage, blocks in enumerate(layers):
+        for b in range(blocks):
+            name = f"layer{stage + 1}_{b}"
+            pfx = f"layer{stage + 1}.{b}"
+            bp, bs = {}, {}
+            for i in (1, 2, 3):
+                bp[f"conv{i}"], bs[f"conv{i}"] = convbn(
+                    f"{pfx}.conv{i}", f"{pfx}.bn{i}")
+            if f"{pfx}.downsample.0.weight" in sd:
+                bp["downsample"], bs["downsample"] = convbn(
+                    f"{pfx}.downsample.0", f"{pfx}.downsample.1")
+            params[name] = bp
+            stats[name] = bs
+    return {"params": {"resnet": params}, "batch_stats": {"resnet": stats}}

@@ -16,7 +16,9 @@ Submodule names are the flax names (`layer_0`, `attn`, `query`, ...), so a
 flax parameter path is a `state_dict` key. `EncoderConfig.quant` reaches
 every projection of a layer (query, key, value, the attention output and
 both FFN layers), in self- and cross-attention alike; the pooler stays
-float, as in the JAX package.
+float, as in the JAX package. `EncoderConfig.fuse_qkv` gives every
+self-attention one `qkv` projection (H, 3H) in place of query, key and
+value (cross-attention keeps the three).
 """
 
 from __future__ import annotations
@@ -63,11 +65,9 @@ def dot_product_attention(q, k, v, bias=None, dtype=torch.float32,
 
 
 def _check_ported(cfg: EncoderConfig):
-    for name, ok in (("fuse_qkv", not cfg.fuse_qkv),
-                     ("adapter_size", cfg.adapter_size <= 0)):
-        if not ok:
-            raise NotImplementedError(
-                f"EncoderConfig.{name}={getattr(cfg, name)!r} is not ported")
+    if cfg.adapter_size > 0:
+        raise NotImplementedError(
+            f"EncoderConfig.adapter_size={cfg.adapter_size!r} is not ported")
 
 
 class MultiHeadAttention(nn.Module):
@@ -78,12 +78,14 @@ class MultiHeadAttention(nn.Module):
     (B, 1, 1, Sk) key bias. The kernel has no dropout and no backward, so,
     as in the JAX package, it runs only when the call is deterministic or
     `dropout_rate` is 0: training with attention dropout takes the plain
-    core. `quant` is the projections' `Dense` mode."""
+    core. `quant` is the projections' `Dense` mode. `fuse_qkv=True` (self-
+    attention only) holds one `qkv` Dense (H, 3H) whose output splits into
+    q, k and v; the kernel reads the three as views of it, in place."""
 
     def __init__(self, hidden: int, num_heads: int, dtype=torch.float32,
                  use_pallas: bool = False, softmax_dtype=torch.float32,
                  quant: str = "none", dropout_rate: float = 0.1,
-                 device="cuda", generator=None):
+                 fuse_qkv: bool = False, device="cuda", generator=None):
         super().__init__()
         dev = resolve_device(device)
         gen = generator_for(dev, None, generator)
@@ -92,14 +94,25 @@ class MultiHeadAttention(nn.Module):
         self.use_pallas = use_pallas
         self.dropout_rate = dropout_rate
         self.softmax_dtype = softmax_dtype
-        for name in ("query", "key", "value"):
-            self.add_module(name, Dense(hidden, hidden, dtype=dtype,
-                                        quant=quant, device=dev,
-                                        generator=gen))
+        self.fuse_qkv = fuse_qkv
+        if fuse_qkv:
+            self.qkv = Dense(hidden, 3 * hidden, dtype=dtype, quant=quant,
+                             device=dev, generator=gen)
+        else:
+            for name in ("query", "key", "value"):
+                self.add_module(name, Dense(hidden, hidden, dtype=dtype,
+                                            quant=quant, device=dev,
+                                            generator=gen))
 
     def forward(self, x, kv=None, bias=None, dropout_gen=None):
-        kv = x if kv is None else kv
-        q, k, v = self.query(x), self.key(kv), self.value(kv)
+        if self.fuse_qkv:
+            if kv is not None:
+                raise ValueError("a fused qkv projection is self-attention "
+                                 "only")
+            q, k, v = self.qkv(x).split(x.shape[-1], dim=-1)
+        else:
+            kv = x if kv is None else kv
+            q, k, v = self.query(x), self.key(kv), self.value(kv)
         if self.use_pallas and (dropout_gen is None
                                 or self.dropout_rate == 0.0):
             if bias is None:
@@ -160,9 +173,10 @@ class FeedForward(nn.Module):
 
 class _AttentionLayer(nn.Module):
     """attn -> attn_out -> ffn; shared by the self- and cross-attention
-    layers, which differ in where keys come from and in `use_pallas`."""
+    layers, which differ in where keys come from, in `use_pallas` and in
+    `fuse_qkv` (`self_attention`)."""
 
-    def __init__(self, cfg: EncoderConfig, use_pallas: bool,
+    def __init__(self, cfg: EncoderConfig, self_attention: bool,
                  dtype=torch.float32, device="cuda", generator=None):
         super().__init__()
         _check_ported(cfg)
@@ -170,9 +184,11 @@ class _AttentionLayer(nn.Module):
         gen = generator_for(dev, None, generator)
         H = cfg.hidden_size
         self.attn = MultiHeadAttention(
-            H, cfg.num_attention_heads, dtype=dtype, use_pallas=use_pallas,
+            H, cfg.num_attention_heads, dtype=dtype,
+            use_pallas=self_attention and cfg.use_pallas,
             softmax_dtype=getattr(torch, cfg.softmax_dtype), quant=cfg.quant,
-            dropout_rate=cfg.attention_probs_dropout_prob, device=dev,
+            dropout_rate=cfg.attention_probs_dropout_prob,
+            fuse_qkv=self_attention and cfg.fuse_qkv, device=dev,
             generator=gen)
         self.attn_out = AttentionOutput(
             H, cfg.layer_norm_eps, dtype=dtype, quant=cfg.quant,
@@ -189,7 +205,7 @@ class SelfAttentionLayer(_AttentionLayer):
 
     def __init__(self, cfg: EncoderConfig, dtype=torch.float32,
                  device="cuda", generator=None):
-        super().__init__(cfg, cfg.use_pallas, dtype, device, generator)
+        super().__init__(cfg, True, dtype, device, generator)
 
     def forward(self, x, bias=None, dropout_gen=None):
         a = self.attn(x, bias=bias, dropout_gen=dropout_gen)
@@ -198,8 +214,9 @@ class SelfAttentionLayer(_AttentionLayer):
 
 class CrossAttentionLayer(_AttentionLayer):
     """Queries from `x`, keys/values from `kv`; `bias` masks the kv stream.
-    Always the plain core: the JAX package routes only the self-attention
-    stacks through its kernel."""
+    Always the plain core, and always three projections: the JAX package
+    routes only the self-attention stacks through its kernel and fuses
+    only their projections."""
 
     def __init__(self, cfg: EncoderConfig, dtype=torch.float32,
                  device="cuda", generator=None):

@@ -23,24 +23,27 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_no_jax_in_the_port():
-    """Importing the evaluation and training entry points, the optimizer
-    and the data plane, then every module of icka_tpu_torch, pulls in no
-    jax, flax, optax or icka_tpu, and none of regex, msgpack or PIL, which
-    the card's machine lacks. A fresh interpreter: this process has jax
-    loaded."""
+    """Importing the evaluation and training entry points, the optimizer,
+    the data plane and the weight loaders, the package's lazy attributes,
+    then every module of icka_tpu_torch, pulls in no jax, flax, optax or
+    icka_tpu, and none of regex, msgpack, PIL, safetensors, transformers or
+    tensorflow, which the card's machine lacks. A fresh interpreter: this
+    process has jax loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for m in ('cli.evaluate', 'data.loader', 'data.features', "
         "'data.tokenization', 'core.checkpoint', 'train.trainer', "
-        "'train.optimizer', 'cli.train'):\n"
+        "'train.optimizer', 'cli.train', 'models.pretrained', "
+        "'models.tf_convert', 'cli.convert'):\n"
         "    importlib.import_module('icka_tpu_torch.' + m)\n"
         "import icka_tpu_torch\n"
+        "for name in icka_tpu_torch._LAZY: getattr(icka_tpu_torch, name)\n"
         "mods = [m.name for m in pkgutil.walk_packages("
         "icka_tpu_torch.__path__, 'icka_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'icka_tpu', 'regex', 'msgpack', "
-        "'PIL'))\n"
+        "'PIL', 'safetensors', 'transformers', 'tensorflow'))\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad or len(mods) < 30 else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -186,7 +186,3 @@ def test_unported_options_raise():
         tattn.SelfAttentionLayer(
             dataclasses.replace(TEncoderConfig.tiny(), quant="int4"),
             device=CPU)
-    with pytest.raises(NotImplementedError):
-        tattn.SelfAttentionLayer(
-            dataclasses.replace(TEncoderConfig.tiny(), fuse_qkv=True),
-            device=CPU)

@@ -6,7 +6,8 @@ six kernels are covered. Besides, the exact int8 product (`torch._int_mm`)
 and an int8-static `Dense` and BiLSTM input projection on the card against
 the float64 product and the CPU, bit for bit; K1 at the gate_cl family's
 12 heads, and a small gate_cl model served through K1 against the plain
-core.
+core; K1 and K2 on the strided q/k/v views of one fused projection, and a
+tiny fused int8-static gate_cl on the card against the CPU.
 
 This file imports only torch and the port, so it also runs on a machine that
 has a card but not the JAX package's dependencies:
@@ -314,10 +315,9 @@ def test_attention_kernels_refuse_what_they_cannot_take(cuda_device):
             fn(q, q, q, bias.cpu(), 2)
         with pytest.raises(TypeError):
             fn(q.half(), q.half(), q.half(), bias, 2)
-    strided = torch.zeros(1, 8, 64, device=cuda_device)[:, ::2]
+    strided = torch.zeros(1, 8, 128, device=cuda_device)[:, :, ::2]
     with pytest.raises(ValueError, match="contiguous"):
-        tattn.fused_attention_blockwise(strided, strided, strided,
-                                        bias[:, ::2], 2)
+        tattn.fused_attention_blockwise(strided, strided, strided, bias, 2)
     assert counts == (tattn.fused_attention.launches,
                       tattn.fused_attention_blockwise.launches)
 
@@ -705,3 +705,132 @@ def test_gate_cl_bucketed_kernel_path_equals_plain_core(cuda_device):
         assert (em[0] - em[1]).abs().max().item() <= 1e-4
     finally:
         torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,hd", [(12, 64), (16, 64), (8, 128), (12, 40)])
+@pytest.mark.parametrize("wrapper", ["fused_attention",
+                                     "fused_attention_blockwise"])
+def test_attention_reads_strided_qkv_views(cuda_device, wrapper, N, hd,
+                                           dtype):
+    """q, k and v as the (B, S, D) slices of one fused (B, S, 3D)
+    projection (`fuse_qkv`): the kernel reads them in place (widths with an
+    instance) or as padded copies (40), bit-equal to the same kernel on
+    contiguous copies and within the plain version's bounds, counted as a
+    strided launch. Key and block-diagonal biases, a ragged length."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fn = getattr(tattn, wrapper)
+    plain = (tattn.attention_reference if wrapper == "fused_attention"
+             else tattn.attention_blockwise_reference)
+    gen = torch.Generator().manual_seed(N * hd)
+    B, S, D = 3, 37, N * hd
+    fused = torch.randn(B, S, 3 * D, generator=gen).to(cuda_device, dtype)
+    q, k, v = fused.split(D, dim=-1)
+    assert not q.is_contiguous() and q.stride(1) == 3 * D
+    for kind in ("B11Sk", "full"):
+        _, _, _, bias = _attn_case(cuda_device, dtype, B, S, S, N, hd, kind)
+        before = (fn.launches, fn.strided_launches)
+        got = fn(q, k, v, bias, N)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.strided_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+        assert got.is_contiguous() and got.shape == q.shape
+        want = fn(*(t.contiguous() for t in (q, k, v)), bias, N)
+        assert fn.strided_launches == before[1] + 1
+        assert torch.equal(got, want)
+        _assert_attn_close(got, plain(q, k, v, bias, N))
+
+
+def test_attention_refuses_a_misaligned_row_stride(cuda_device):
+    """Rows a number of elements apart that is not a multiple of 8, or
+    batches not S rows apart, raise before any launch."""
+    bias = torch.zeros(2, 8, device=cuda_device)
+    for dtype, extra in ((torch.float32, 4), (torch.bfloat16, 2)):
+        fused = torch.zeros(2, 8, 3 * 128 + extra, device=cuda_device,
+                            dtype=dtype)
+        q, k, v = fused[..., :384].split(128, dim=-1)
+        batches = torch.zeros(2, 9, 128, device=cuda_device,
+                              dtype=dtype)[:, :8]
+        for fn in (tattn.fused_attention, tattn.fused_attention_blockwise):
+            before = fn.launches
+            with pytest.raises(ValueError, match="multiple of 8"):
+                fn(q, k, v, bias, 2)
+            with pytest.raises(ValueError, match="batches S rows apart"):
+                fn(batches, batches, batches, bias, 2)
+            assert fn.launches == before
+
+
+def test_fused_int8_static_gate_cl_on_card_equals_cpu(cuda_device):
+    """A tiny gate_cl (BERT dialect, 2 heads of 64) in bench.py's serving
+    layout, int8-static with `fuse_qkv` and K1, calibrated and quantised
+    on the CPU: on the card the fused `qkv` Dense gives the CPU's output
+    bit for bit, K1 runs once a self-attention layer on strided views, and
+    the served tags and emissions follow the CPU's."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from icka_tpu_torch.core.config import EncoderConfig, GateCLConfig
+    from icka_tpu_torch.models.convert import (calibration_amax,
+                                               fuse_qkv_params,
+                                               quantize_params_like,
+                                               static_quantize_params_like)
+    from icka_tpu_torch.models.gate_cl import GateCLModel
+    from icka_tpu_torch.serving.bucketed import BucketedGateCLServer
+
+    enc = dataclasses.replace(EncoderConfig.bert_base(), hidden_size=128,
+                              num_attention_heads=2, intermediate_size=256,
+                              num_hidden_layers=2, vocab_size=200,
+                              use_pallas=True)
+
+    def model(**kw):
+        cfg = GateCLConfig(encoder=dataclasses.replace(enc, **kw),
+                           region_dim=64, max_seq_length=32, masked_crs=True)
+        return GateCLModel(cfg, device="cpu", seed=3).eval()
+    rng = np.random.default_rng(0)
+    exs = [{"input_ids": rng.integers(1, 200, n).astype(np.int64),
+            "visual_mean": rng.standard_normal(64).astype(np.float32),
+            "visual_grid": rng.standard_normal((7, 7, 64)).astype(np.float32)}
+           for n in (5, 16, 17, 30, 40)]
+    fp = model()
+    dyn = model(quant="int8")
+    dyn.load_state_dict(quantize_params_like(dyn.state_dict().keys(),
+                                             fp.state_dict()), strict=True)
+    BucketedGateCLServer(dyn, buckets=(16, 32), max_batch=4,
+                         device="cpu").predict(exs)
+    cpu = model(quant="int8_static", fuse_qkv=True)
+    keys = cpu.state_dict().keys()
+    cpu.load_state_dict(static_quantize_params_like(
+        keys, fuse_qkv_params(keys, fp.state_dict()),
+        fuse_qkv_params(keys, calibration_amax(dyn))), strict=True)
+    card = copy.deepcopy(cpu).to(cuda_device)
+
+    x = torch.randn(4, 32, 128, generator=torch.Generator().manual_seed(1))
+    qkv = cpu.bert.encoder.layer_0.attn.qkv
+    with torch.inference_mode():
+        want = qkv(x)
+        got = card.bert.encoder.layer_0.attn.qkv(x.to(cuda_device)).cpu()
+    assert torch.equal(got, want)
+
+    servers = [BucketedGateCLServer(m, buckets=(16, 32), max_batch=4,
+                                    device=d)
+               for m, d in ((card, cuda_device), (cpu, "cpu"))]
+    before = (tattn.fused_attention.launches,
+              tattn.fused_attention.strided_launches)
+    tags, stats = servers[0].predict(exs)
+    torch.cuda.synchronize()
+    batches = sum(stats.batches_per_bucket.values())
+    assert (tattn.fused_attention.launches - before[0],
+            tattn.fused_attention.strided_launches - before[1]) == \
+        (2 * batches, 2 * batches)
+    want_tags, _ = servers[1].predict(exs)
+    agree = sum(int((g == w).sum()) for g, w in zip(tags, want_tags))
+    assert agree / sum(len(w) for w in want_tags) >= 0.99
+    with torch.inference_mode():
+        _, _, _, batch = next(servers[0].batches(exs))
+        em = card(**batch, return_emissions=True).double().cpu()
+        em_cpu = cpu(**{k: v.cpu() for k, v in batch.items()},
+                     return_emissions=True).double()
+    cos = (em * em_cpu).sum(-1) / (em.norm(dim=-1) * em_cpu.norm(dim=-1))
+    assert cos.min().item() >= 0.999
