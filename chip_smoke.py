@@ -120,6 +120,25 @@ Phases; any failure exits non-zero:
      (loss, gradient norm, moments, updates); the parameter count,
      optimizer-state bytes, peak memory, step and update times and the
      device-busy share printed;
+ 11. rematerialised training (after 9's training, before 7) in bench.py's
+     train configuration: `ICKAConfig()` at full width with remat on both
+     stacks, batch 16 in one micro-batch, bf16 over fp32 master weights,
+     K1 for the dev evaluation only; for no remat and each policy ("dots",
+     "dots_nb", "alternate", "full") a fresh trainer on the same initial
+     weights: one micro-batch's gradients under the first step's
+     generators, three `train_step`s on the same batches and keys, one
+     profiled step; each policy's loss within 1e-5 of no remat's, its
+     gradients and its updates within 1e-3 in relative L2, its peak
+     allocated at most no remat's and "full"'s below it; step median,
+     pairs/s, peak, device busy and launches printed. Then
+     `ICKATrainer.fit` for one epoch under "dots" with its dev evaluation
+     (K1 48 times a dev batch, 0 in the steps), and one `GateCLTrainer`
+     step of `GateCLConfig()` under "full" against none with the same
+     checks. The CRF at the serving shape (8 rows of 128, phase 3's
+     lengths): the log-depth Viterbi's tags equal to the sequential
+     decode's and the CPU's, both timed and profiled; the marginals card
+     vs CPU within 1e-5. Last, the card tests of these modules
+     (`tests/test_torch_on_card.py -k CARD_TESTS`, in a child pytest);
   7. time each kernel at its main-path shape beside its plain version, the
      PyTorch library call for the same function where there is one, its
      bound and its recorded time before its redesign (comment lines only);
@@ -197,6 +216,7 @@ from icka_tpu_torch.models.resnet import (Bottleneck, ConvBN, StemPoolS2D,
 from icka_tpu_torch.models.tf_convert import (encoder_params_to_tf,
                                               write_tf_checkpoint)
 from icka_tpu_torch.models.token_classifier import TokenClassifier
+from icka_tpu_torch.nn.crf import CRF
 from icka_tpu_torch.nn.quant import column_major, int8_matmul
 from icka_tpu_torch.serving.bucketed import (BucketedGateCLServer,
                                              BucketedICKAServer,
@@ -204,7 +224,7 @@ from icka_tpu_torch.serving.bucketed import (BucketedGateCLServer,
 from icka_tpu_torch.serving.packing import (PackedGateCLServer,
                                             PackedICKAServer)
 from icka_tpu_torch.train.gate_cl_trainer import GateCLTrainer
-from icka_tpu_torch.train.trainer import ICKATrainer
+from icka_tpu_torch.train.trainer import ICKATrainer, _seed
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -331,6 +351,31 @@ GC_DEV_ROWS, GC_EVAL_BATCH, GC_CLIP_DIM = 16, 8, 16
 WEIGHTS_DIR = WORK_DIR / "weights"
 ROBERTA_DEPTH, TF_DEPTH = 2, 2
 FUSED_EMISSIONS_TOL = 1e-5
+# phase 11, rematerialised training in bench.py's train configuration
+# (bench.py:1029-1044, :1435: ICKAConfig() with remat on both stacks, batch
+# 16 in one micro-batch, bf16 over fp32 master weights, mu in fp32): no
+# remat, then each policy, on the same initial weights, batches and keys.
+# The remat'd forward is the plain forward's code on the same draws (the
+# loss is expected bit-equal, held to REMAT_LOSS_RTOL); the gradients of
+# one micro-batch and the updates of REMAT_STEPS steps are held to
+# REMAT_RTOL in relative L2 over all leaves: a recompute with other dropout
+# masks than the forward's moves the gradient by O(1).
+REMAT_POLICIES = (None, "dots", "dots_nb", "alternate", "full")
+REMAT_BATCH, REMAT_STEPS, REMAT_DEV_ROWS = 16, 3, 16
+REMAT_LOSS_RTOL, REMAT_RTOL = 1e-5, 1e-3
+# the new card tests, run from phase 11 (the whole file: README)
+CARD_TESTS = "remat or crf_parallel or float_stem"
+CARD_TEST_COUNT = 6
+# the CRF at the flagship's serving shape: MAX_BATCH rows of 128 positions,
+# standard-normal emissions. The marginals' bound is fp32's resolution at
+# this length, not the 1e-5 of the short CPU tests: over 128 steps the
+# log-potentials alpha + beta reach about 350 (log 15 a step), where one
+# fp32 step is 3.05e-5, and the forward-backward's final subtraction
+# rounds there. On these inputs the CPU's fp32 marginals are 1.18e-5 from
+# a float64 run of the same recursions and their rows sum to 1 within
+# 1.53e-5 (measured on the CPU); two devices rounding apart may differ by
+# twice the first. Held: card vs CPU and row sums within 1e-4.
+CRF_LENGTH, CRF_MARGINALS_TOL = 128, 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -902,6 +947,23 @@ def device_profile(fn, top=8):
     return (sum(dev_us(e) for e in kernels) / 1e6,
             [(e.key, dev_us(e) / 1e3, e.count) for e in rows],
             sum(e.count for e in kernels))
+
+
+def device_busy(fn):
+    """(device seconds, device-side records: kernels, copies and sets) of
+    one call of `fn`, as `device_profile` counts them, read from the
+    profiler's raw records: grouping a train step's records by name
+    (`key_averages`) costs tens of seconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    records = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    return sum(e.duration_ns() for e in records) / 1e9, len(records)
 
 
 def kernel_device_ms(fn, iters=50):
@@ -2276,6 +2338,330 @@ def phase_gate_cl_train(args, card, dev, base, layers):
     return counts
 
 
+def rel_l2_on(dev, pairs) -> float:
+    """`rel_l2` in float64 on `dev`, one pair at a time (the full-width
+    model's 968 M elements take minutes on the host)."""
+    num = torch.zeros((), dtype=torch.float64, device=dev)
+    den = torch.zeros((), dtype=torch.float64, device=dev)
+    for a, b in pairs:
+        a = a.detach().to(dev, torch.float64)
+        b = b.detach().to(dev, torch.float64)
+        num += (a - b).square().sum()
+        den += b.square().sum()
+    return math.sqrt(float(num) / max(float(den), 1e-300))
+
+
+def reset_peak(dev):
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_bytes(dev) -> int:
+    """Peak allocated bytes since `reset_peak` (0 in a CPU rehearsal)."""
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def remat_enc(enc, policy):
+    """`enc` rematerialised under `policy`, or plain for None."""
+    return dataclasses.replace(enc, remat=policy is not None,
+                               remat_policy=policy or "dots")
+
+
+def remat_policy_runs(what, make_trainer, policies, batches, steps, card,
+                      dev):
+    """For each policy in `policies` (None first: no remat) a fresh trainer
+    from `make_trainer(policy)` on the first one's initial weights and
+    calibrated backbone: the gradients of the first batch's micro-batch
+    under the first step's generators (as `train_step` draws them), then
+    `steps` train steps on `batches` with the same keys, then one profiled
+    step. Each policy's loss, gradients and updates are held against no
+    remat's; returns {policy: (peak bytes, step seconds, busy seconds,
+    launches)}, the peak over the gradients and the steps."""
+    pairs = batches[0]["input_ids"].shape[1]
+    init = backbone = want = None
+    out = {}
+    for policy in policies:
+        t0 = time.perf_counter()
+        trainer = make_trainer(policy)
+        if init is None:
+            images = batches[0]["images"]
+            calibrate_batch_stats(trainer.backbone, preprocess_images(
+                images.reshape(-1, *images.shape[2:]), 224, dev))
+            init = {k: v.to("cpu", copy=True)
+                    for k, v in trainer.model.state_dict().items()}
+            backbone = trainer.backbone.state_dict()
+        else:
+            trainer.model.load_state_dict(init, strict=True)
+            trainer.backbone.load_state_dict(backbone, strict=True)
+        trainer.init_state(4 * steps)
+        params = trainer.params()
+        sync(dev)
+        secs = {"build": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        reset_peak(dev)
+        seed = _seed(trainer.train_cfg.seed, 0, 0, 0)
+        loss = trainer.loss({k: v[0] for k, v in batches[0].items()},
+                            torch.Generator().manual_seed(seed),
+                            torch.Generator(dev).manual_seed(seed))
+        loss.backward()
+        sync(dev)
+        peak = peak_bytes(dev)
+        loss = loss.item()
+        secs["gradients"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        grads = {n: p.grad for n, p in params.items() if p.grad is not None}
+        if want is None:
+            want = {"loss": loss, "grads": {n: g.to("cpu", copy=True)
+                                            for n, g in grads.items()}}
+            grad_msg = f"loss {loss:.6f}"
+        else:
+            rel = abs(loss - want["loss"]) / abs(want["loss"])
+            check(grads.keys() == want["grads"].keys(),
+                  f"{what} {policy}: other leaves have gradients")
+            g_rel = rel_l2_on(dev, ((g, want["grads"][n])
+                                    for n, g in grads.items()))
+            grad_msg = (f"loss {loss:.6f} (relative {rel:.2e} to no remat, "
+                        f"bit-equal {loss == want['loss']}), gradients "
+                        f"relative L2 {g_rel:.2e} over {len(grads)} leaves")
+            check(rel <= REMAT_LOSS_RTOL and g_rel <= REMAT_RTOL,
+                  f"{what} {policy}: {grad_msg}")
+        del grads
+        for p in params.values():
+            p.grad = None
+        secs["compare"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reset_peak(dev)
+        records = [trainer.train_step(b, (0, i))
+                   for i, b in enumerate(batches[:steps])]
+        peak = max(peak, peak_bytes(dev))
+        secs["steps"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check(all(r.applied and math.isfinite(r.loss) for r in records),
+              f"{what} {policy}: a step was not finite: {records}")
+        upd_msg = f"{len(records)} steps, losses " + ", ".join(
+            f"{r.loss:.4f}" for r in records)
+        updates = {n: p.detach() - init[n].to(dev) for n, p in params.items()}
+        if "updates" not in want:
+            want["updates"] = {n: u.cpu() for n, u in updates.items()}
+        else:
+            u_rel = rel_l2_on(dev, ((u, want["updates"][n])
+                                    for n, u in updates.items()))
+            upd_msg += f", updates relative L2 {u_rel:.2e}"
+            check(u_rel <= REMAT_RTOL, f"{what} {policy}: {upd_msg}")
+        del updates
+        secs["compare"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step_s = float(np.median([r.seconds for r in records]))
+        try:
+            busy, n = device_busy(
+                lambda: trainer.train_step(batches[0], (1, 0)))
+        except Exception as e:   # the profiler is a report, not a check
+            print(f"#   {what} {policy}: step profile not measured ({e!r})")
+            busy, n = float("nan"), 0
+        secs["profile"] = time.perf_counter() - t0
+        out[policy] = (peak, step_s, busy, n)
+        print(f"#   {what} remat={policy or 'none'}: {grad_msg}; {upd_msg}; "
+              f"peak allocated {peak / 1e9:.3f} GB; step median "
+              f"{step_s * 1e3:.1f} ms ({pairs / step_s:.2f} train pairs/s); "
+              f"one profiled step: device busy {busy * 1e3:.1f} ms "
+              f"({busy / step_s:.3f} of the median step) in {n} device "
+              f"kernel launches; seconds " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in secs.items()) + f"; on {card}")
+        del trainer, params
+        torch.cuda.empty_cache()
+    base_peak = out[None][0]
+    if dev.type != "cuda":          # a CPU rehearsal measures no peak
+        return out
+    for policy, (peak, *_) in out.items():
+        check(peak <= base_peak, f"{what} {policy}: peak {peak} above no "
+                                 f"remat's {base_peak}")
+    if "full" in out:
+        check(out["full"][0] < base_peak,
+              f"{what} full: peak {out['full'][0]} not below no remat's "
+              f"{base_peak}")
+    return out
+
+
+def phase_crf(args, card, dev, num_labels, lengths):
+    """The CRF at the flagship's serving shape: MAX_BATCH rows of
+    CRF_LENGTH positions, `num_labels` tags, emissions random from the
+    seed, masks of `lengths` (phase 3's requests). `CRF.decode(parallel=
+    True)` against the sequential decode (tags identical), each one's wall,
+    device time and launches; `CRF.marginals` on the card against the CPU
+    within CRF_MARGINALS_TOL, every row summing to 1 within it. Returns
+    {decode: (ms a call, device busy ms, launches)}."""
+    B, L, T = MAX_BATCH, CRF_LENGTH, num_labels
+    gen = torch.Generator().manual_seed(args.seed)
+    em = torch.randn(B, L, T, generator=gen)
+    lens = torch.tensor([min(int(n), L) for n in lengths[:B]])
+    mask = (torch.arange(L)[None] < lens[:, None]).int()
+    crf = CRF(T, device="cpu", generator=gen)
+    on_card = copy.deepcopy(crf).to(dev)
+    em_d, mask_d = em.to(dev), mask.to(dev)
+    print(f"# phase 11: CRF at B={B}, L={L}, {T} tags, lengths "
+          f"{lens.tolist()}: the sequential Viterbi against the log-depth "
+          f"one (crf_decode_parallel), marginals card vs CPU")
+    times = {}
+    with torch.inference_mode():
+        tags = {}
+        for name, parallel in (("sequential", False), ("parallel", True)):
+            fn = lambda: on_card.decode(em_d, mask_d, parallel=parallel)
+            tags[name] = fn()
+            ms = cuda_time_ms(fn, iters=10)
+            try:
+                busy, _, n = device_profile(fn)
+            except Exception as e:   # a report, not a check
+                print(f"#   {name} decode profile not measured ({e!r})")
+                busy, n = float("nan"), 0
+            times[name] = (ms, busy * 1e3, n)
+            print(f"#   {name} decode: {ms:.3f} ms a call (CUDA events), "
+                  f"device busy {busy * 1e3:.3f} ms in {n} kernel launches "
+                  f"(profiled call); on {card}")
+        check(torch.equal(tags["parallel"], tags["sequential"]),
+              "parallel Viterbi tags differ from the sequential decode's")
+        check(torch.equal(tags["parallel"].cpu(), crf.decode(em, mask)),
+              "the card's Viterbi tags differ from the CPU's")
+        marg = on_card.marginals(em_d, mask_d).cpu()
+        err = (marg - crf.marginals(em, mask)).abs().max().item()
+        sums = (marg.sum(-1) - 1).abs().max().item()
+    print(f"#   tags identical ({B * L} positions, card and CPU); marginals "
+          f"card vs CPU max |diff| {err:.2e}, rows sum to 1 within "
+          f"{sums:.2e} (tol {CRF_MARGINALS_TOL:.0e})")
+    check(err <= CRF_MARGINALS_TOL and sums <= CRF_MARGINALS_TOL,
+          f"CRF marginals: card vs CPU {err}, row sums {sums}")
+    return times
+
+
+class _Outcomes:
+    """A pytest plugin that counts the tests passed and the reports that
+    failed or skipped."""
+
+    def __init__(self):
+        self.passed, self.not_passed = 0, []
+
+    def pytest_runtest_logreport(self, report):
+        if report.when == "call" and report.passed:
+            self.passed += 1
+        elif report.failed or report.skipped:
+            self.not_passed.append(f"{report.nodeid} {report.outcome}")
+
+
+def run_card_tests():
+    """The card tests of this phase's modules (CARD_TESTS), in this
+    process (no conftest: it configures JAX, which these tests do not
+    use)."""
+    import pytest
+
+    t0 = time.perf_counter()
+    outcomes = _Outcomes()
+    path = Path(__file__).resolve().parent / "tests" / "test_torch_on_card.py"
+    rc = pytest.main([str(path), "-q", "-p", "no:cacheprovider",
+                      "--noconftest", "-k", CARD_TESTS], plugins=[outcomes])
+    print(f"#   card tests -k '{CARD_TESTS}': {outcomes.passed} passed, "
+          f"{outcomes.not_passed or 'none failed or skipped'} (rc {int(rc)}, "
+          f"{time.perf_counter() - t0:.1f} s)")
+    check(rc == 0 and outcomes.passed == CARD_TEST_COUNT
+          and not outcomes.not_passed, "card tests did not all pass")
+
+
+def phase_remat(args, card, dev, base, gc_base, layers, lengths):
+    """Rematerialised training in bench.py's train configuration (see
+    REMAT_POLICIES): the flagship under every policy against no remat,
+    then `ICKATrainer.fit` for one epoch under "dots" with its dev
+    evaluation (K1 48 times a dev batch, 0 in the steps), then one
+    `GateCLTrainer` step of `GateCLConfig()` under "full" against none;
+    the CRF's two decodes and its marginals (`phase_crf`); the card tests
+    of the modules this phase drives. Returns every kernel's launch count
+    over the training runs."""
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(
+        base, embedding=dataclasses.replace(base.embedding, use_pallas=True),
+        last_encoder=dataclasses.replace(base.last_encoder, use_pallas=True))
+    print(f"# phase 11: rematerialised training in bench.py's train "
+          f"configuration (ICKAConfig() at full width, remat on both "
+          f"stacks, batch {REMAT_BATCH} in one micro-batch, bf16 over fp32 "
+          f"master weights, mu fp32, dropout on, ResNet-152 frozen): "
+          f"policies {[p or 'none' for p in REMAT_POLICIES]}")
+    root = WORK_DIR / "remat"
+    shutil.rmtree(root, ignore_errors=True)
+    generate_dataset(str(root / "ds"), n_train=REMAT_STEPS * REMAT_BATCH,
+                     n_valid=REMAT_DEV_ROWS, n_test=0, clip_dim=cfg.clip_dim,
+                     seed=args.seed, write_images=False)
+    tokenizer = tiny_tokenizer(str(root / "ds" / "tokenizer"))
+    feats = {split: convert_examples(
+        read_mm_conll(str(root / "ds" / f"{split}.txt")), tokenizer,
+        cfg.max_seq_length, ClipFeatureStore.from_split(str(root / "ds"),
+                                                        split),
+        cfg.clip_dim) for split in ("train", "valid")}
+    spec = feats["train"].spec
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, train_batch_size=REMAT_BATCH,
+                       eval_batch_size=MAX_BATCH,
+                       gradient_accumulation_steps=1, seed=args.seed,
+                       compute_dtype="bfloat16", mu_dtype="float32")
+    loader, train_batches = train_loaders(
+        feats, str(root / "ds" / "images"), REMAT_BATCH, 1, MAX_BATCH,
+        args.seed)
+    batches = train_batches(0, REMAT_STEPS)
+
+    def icka(policy, c=cfg):
+        rc = dataclasses.replace(
+            c, embedding=remat_enc(c.embedding, policy),
+            last_encoder=remat_enc(c.last_encoder, policy))
+        return ICKATrainer(rc, tcfg, spec, resnet_layers=layers, device=dev)
+
+    zero_counts()
+    runs = remat_policy_runs("flagship", icka, REMAT_POLICIES, batches,
+                             REMAT_STEPS, card, dev)
+    check(fused_attention.launches == 0,
+          f"K1 launched {fused_attention.launches} times in train steps")
+
+    # fit under "dots": one epoch, its dev evaluation on K1
+    trainer = icka("dots")
+    images = batches[0]["images"]
+    calibrate_batch_stats(trainer.backbone, preprocess_images(
+        images.reshape(-1, *images.shape[2:]), 224, dev))
+    lines = []
+    dev_loader = loader("valid")
+    t0 = time.perf_counter()
+    history = trainer.fit(loader("train"), dev_loader, epochs=1,
+                          log=lines.append)
+    sync(dev)
+    k1 = fused_attention.launches
+    print(f"#   fit under remat=dots, 1 epoch of {len(trainer.records)} "
+          f"steps: {'; '.join(lines)} ({time.perf_counter() - t0:.1f} s); "
+          f"K1 launches {k1}")
+    check(len(history) == 1 and math.isfinite(history[0]),
+          f"fit under remat: {history}")
+    check(k1 == LAYERS_PER_BATCH * len(dev_loader),
+          f"K1 launched {k1} times in fit, want {LAYERS_PER_BATCH} a dev "
+          f"batch ({len(dev_loader)} batches) and 0 in the steps")
+    del trainer
+    torch.cuda.empty_cache()
+
+    gc_cfg = gate_cl_cfg(gc_base)
+
+    def gate_cl(policy):
+        rc = dataclasses.replace(gc_cfg,
+                                 encoder=remat_enc(gc_cfg.encoder, policy))
+        return GateCLTrainer(rc, tcfg, resnet_layers=layers, device=dev)
+    gc_runs = remat_policy_runs("gate_cl", gate_cl, (None, "full"),
+                                batches, 1, card, dev)
+    counts = read_counts()
+    shutil.rmtree(root)
+
+    crf_times = phase_crf(args, card, dev, cfg.num_labels, lengths)
+    run_card_tests()
+    none = runs[None]
+    print(f"#   flagship peak allocated by policy: " + ", ".join(
+        f"{p or 'none'} {v[0] / 1e9:.3f} GB ({v[0] / max(none[0], 1):.3f})"
+        for p, v in runs.items()) + "; step median: " + ", ".join(
+        f"{p or 'none'} {v[1] * 1e3:.1f} ms" for p, v in runs.items())
+        + f"; gate_cl full {gc_runs['full'][0] / 1e9:.3f} GB against "
+        f"{gc_runs[None][0] / 1e9:.3f} GB")
+    print(f"#   phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return counts, runs, crf_times
+
+
 def phase_bert_times(gen, row):
     """K1 at BERT-base's heads (12 x 64), B=128, at the longest bucket
     (S=128, key bias) and the short packed tier (S=48, block-diagonal full
@@ -2859,10 +3245,11 @@ def k1_tiling_ms(q, k, v, bias, N, iters):
 
 def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
                 int8_static_launches, train_launches, gate_cl_launches,
-                weights_launches):
-    """K1's row: `launches` counts phase 3, phase 9 (the gate_cl family)
-    and phase 10 (gate_cl on weights from disk, fused QKV), the other
-    paths' counts beside it."""
+                weights_launches, remat_launches):
+    """K1's row: `launches` counts phase 3, phase 9 (the gate_cl family),
+    phase 10 (gate_cl on weights from disk, fused QKV) and phase 11 (the
+    dev evaluation of rematerialised training), the other paths' counts
+    beside it."""
     B, S, N, hd, dtype = 128, 150, 16, 64, torch.bfloat16
     print(f"# phase 7: K1 at B={B} Sq=Sk={S} {N}x{hd} bf16, key-mask bias "
           f"(the tensor-core body at {K1_TILES}; the prompted encoder's "
@@ -2880,10 +3267,12 @@ def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
     tilings = k1_tiling_ms(q, k, v, bias, N, 50)
     row = {"name": "fused_attention", "route": "cuda", "source": K2_SOURCE,
            "replaces": "icka_tpu/kernels/attention.py:87",
-           "launches": launches + gate_cl_launches + weights_launches,
+           "launches": launches + gate_cl_launches + weights_launches
+           + remat_launches,
            "flagship_launches": launches,
            "gate_cl_launches": gate_cl_launches,
            "weights_launches": weights_launches,
+           "remat_launches": remat_launches,
            "packed_launches": packed_launches,
            "eval_launches": eval_launches,
            "int8_static_launches": int8_static_launches,
@@ -3137,36 +3526,57 @@ def main(argv=None) -> int:
         return 2
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(what):                   # each phase's seconds, for its budget
+        now = time.perf_counter()
+        print(f"#   ({what}: {now - t_lap[0]:.1f} s)")
+        t_lap[0] = now
     try:
         dev, layers = torch.device("cuda", 0), (3, 8, 36, 3)
         base = ICKAConfig()
         card = phase_build()
         tokenizer, spec = prompt_tokenizer()
+        lap("phase 1")
         phase_kernel_vs_plain(gen, spec, base)
         phase_head_widths(gen)
         phase_blockwise_vs_plain(gen)
         conv_errs = phase_conv_kernels_vs_plain(gen)
+        lap("phase 2")
         counts, _, ctx = phase_slice(args, card, dev, base, layers, tokenizer)
+        lap("phase 3")
         conv_counts = phase_int8_visual(args, card, dev, ctx, layers)
+        lap("phase 4")
         int8_text_counts = phase_int8_text(args, card, dev, ctx)
+        lap("phase 4b")
         packed_counts = phase_packed(args, card, dev, ctx)
+        lap("phase 5")
         eval_counts = phase_evaluate(args, card, dev, ctx)
+        lap("phase 6")
         phase_k1_bert_heads(gen)
         gc_base = GateCLConfig()
         gc_serve_counts = phase_gate_cl_serving(args, card, dev, gc_base,
                                                 ctx)
+        lap("phase 9, serving")
         weights_counts = phase_weights(args, card, dev, gc_base, ctx, layers)
+        lengths = [len(t["ori_input_ids"]) for t in ctx["texts"]]
         del ctx
         torch.cuda.empty_cache()
+        lap("phase 10")
         train_counts = phase_train(args, card, dev, base, layers)
+        lap("phase 8")
         gc_train_counts = phase_gate_cl_train(args, card, dev, gc_base,
                                               layers)
-        # over the nine main paths, each driven from counts of 0
+        lap("phase 9, training")
+        remat_counts, _, _ = phase_remat(args, card, dev, base, gc_base,
+                                         layers, lengths)
+        lap("phase 11")
+        # over the ten main paths, each driven from counts of 0
         runs = (counts, conv_counts, int8_text_counts, packed_counts,
                 eval_counts, train_counts, gc_serve_counts, gc_train_counts,
-                weights_counts)
+                weights_counts, remat_counts)
         total = {name: sum(c[name] for c in runs) for name in COUNTERS}
-        print(f"#   kernel launches over the nine main paths: {total}")
+        print(f"#   kernel launches over the ten main paths: {total}")
         for name in NO_CALLER:
             check(total[name] == 0, f"{name} has no caller in the model, yet "
                                     f"the main paths launched it "
@@ -3175,7 +3585,8 @@ def main(argv=None) -> int:
             for what, c in (("evaluation", eval_counts),
                             ("training", train_counts),
                             ("gate_cl serving", gc_serve_counts),
-                            ("gate_cl training", gc_train_counts)):
+                            ("gate_cl training", gc_train_counts),
+                            ("rematerialised training", remat_counts)):
                 check(c[name] == 0, f"{what} runs the float backbone, yet "
                                     f"launched {name}")
         kernels = phase_times(gen, counts["fused_attention"],
@@ -3186,8 +3597,10 @@ def main(argv=None) -> int:
                               train_counts["fused_attention"],
                               gc_serve_counts["fused_attention"]
                               + gc_train_counts["fused_attention"],
-                              weights_counts["fused_attention"])
+                              weights_counts["fused_attention"],
+                              remat_counts["fused_attention"])
         kernels += phase_conv_times(gen, total, conv_errs)
+        lap("phase 7")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -57,8 +57,9 @@ class EncoderConfig:
     # (calibrated per-tensor scales); the visual backbone's modes are
     # arguments of `VisualBackbone`
     quant: str = "none"
-    # activation rematerialisation, a training knob: inference ignores
-    # both, and training with remat=True raises (not ported)
+    # activation rematerialisation of the self-attention stack, a training
+    # knob (`icka_tpu_torch.nn.remat`: "dots", "dots_nb", "alternate",
+    # "full"); a forward without grad ignores both
     remat: bool = False
     remat_policy: str = "dots"
     # one fused (H, 3H) QKV projection in every self-attention (the

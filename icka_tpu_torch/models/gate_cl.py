@@ -109,14 +109,10 @@ class GateCLModel(nn.Module):
         batch-mean NLL for "ip", else alpha * NLL + (1 - alpha) * (relation
         loss + InfoNCE) (`cl_alpha` and no relation loss for "cl").
         `return_emissions=True` returns the pre-CRF emissions. Dropout masks
-        come from `dropout_gen`; None runs deterministically.
-        Rematerialisation (`EncoderConfig.remat`) is not ported: training
-        with it set raises."""
+        come from `dropout_gen`; None runs deterministically. With
+        `EncoderConfig.remat`, the BERT encoder rematerialises its layers
+        whenever grad is enabled (`icka_tpu_torch.nn.remat`)."""
         cfg = self.cfg
-        if labels is not None and cfg.encoder.remat:
-            raise NotImplementedError(
-                "EncoderConfig.remat=True is not ported: training keeps "
-                "every activation")
         B = input_ids.shape[0]
         seq, pooled = self.bert(input_ids, input_mask, segment_ids,
                                 dropout_gen=dropout_gen)

@@ -228,16 +228,11 @@ class ICKAModel(nn.Module):
         NLL. `deterministic` defaults to `mode != "train"`; a call that is
         not deterministic draws its dropout masks from `dropout_gen`, a
         `torch.Generator` on the model's device, and raises without one.
-        Rematerialisation (`EncoderConfig.remat`) is not ported: "train"
-        with it set raises."""
+        With `EncoderConfig.remat` on `embedding` or `last_encoder`, that
+        stack rematerialises its layers whenever grad is enabled
+        (`icka_tpu_torch.nn.remat`)."""
         if mode not in ("train", "dev", "test"):
             raise ValueError(f"unknown mode {mode!r}")
-        cfg = self.cfg
-        if mode == "train" and (cfg.embedding.remat
-                                or cfg.last_encoder.remat):
-            raise NotImplementedError(
-                "EncoderConfig.remat=True is not ported: training keeps "
-                "every activation")
         if deterministic is None:
             deterministic = mode != "train"
         if not deterministic and dropout_gen is None:

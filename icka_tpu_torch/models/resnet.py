@@ -126,28 +126,32 @@ class ConvBN(nn.Module):
             self.register_buffer("calib_amax", torch.zeros((), device=dev),
                                  persistent=False)
 
+    def folded(self):
+        """The float weights with BatchNorm folded in: (OIHW weight,
+        fused bias)."""
+        inv = self.scale * torch.rsqrt(self.var + 1e-5)
+        return (self.conv.weight * inv[:, None, None, None],
+                self.bias - self.mean * inv)
+
     def int8_operands(self, x):
         """(wq, w_scale, fused_bias, act_scale) for input `x`: the stored
         ones in static mode; in dynamic mode quantised here from the folded
         float weights and from max |x|, which is recorded."""
         if self.quant == "int8_static":
             return self.wq, self.w_scale, self.fused_bias, self.act_scale
-        inv = self.scale * torch.rsqrt(self.var + 1e-5)
-        folded = self.conv.weight * inv[:, None, None, None]      # OIHW
+        folded, fused_bias = self.folded()
         wq, w_s = quantize_weight_cols(
             folded.permute(2, 3, 1, 0).reshape(-1, folded.shape[0]))
         amax = x.float().abs().amax()
         self.calib_amax.copy_(torch.maximum(self.calib_amax, amax))
-        return wq, w_s, self.bias - self.mean * inv, abs_max_scale(amax)
+        return wq, w_s, fused_bias, abs_max_scale(amax)
 
     def forward(self, x):
         if self.quant == "none":
-            inv = self.scale * torch.rsqrt(self.var + 1e-5)
-            w = (self.conv.weight * inv[:, None, None, None]).to(self.dtype)
-            fused_bias = (self.bias - self.mean * inv).to(self.dtype)
-            y = F.conv2d(x.to(self.dtype), w, stride=self.stride,
-                         padding=self.kernel // 2)
-            return y + fused_bias[:, None, None]
+            w, fused_bias = self.folded()
+            y = F.conv2d(x.to(self.dtype), w.to(self.dtype),
+                         stride=self.stride, padding=self.kernel // 2)
+            return y + fused_bias.to(self.dtype)[:, None, None]
         xh = x.permute(0, 2, 3, 1)                                 # NHWC
         wq, w_s, fused_bias, a_s = self.int8_operands(xh)
         acc = int8_matmul(_im2col(quantize_activation(xh, a_s),
@@ -191,26 +195,27 @@ def _stem_s2d_scatter_indices():
 
 
 class StemPoolS2D(ConvBN):
-    """7x7/s2 stem conv + ReLU + 3x3/s2 max-pool of the int8 modes, computed
-    in space-to-depth layout: NHWC (B, H, H, 3) -> NHWC (B, H/4, H/4, 64).
+    """7x7/s2 stem conv + ReLU + 3x3/s2 max-pool computed in space-to-depth
+    layout: NHWC (B, H, H, 3) -> NHWC (B, H/4, H/4, 64).
 
     Space-to-depth-4 turns the stem into one (B*ob^2, 432) x (432, 256)
-    integer product; the max-pool then runs on the sub-pixel planes
-    directly (output row 2I+d, d in {-1,0,1}, lives in planes (I,p0),
-    (I,p1), (I-1,p1)). The parameters are those of `ConvBN(3, 64, 7, 2)`,
-    and the integer products are those of the im2col stem, so the int8
-    result is bit-identical to it. `fused_kernel` sends everything after
-    the patches through `int8_stem_pool`. `plain_conv` is the im2col stem
-    on the same parameters, for input sizes this layout does not take."""
+    product; the max-pool then runs on the sub-pixel planes directly
+    (output row 2I+d, d in {-1,0,1}, lives in planes (I,p0), (I,p1),
+    (I-1,p1)). The parameters are those of `ConvBN(3, 64, 7, 2)`. In the
+    int8 modes the integer products are those of the im2col stem, so the
+    result is bit-identical to it, and `fused_kernel` sends everything
+    after the patches through `int8_stem_pool`. With `quant="none"` the
+    BatchNorm is folded into the float weights and the product runs in
+    `dtype` (the JAX module's float path): it equals `ConvBN` + max-pool up
+    to summation order, and `ResNet` keeps the float stem on `ConvBN`.
+    `plain_conv` is the im2col stem on the same parameters, for input sizes
+    this layout does not take."""
 
     plain_conv = ConvBN.forward
 
     def __init__(self, dtype=torch.float32, quant: str = "int8",
                  fused_kernel: bool = False, plain_kernels: bool = False,
                  device="cuda", generator=None):
-        if quant == "none":
-            raise ValueError("StemPoolS2D serves the int8 modes; the float "
-                             "stem is ConvBN(3, 64, 7, 2)")
         dev = resolve_device(device)
         super().__init__(3, 64, 7, 2, dtype=dtype, quant=quant, device=dev,
                          generator=generator)
@@ -227,11 +232,17 @@ class StemPoolS2D(ConvBN):
     def forward(self, x):
         B, H = x.shape[0], x.shape[1]
         n_out = 64
-        wq, w_s, fused_bias, a_s = self.int8_operands(x)
-        xd = quantize_activation(x, a_s)
+        if self.quant == "none":
+            folded, fused_bias = self.folded()
+            wmat = folded.permute(2, 3, 1, 0).reshape(-1, n_out) \
+                .to(self.dtype)
+            xd = x.to(self.dtype)
+        else:
+            wmat, w_s, fused_bias, a_s = self.int8_operands(x)
+            xd = quantize_activation(x, a_s)
         # scatter the (147, F) kernel into its s2d-4 (432, 4F) equivalent
-        w2 = torch.zeros((432, 4, n_out), dtype=torch.int8, device=x.device)
-        w2[self._dst_r, self._dst_pq] = wq[self._src]
+        w2 = torch.zeros((432, 4, n_out), dtype=wmat.dtype, device=x.device)
+        w2[self._dst_r, self._dst_pq] = wmat[self._src]
         w2 = w2.reshape(432, 4 * n_out)
         # pad (3, 5) and space-to-depth by 4: 224^2 -> (B, 58, 58, 48)
         nb, ob = H // 4 + 2, H // 4
@@ -240,13 +251,16 @@ class StemPoolS2D(ConvBN):
               .reshape(B, nb, nb, 48))
         patches = torch.cat([xs[:, i:i + ob, j:j + ob, :]
                              for i in range(3) for j in range(3)], dim=-1)
-        scale = (a_s * w_s.repeat(4)).float()
-        if self.fused_kernel:
-            tail = stem_pool_reference if self.plain_kernels \
-                else int8_stem_pool
-            return tail(patches, w2, scale, fused_bias.repeat(4).float(),
-                        out_dtype=self.dtype)
-        y = (int8_matmul(patches, w2).float() * scale).to(self.dtype)
+        if self.quant == "none":
+            y = torch.matmul(patches, w2)
+        else:
+            scale = (a_s * w_s.repeat(4)).float()
+            if self.fused_kernel:
+                tail = stem_pool_reference if self.plain_kernels \
+                    else int8_stem_pool
+                return tail(patches, w2, scale, fused_bias.repeat(4).float(),
+                            out_dtype=self.dtype)
+            y = (int8_matmul(patches, w2).float() * scale).to(self.dtype)
         y = y + fused_bias.to(self.dtype).repeat(4)
         # ReLU + 3x3/s2 max-pool in s2d space (the pad contributes 0 <=
         # ReLU'd values, as the -inf-padded pool does on the 112^2 layout)

@@ -4,7 +4,8 @@
   - `SelfAttentionLayer`  ≙ BertLayer: self-attention + FFN, post-LN
   - `CrossAttentionLayer` ≙ BertCrossAttentionLayer: queries from stream 1,
     keys/values from stream 2
-  - `Encoder` / `CrossEncoder` ≙ BertEncoder / BertCrossEncoder
+  - `Encoder` / `CrossEncoder` ≙ BertEncoder / BertCrossEncoder (only
+    `Encoder` takes `EncoderConfig.remat`, as in the JAX package)
   - `Pooler` ≙ BertPooler
 
 Dropout follows the JAX package's sites (attention probabilities of the
@@ -30,6 +31,7 @@ from icka_tpu_torch.core.config import EncoderConfig
 from icka_tpu_torch.core.device import generator_for, resolve_device
 from icka_tpu_torch.kernels.attention import fused_attention
 from icka_tpu_torch.nn.layers import ACT2FN, Dense, LayerNorm, dropout
+from icka_tpu_torch.nn.remat import rematerialised, remat_call
 
 
 def _split_heads(x, num_heads):
@@ -244,16 +246,24 @@ class _Stack(nn.Module):
 
 
 class Encoder(_Stack):
-    """Self-attention stack of `cfg.num_hidden_layers` layers."""
+    """Self-attention stack of `cfg.num_hidden_layers` layers. With
+    `cfg.remat`, a forward under grad rematerialises its layers under
+    `cfg.remat_policy` (`icka_tpu_torch.nn.remat`); without grad
+    (inference, K1) the layers run plain."""
 
     def __init__(self, cfg: EncoderConfig, dtype=torch.float32,
                  device="cuda", generator=None):
         super().__init__(SelfAttentionLayer, cfg, cfg.num_hidden_layers,
                          dtype, device, generator)
+        self.remat_policy = cfg.remat_policy if cfg.remat else None
 
     def forward(self, x, bias=None, dropout_gen=None):
-        for layer in self.layers():
-            x = layer(x, bias, dropout_gen)
+        policy = self.remat_policy
+        for i, layer in enumerate(self.layers()):
+            if policy is not None and rematerialised(policy, i):
+                x = remat_call(layer, policy, x, bias, dropout_gen)
+            else:
+                x = layer(x, bias, dropout_gen)
         return x
 
 

@@ -67,28 +67,35 @@ class TextEmbeddings(nn.Module):
                        self.cfg.hidden_dropout_prob, dropout_gen)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
-                dropout_gen=None):
+                dropout_gen=None, inputs_embeds=None):
+        """`inputs_embeds` (B, S, H), when given, replaces the word
+        embeddings of `input_ids` (which may then be None). As in the JAX
+        module, RoBERTa's pad-aware positions need `input_ids`: from
+        `inputs_embeds` alone the positions are 0..S-1 in both dialects."""
         cfg = self.cfg
-        B, S = input_ids.shape
-        dev = input_ids.device
+        if inputs_embeds is None:
+            inputs_embeds = self.embed_tokens(input_ids)
+        B, S = inputs_embeds.shape[:2]
+        dev = inputs_embeds.device
         if position_ids is not None:
             pass                       # the caller's (packed segments)
-        elif cfg.position_offset > 0:
+        elif cfg.position_offset > 0 and input_ids is not None:
             position_ids = roberta_position_ids(input_ids, cfg.pad_token_id)
         else:
             position_ids = torch.arange(S, device=dev).expand(B, S)
         if token_type_ids is None:
             token_type_ids = torch.zeros(B, S, dtype=torch.long, device=dev)
-        return self.finalize(self.embed_tokens(input_ids), position_ids,
-                             token_type_ids, dropout_gen)
+        return self.finalize(inputs_embeds, position_ids, token_type_ids,
+                             dropout_gen)
 
 
 class TextEncoder(nn.Module):
     """Embeddings + transformer stack (+ optional pooler); returns
     (sequence_output, pooled_output or None). `attention_mask` is a (B, S)
     key mask or a (B, 1, S, S) mask (packed rows: block-diagonal by
-    segment); `position_ids` override the dialect's own. (The JAX module's
-    `inputs_embeds` input is not ported.)"""
+    segment); `position_ids` override the dialect's own; `inputs_embeds`
+    (B, S, H) replaces the word embeddings (see `TextEmbeddings.forward`),
+    and without `attention_mask` every one of its S positions is a key."""
 
     def __init__(self, cfg: EncoderConfig, with_pooler: bool = True,
                  dtype=torch.float32, device="cuda", generator=None):
@@ -102,11 +109,13 @@ class TextEncoder(nn.Module):
                               generator=gen) if with_pooler else None)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
-                position_ids=None, dropout_gen=None):
+                position_ids=None, dropout_gen=None, inputs_embeds=None):
         if attention_mask is None:
-            attention_mask = torch.ones_like(input_ids)
+            ref = input_ids if input_ids is not None else inputs_embeds[..., 0]
+            attention_mask = torch.ones(ref.shape[:2], dtype=torch.long,
+                                        device=ref.device)
         x = self.embeddings(input_ids, token_type_ids, position_ids,
-                            dropout_gen)
+                            dropout_gen, inputs_embeds)
         x = self.encoder(x, additive_mask(attention_mask), dropout_gen)
         pooled = self.pooler(x) if self.pooler is not None else None
         return x, pooled

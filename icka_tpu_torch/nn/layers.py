@@ -60,6 +60,24 @@ def additive_mask(mask, dtype=torch.float32):
     return (1.0 - m) * NEG_INF_MASK
 
 
+def sparsemax(logits, dim: int = -1):
+    """Sparsemax (Martins & Astudillo 2016): the Euclidean projection of
+    `logits` onto the simplex along `dim`, in fp32, by sorting, as the JAX
+    package computes it."""
+    logits = torch.as_tensor(logits).float()
+    sorted_logits = torch.sort(logits, dim=dim, descending=True).values
+    shape = [1] * logits.ndim
+    shape[dim] = -1
+    k = torch.arange(1, logits.shape[dim] + 1, dtype=torch.float32,
+                     device=logits.device).reshape(shape)
+    cssv = torch.cumsum(sorted_logits, dim=dim)
+    support = (1.0 + k * sorted_logits) > cssv
+    k_support = support.float().sum(dim=dim, keepdim=True)
+    cssv_support = cssv.gather(dim, (k_support - 1).long())
+    tau = (cssv_support - 1.0) / k_support
+    return torch.clamp_min(logits - tau, 0.0)
+
+
 class LayerNorm(nn.Module):
     """TF-style LayerNorm (eps inside sqrt), fp32 statistics."""
 
@@ -141,3 +159,22 @@ class Dense(nn.Module):
         acc = int8_matmul(quantize_activation(x, a_scale), self.kernel_q)
         y = (acc.float() * a_scale * self.kernel_scale).to(self.dtype)
         return y + self.bias.to(self.dtype)
+
+
+class MLP(nn.Module):
+    """Feed-forward block Dense -> act -> Dense, the residual and LayerNorm
+    left to the caller; `wi` and `wo` under the flax names."""
+
+    def __init__(self, in_features: int, hidden: int, out: int,
+                 act: str = "gelu", dtype=torch.float32, device="cuda",
+                 generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = generator_for(dev, None, generator)
+        self.act = ACT2FN[act]
+        self.wi = Dense(in_features, hidden, dtype=dtype, device=dev,
+                        generator=gen)
+        self.wo = Dense(hidden, out, dtype=dtype, device=dev, generator=gen)
+
+    def forward(self, x):
+        return self.wo(self.act(self.wi(x)))

@@ -24,7 +24,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_no_jax_in_the_port():
     """Importing the evaluation and training entry points, the optimizer,
-    the data plane and the weight loaders, the package's lazy attributes,
+    the data plane, the weight loaders, the host helpers (`utils`) and
+    rematerialisation, the package's lazy attributes,
     then every module of icka_tpu_torch, pulls in no jax, flax, optax or
     icka_tpu, and none of regex, msgpack, PIL, safetensors, transformers or
     tensorflow, which the card's machine lacks. A fresh interpreter: this
@@ -34,7 +35,7 @@ def test_no_jax_in_the_port():
         "for m in ('cli.evaluate', 'data.loader', 'data.features', "
         "'data.tokenization', 'core.checkpoint', 'train.trainer', "
         "'train.optimizer', 'cli.train', 'models.pretrained', "
-        "'models.tf_convert', 'cli.convert'):\n"
+        "'models.tf_convert', 'cli.convert', 'utils', 'nn.remat'):\n"
         "    importlib.import_module('icka_tpu_torch.' + m)\n"
         "import icka_tpu_torch\n"
         "for name in icka_tpu_torch._LAZY: getattr(icka_tpu_torch, name)\n"

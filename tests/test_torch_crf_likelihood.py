@@ -6,7 +6,6 @@ the tiny `ICKAModel`'s dev-mode tags identical and each row's NLL within
 one fp32 step is 1.5e-5, and XLA's exp and log round differently from
 torch's."""
 
-import dataclasses
 
 import numpy as np
 import pytest
@@ -20,7 +19,7 @@ from icka_tpu_torch.convert import icka_state_dict  # noqa: E402
 from icka_tpu_torch.models.icka import ICKAModel  # noqa: E402
 from icka_tpu_torch.nn import crf as tcrf  # noqa: E402
 from tests.test_torch_icka import (MASKS, OFFSET, _batch, _cfg,  # noqa: E402
-                                   _port_cfg)
+                                   _port_cfg, assert_remat_trains_as_plain)
 
 TOL, RTOL = 1e-5, 1e-6
 REDUCTIONS = ("none", "sum", "mean", "token_mean")
@@ -138,10 +137,6 @@ def test_train_mode_is_the_deterministic_token_mean_loss(flagship):
                  labels=torch.from_numpy(labels), deterministic=True)
     np.testing.assert_allclose(got.numpy(), want["train"], atol=TOL,
                                rtol=RTOL)
-    # rematerialisation is not ported: training with remat=True raises
-    remat = dataclasses.replace(tm.cfg.last_encoder, remat=True)
-    with pytest.raises(NotImplementedError):
-        ICKAModel(dataclasses.replace(tm.cfg, last_encoder=remat),
-                  device="cpu")(tbatch, MASKS, OFFSET, mode="train",
-                                labels=torch.from_numpy(labels),
-                                deterministic=True)
+    # training with remat=True on the prompted stack equals the plain model
+    assert_remat_trains_as_plain(tm, "last_encoder", tbatch,
+                                 torch.from_numpy(labels))

@@ -83,6 +83,33 @@ def flagship():
     return _pair(_cfg(), seed=0)
 
 
+def assert_remat_trains_as_plain(tm, stack, batch, labels):
+    """`tm`'s train-mode loss and gradients, dropout drawn from one seed,
+    against a copy on the same weights whose `stack` ("embedding" or
+    "last_encoder") rematerialises its layers ("dots"): the loss bit-equal,
+    every gradient within 1e-6, the generator left in the same state. (The
+    train mode's dropout keeps attention on the plain core.)"""
+    cfg = dataclasses.replace(tm.cfg, **{stack: dataclasses.replace(
+        getattr(tm.cfg, stack), remat=True)})
+    remat = ICKAModel(cfg, device="cpu").eval()
+    remat.load_state_dict(tm.state_dict(), strict=True)
+    runs = []
+    for m in (tm, remat):
+        gen = torch.Generator().manual_seed(3)
+        loss = m(batch, MASKS, OFFSET, mode="train", labels=labels,
+                 dropout_gen=gen)
+        loss.backward()
+        runs.append((loss.detach(), gen.get_state(),
+                     {n: p.grad for n, p in m.named_parameters()}))
+        m.zero_grad(set_to_none=True)
+    (want, want_state, want_grads), (got, state, grads) = runs
+    assert torch.equal(got, want) and torch.equal(state, want_state)
+    assert grads.keys() == want_grads.keys()
+    for n, g in grads.items():
+        torch.testing.assert_close(g, want_grads[n], atol=1e-6, rtol=0,
+                                   msg=n)
+
+
 def _compare(jm, params, tm, batch):
     keys = {k: v for k, v in batch.items() if k != "output_mask"}
     want, _ = jm.apply(params, method=lambda m, **kw: m.emissions(**kw),
@@ -158,10 +185,11 @@ def test_server_validates_buckets_and_device(flagship):
     tm = flagship[2]
     with pytest.raises(ValueError):
         BucketedICKAServer(tm, buckets=(16,), device="cpu")
-    # rematerialisation is not ported: training with remat=True raises
-    remat = dataclasses.replace(tm.cfg.embedding, remat=True)
-    with pytest.raises(NotImplementedError):
-        ICKAModel(dataclasses.replace(tm.cfg, embedding=remat),
-                  device="cpu")({}, MASKS, OFFSET, mode="train")
+    # training with remat=True on the first stack equals the plain model
+    rng = np.random.default_rng(14)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(tm.cfg, rng).items()}
+    labels = torch.from_numpy(rng.integers(
+        0, tm.cfg.num_labels, batch["ori_input_ids"].shape))
+    assert_remat_trains_as_plain(tm, "embedding", batch, labels)
     with pytest.raises(ValueError):
         tm({}, MASKS, OFFSET, mode="predict")

@@ -178,6 +178,71 @@ def test_prompt_splice_encoder():
     np.testing.assert_array_equal(tsmask.numpy(), np.asarray(smask))
 
 
+@pytest.mark.parametrize("shape,dim", [((4, 11), -1), ((3, 6, 5), 1),
+                                       ((2, 1, 7), -1)])
+def test_sparsemax(shape, dim):
+    rng = np.random.default_rng(6)
+    x = (rng.standard_normal(shape) * 2).astype(np.float32)
+    got = tlayers.sparsemax(_t(x), dim=dim)
+    _close(got, jlayers.sparsemax(x, axis=dim))
+    _close(got.sum(dim), np.ones(np.delete(shape, dim)))
+    assert float(got.min()) >= 0.0 and bool((got == 0).any())
+
+
+@pytest.mark.parametrize("act", ["gelu", "relu", "swish", "tanh"])
+def test_mlp_weights_carried_by_the_bridge(act):
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((3, 5, 24)).astype(np.float32)
+    jm = jlayers.MLP(hidden=40, out=16, act=act)
+    v = jm.init(jax.random.PRNGKey(7), x)
+    v = jax.tree_util.tree_map(            # nonzero biases
+        lambda a: a + 0.1 * rng.standard_normal(a.shape).astype(np.float32),
+        v)
+    tm = _port(tlayers.MLP(24, 40, 16, act=act, device=CPU), v)
+    assert set(tm.state_dict()) == {"wi.weight", "wi.bias", "wo.weight",
+                                    "wo.bias"}
+    with torch.no_grad():
+        _close(tm(_t(x)), jm.apply(v, x))
+
+
+@pytest.mark.parametrize("dialect", ["bert", "roberta"])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_text_encoder_inputs_embeds(dialect, with_mask):
+    """`inputs_embeds` in place of `input_ids`: positions 0..S-1 in both
+    dialects (RoBERTa's pad-aware positions need token ids), and without a
+    mask every position is a key."""
+    jc, tc = _cfgs(use_pallas=False)
+    if dialect == "bert":
+        jc, tc = (dataclasses.replace(c, position_offset=0, pad_token_id=0)
+                  for c in (jc, tc))
+    rng = np.random.default_rng(8)
+    emb = rng.standard_normal((2, 11, 32)).astype(np.float32)
+    mask = np.ones((2, 11), np.int32)
+    mask[0, 8:] = 0
+    types = np.zeros((2, 11), np.int32)
+    m = mask if with_mask else None
+    jm = jbert.TextEncoder(jc)
+    v = jm.init(jax.random.PRNGKey(8), None, m, types, inputs_embeds=emb)
+    seq, pooled = jm.apply(v, None, m, types, inputs_embeds=emb)
+    tm = _port(tbert.TextEncoder(tc, device=CPU), v)
+    with torch.no_grad():
+        tseq, tpooled = tm(None, None if m is None else _t(m), _t(types),
+                           inputs_embeds=_t(emb))
+    _close(tseq, seq)
+    _close(tpooled, pooled)
+
+
+def test_inputs_embeds_of_the_word_embeddings_is_the_id_path(text_encoder):
+    """With both given, `inputs_embeds` replaces the word embeddings and
+    `input_ids` still gives RoBERTa's positions: the word embeddings of the
+    ids reproduce the ids' output."""
+    tm, (ids, mask, types), (seq, _) = text_encoder
+    with torch.no_grad():
+        emb = tm.embeddings.embed_tokens(_t(ids).long())
+        got, _ = tm(_t(ids), _t(mask), _t(types), inputs_embeds=emb)
+    _close(got, seq)
+
+
 def test_unported_options_raise():
     tc = dataclasses.replace(TEncoderConfig.tiny(), adapter_size=8)
     with pytest.raises(NotImplementedError):

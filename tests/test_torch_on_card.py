@@ -7,7 +7,11 @@ and an int8-static `Dense` and BiLSTM input projection on the card against
 the float64 product and the CPU, bit for bit; K1 at the gate_cl family's
 12 heads, and a small gate_cl model served through K1 against the plain
 core; K1 and K2 on the strided q/k/v views of one fused projection, and a
-tiny fused int8-static gate_cl on the card against the CPU.
+tiny fused int8-static gate_cl on the card against the CPU. And the modules
+of rematerialised training without a kernel: a remat'd stack with dropout
+against its plain step under each policy, the CRF's log-depth Viterbi and
+marginals, the float space-to-depth stem, `sparsemax` and `MLP` against the
+CPU (`chip_smoke.py` phase 11 runs these).
 
 This file imports only torch and the port, so it also runs on a machine that
 has a card but not the JAX package's dependencies:
@@ -834,3 +838,126 @@ def test_fused_int8_static_gate_cl_on_card_equals_cpu(cuda_device):
                      return_emissions=True).double()
     cos = (em * em_cpu).sum(-1) / (em.norm(dim=-1) * em_cpu.norm(dim=-1))
     assert cos.min().item() >= 0.999
+
+
+@pytest.fixture
+def strict_fp32(cuda_device):
+    """TF32 off for the test's fp32 products, the flags restored after."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda_device
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags
+
+
+@pytest.mark.parametrize("policy", ["dots", "dots_nb", "alternate", "full"])
+def test_remat_encoder_on_the_card_equals_its_plain_step(strict_fp32,
+                                                         policy):
+    """A 2-layer stack in fp32 with dropout 0.1 drawn from a generator on
+    the card: each policy's gradients within 1e-6 of the plain stack's and
+    the generator left in the same state; and the products each policy
+    recomputes, as the CPU tests pin them (the card's `F.linear` and
+    einsum lower to the same `mm` and `bmm`)."""
+    import collections
+    import dataclasses
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from icka_tpu_torch.core.config import EncoderConfig
+    from icka_tpu_torch.nn.attention import Encoder
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.counts = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.counts[func.name().split(".")[0]] += 1
+            return func(*args, **(kwargs or {}))
+
+    dev = strict_fp32
+
+    def run(remat):
+        cfg = dataclasses.replace(EncoderConfig.tiny(), hidden_size=64,
+                                  remat=remat, remat_policy=policy)
+        enc = Encoder(cfg, device=dev,
+                      generator=torch.Generator(dev).manual_seed(1))
+        x = torch.randn(4, 40, 64, device=dev,
+                        generator=torch.Generator(dev).manual_seed(2),
+                        requires_grad=True)
+        bias = torch.zeros(4, 1, 1, 40, device=dev)
+        bias[1, ..., 30:] = -10000.0
+        gen = torch.Generator(dev).manual_seed(5)
+        with Ops() as ops:
+            enc(x, bias, gen).square().sum().backward()
+        torch.cuda.synchronize()
+        return ([x.grad] + [p.grad for p in enc.parameters()],
+                gen.get_state(), ops.counts)
+    want, want_state, plain_ops = run(False)
+    got, state, ops = run(True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=0)
+    assert torch.equal(state, want_state)
+    extra = ops - plain_ops
+    layers = 1 if policy == "alternate" else 2
+    per_layer = {"dots": (0, 0), "dots_nb": (0, 2)}.get(policy, (6, 2))
+    assert (extra["aten::mm"], extra["aten::bmm"]) == tuple(
+        layers * n for n in per_layer), extra
+
+
+def test_crf_parallel_decode_and_marginals_on_the_card(cuda_device):
+    """At the flagship's serving shape (B=8, L=128, its 15 labels):
+    `crf_decode_parallel` on the card gives the sequential decode's tags
+    and the CPU's, `crf_marginals` the CPU's within 1e-4. (At 128 steps the
+    log-potentials reach about 350, where one fp32 step is 3.05e-5: the
+    CPU's own fp32 marginals are 1.2e-5 from float64's on such inputs;
+    `chip_smoke.py`'s CRF_MARGINALS_TOL.)"""
+    from icka_tpu_torch.nn.crf import (crf_decode, crf_decode_parallel,
+                                       crf_marginals)
+
+    gen = torch.Generator().manual_seed(0)
+    B, L, T = 8, 128, 15
+    em = torch.randn(B, L, T, generator=gen)
+    lens = torch.tensor([128, 100, 64, 33, 17, 5, 2, 1])
+    mask = (torch.arange(L)[None] < lens[:, None]).int()
+    params = [torch.rand(T, generator=gen) - 0.5,
+              torch.rand(T, generator=gen) - 0.5,
+              torch.rand(T, T, generator=gen) - 0.5]
+    card = [t.to(cuda_device) for t in (em, mask, *params)]
+    tags = crf_decode_parallel(*card)
+    assert torch.equal(tags, crf_decode(*card))
+    assert torch.equal(tags.cpu(), crf_decode_parallel(em, mask, *params))
+    marg = crf_marginals(*card).cpu()
+    torch.testing.assert_close(marg, crf_marginals(em, mask, *params),
+                               atol=1e-4, rtol=0)
+    torch.testing.assert_close(marg.sum(-1), torch.ones(B, L), atol=1e-4,
+                               rtol=0)
+
+
+def test_float_stem_sparsemax_and_mlp_on_the_card(strict_fp32):
+    """The float `StemPoolS2D` (fp32, TF32 off), `sparsemax` and `MLP` on
+    the card against the same modules on the CPU, within 1e-5."""
+    import copy
+
+    from icka_tpu_torch.models.resnet import StemPoolS2D
+    from icka_tpu_torch.nn.layers import MLP, sparsemax
+
+    dev = strict_fp32
+    gen = torch.Generator().manual_seed(0)
+    stem = StemPoolS2D(quant="none", device="cpu", generator=gen).eval()
+    with torch.no_grad():
+        stem.mean.uniform_(-0.2, 0.2, generator=gen)
+        stem.var.uniform_(0.5, 1.5, generator=gen)
+    x = torch.randn(2, 224, 224, 3, generator=gen)
+    mlp = MLP(64, 256, 32, device="cpu", generator=gen)
+    h = torch.randn(3, 17, 64, generator=gen)
+    logits = torch.randn(4, 9, 33, generator=gen) * 2
+    with torch.no_grad():
+        for module, inp in ((stem, x), (mlp, h)):
+            want = module(inp)
+            got = copy.deepcopy(module).to(dev)(inp.to(dev)).cpu()
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(sparsemax(logits.to(dev)).cpu(),
+                               sparsemax(logits), atol=1e-5, rtol=0)

@@ -159,6 +159,29 @@ def test_dynamic_stem_s2d_matches_jax():
     assert tm.calib_amax.item() == float(calib["calib"]["amax"])
 
 
+def test_float_stem_s2d_matches_jax():
+    """`quant="none"`: BatchNorm folded into the float weights, the
+    space-to-depth product in fp32; within 1e-5 of the JAX module's float
+    path and of the im2col stem + ReLU + max-pool on the same parameters."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    jm = JaxStem(dtype=jnp.float32)
+    v = _random_stats(rng, jax.device_get(
+        jm.init(jax.random.PRNGKey(0), x)))
+    want = jm.apply(v, x)
+    tm = StemPoolS2D(quant="none", device="cpu")
+    tm.load_state_dict(backbone_state_dict(v), strict=True)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x))
+        conv = tm.plain_conv(torch.from_numpy(x).permute(0, 3, 1, 2))
+        pooled = torch.nn.functional.max_pool2d(torch.relu(conv), 3, 2, 1)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 8, 8, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+    torch.testing.assert_close(got, pooled.permute(0, 2, 3, 1), atol=1e-5,
+                               rtol=0)
+
+
 def test_stem_s2d_equals_the_im2col_stem():
     """Same integer products, integer accumulation: the space-to-depth stem
     is bit-identical to conv 7x7/s2 + ReLU + max-pool 3x3/s2."""
@@ -296,6 +319,6 @@ def test_int8_input_to_an_unfused_block_raises():
     with pytest.raises(ValueError):
         block(torch.zeros(1, 64, 4, 4, dtype=torch.int8))
     with pytest.raises(ValueError):
-        StemPoolS2D(quant="none", device="cpu")
+        StemPoolS2D(quant="int4", device="cpu")
     with pytest.raises(ValueError):
         ConvBN(3, 8, 1, quant="int4", device="cpu")

@@ -2,8 +2,9 @@
 preempted by a real signal and resumed from its snapshot ends bit-equal to
 the uninterrupted run (dropout on, so the seeded draws must line up); the
 training CLI prints the JAX CLI's line shapes and writes its checkpoint
-directory; and what stays unported raises: the mesh in `TrainConfig` and
-rematerialisation in training, the flagship's and the gate_cl family's."""
+directory; the mesh in `TrainConfig`, which stays unported, raises; and
+training with rematerialisation equals training without it, the flagship's
+and the gate_cl family's."""
 
 import dataclasses
 import os
@@ -18,8 +19,7 @@ import torch
 
 from icka_tpu_torch.cli import train as train_cli
 from icka_tpu_torch.core.checkpoint import Checkpointer, PreemptionGuard
-from icka_tpu_torch.core.config import (EncoderConfig, GateCLConfig,
-                                        ICKAConfig, TrainConfig)
+from icka_tpu_torch.core.config import GateCLConfig, ICKAConfig, TrainConfig
 from icka_tpu_torch.data.clip_store import ClipFeatureStore
 from icka_tpu_torch.data.conll import read_mm_conll
 from icka_tpu_torch.data.features import convert_examples
@@ -141,21 +141,55 @@ def test_the_mesh_is_not_ported(field, value):
     TrainConfig(data_axis=-1)              # all devices: the one device
 
 
-def test_remat_and_gate_cl_raise():
-    enc = dataclasses.replace(EncoderConfig.tiny(), remat=True)
-    model = ICKAModel(dataclasses.replace(ICKAConfig.tiny(), embedding=enc),
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        model({}, (3, 14), 18, mode="train")
+def test_remat_trains_as_the_plain_model_in_both_families(corpus):
+    """With dropout from one seed: the flagship's train loss (through
+    `ICKATrainer.loss`, remat on both stacks, "full") and the gate_cl
+    family's (remat on its encoder, "dots_nb") equal the plain model's, and
+    so do their gradients within 1e-6. Train mode without a generator
+    raises."""
+    cfg, feats, images = corpus
+    batch = next(iter(MNERLoader(feats["train"], images, 2, 1, train=True,
+                                 decode_size=32, prefetch=0)))
+    micro = {k: v[0] for k, v in batch.items()}
+
+    def remat(enc, policy):
+        return dataclasses.replace(enc, remat=True, remat_policy=policy)
+
+    def icka(c):
+        tr = ICKATrainer(c, TrainConfig(compute_dtype="float32"),
+                         feats["train"].spec, resnet_layers=(1, 1, 1, 1),
+                         device="cpu")
+        return tr.model, lambda gen: tr.loss(
+            micro, torch.Generator().manual_seed(4), gen)
+    rc = dataclasses.replace(cfg, embedding=remat(cfg.embedding, "full"),
+                             last_encoder=remat(cfg.last_encoder, "full"))
+    gc = dataclasses.replace(GateCLConfig.tiny(), region_dim=64)
+    ids = torch.ones(2, 4, dtype=torch.long)
+
+    def gate_cl(c):
+        model = GateCLModel(c, device="cpu")
+        return model, lambda gen: model(
+            ids, ids * 0, ids, torch.ones(2, 49), torch.ones(2, 64),
+            torch.ones(2, 7, 7, 64), labels=ids * 0, dropout_gen=gen)
+    for build, plain, rematerialised in (
+            (icka, cfg, rc),
+            (gate_cl, gc, dataclasses.replace(
+                gc, encoder=remat(gc.encoder, "dots_nb")))):
+        runs = []
+        for c in (plain, rematerialised):
+            model, loss_of = build(c)
+            loss = loss_of(torch.Generator().manual_seed(9))
+            loss.backward()
+            runs.append((loss.detach(), {n: p.grad for n, p in
+                                         model.named_parameters()}))
+        (want, want_grads), (got, grads) = runs
+        assert torch.equal(got, want) and torch.isfinite(got)
+        for n, g in grads.items():
+            torch.testing.assert_close(g, want_grads[n], atol=1e-6, rtol=0,
+                                       msg=n)
     with pytest.raises(ValueError, match="dropout_gen"):
         ICKAModel(ICKAConfig.tiny(), device="cpu")({}, (3, 14), 18,
                                                    mode="train")
-    gate_cl = GateCLModel(dataclasses.replace(GateCLConfig.tiny(),
-                                              encoder=enc), device="cpu")
-    ids = torch.ones(2, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="remat"):
-        gate_cl(ids, ids * 0, ids, torch.ones(2, 49), torch.zeros(2, 64),
-                torch.zeros(2, 7, 7, 64), labels=ids * 0)
 
 
 def test_step_seeds_differ_by_epoch_batch_and_microbatch(corpus):
