@@ -139,6 +139,29 @@ Phases; any failure exits non-zero:
      decode's and the CPU's, both timed and profiled; the marginals card
      vs CPU within 1e-5. Last, the card tests of these modules
      (`tests/test_torch_on_card.py -k CARD_TESTS`, in a child pytest);
+ 12. the data axis (last, after 7), two ranks on the one card: NCCL
+     refuses two ranks on one GPU, so they run over gloo, which carries
+     CUDA tensors through the host, started with `spawn`. `ICKAConfig()`
+     with ResNet-152 in fp32 (TF32 off) on a global batch of 2 x 8 from
+     phase 8's corpus with random images (crop and flip) and dropout on:
+     two steps on one rank without a process group (the reference), the
+     same two steps on a NCCL world of one through the same code
+     (bit-equal to the reference's; the all-reduce's seconds of the first
+     step, which sets up the communicator, and of the second), then in
+     two spawned ranks phase 3's
+     requests through `BucketedICKAServer(mesh=)` in fp32 (tags identical
+     to phase 3's fp32 tags on every rank, K1 48 times a device batch on
+     each rank, added into the `kernels` line), two steps replicated and
+     two under ZeRO-1 (losses and gradient norms within 2e-5 and 1e-4 of
+     the reference's, the ranks' parameters bit-equal to each other's,
+     ZeRO-1's parameters and moment slices bit-equal to replicated's,
+     per-rank peaks and each step's compute, all-reduce and ZeRO-1 gather
+     printed), and rank 0 writes the ZeRO-1 run's snapshot, which a
+     single-rank trainer resumes bit-equal before it is removed. A rank
+     that fails fails the run. It runs last and reads no profile: a
+     short profiled call in a process a minute or more old may keep no
+     device record (`tools/profiler_probe.py`, PERF.md section 7), and a
+     profiled call that records none fails the run (`recorded`);
   7. time each kernel at its main-path shape beside its plain version, the
      PyTorch library call for the same function where there is one, its
      bound and its recorded time before its redesign (comment lines only);
@@ -162,6 +185,7 @@ import dataclasses
 import io
 import json
 import math
+import multiprocessing
 import os
 import re
 import shutil
@@ -173,6 +197,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from icka_tpu_torch.cli import convert as convert_cli
@@ -185,6 +210,7 @@ from icka_tpu_torch.core.checkpoint import Checkpointer, restore_pytree
 from icka_tpu_torch.core.config import (EncoderConfig, GateCLConfig,
                                         ICKAConfig, TrainConfig, to_json)
 from icka_tpu_torch.core.device import strict_fp32
+from icka_tpu_torch.core.mesh import Mesh, MeshSpec, init_distributed, make_mesh
 from icka_tpu_torch.data import native, synthetic
 from icka_tpu_torch.data.clip_store import ClipFeatureStore
 from icka_tpu_torch.data.conll import MMExample, read_mm_conll
@@ -218,6 +244,7 @@ from icka_tpu_torch.models.tf_convert import (encoder_params_to_tf,
 from icka_tpu_torch.models.token_classifier import TokenClassifier
 from icka_tpu_torch.nn.crf import CRF
 from icka_tpu_torch.nn.quant import column_major, int8_matmul
+from icka_tpu_torch.parallel.partitioning import moment_slices
 from icka_tpu_torch.serving.bucketed import (BucketedGateCLServer,
                                              BucketedICKAServer,
                                              sample_tweet_lengths)
@@ -925,6 +952,16 @@ def serve(server, backbone, texts, images):
     return tags, stats, examples, (t1 - t0, time.perf_counter() - t1)
 
 
+def recorded(n: int, fn) -> int:
+    """`n`, the device records of a profiled call of `fn`; a failure when
+    there are none (every profiled call launches a kernel), as when
+    `torch.profiler` stops recording device kernels late in this process
+    (PERF.md section 7)."""
+    check(n > 0, f"torch.profiler recorded no device kernel in the "
+                 f"profiled call of {getattr(fn, '__qualname__', fn)}")
+    return n
+
+
 def device_profile(fn, top=8):
     """torch.profiler over one call of `fn`: total device seconds, the
     `top` device kernels by time and K1's own row (name, ms, calls), and
@@ -946,7 +983,7 @@ def device_profile(fn, top=8):
              if "attention" in e.key and "kernel" in e.key and e not in rows]
     return (sum(dev_us(e) for e in kernels) / 1e6,
             [(e.key, dev_us(e) / 1e3, e.count) for e in rows],
-            sum(e.count for e in kernels))
+            recorded(sum(e.count for e in kernels), fn))
 
 
 def device_busy(fn):
@@ -963,25 +1000,37 @@ def device_busy(fn):
         torch.cuda.synchronize()
     records = [e for e in prof.profiler.kineto_results.events()
                if e.device_type() == DeviceType.CUDA]
-    return sum(e.duration_ns() for e in records) / 1e9, len(records)
+    return (sum(e.duration_ns() for e in records) / 1e9,
+            recorded(len(records), fn))
 
 
-def kernel_device_ms(fn, iters=50):
+def kernel_device_ms(fn, iters=50, seconds=1.0):
     """Device time per launch of the attention kernel that `fn` launches,
-    from torch.profiler's kernel rows: where the kernel is shorter than
-    its wrapper's host time, CUDA events around a loop of calls count the
-    gaps between launches too."""
+    from torch.profiler's kernel records: where the kernel is shorter
+    than its wrapper's host time, CUDA events around a loop of calls count
+    the gaps between launches too. The profiled loop lasts about `seconds`
+    (at least `iters` calls): late in a process the profiler keeps none
+    of a short call's device records and all but a few of a long one's
+    (PERF.md section 7)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    calls = max(iters, math.ceil(seconds * iters
+                                 / (time.perf_counter() - t0)))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if "attention" in e.key
-            and str(getattr(e, "device_type", "")).endswith("CUDA")]
-    return (sum(getattr(e, "self_device_time_total", 0) for e in rows)
-            / 1e3 / sum(e.count for e in rows))
+    # the raw records: grouping thousands of calls' records by name
+    # (`key_averages`) costs seconds
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA and "attention" in e.name()]
+    return sum(ns) / 1e6 / recorded(len(ns), fn)
 
 
 def first_batch_emissions(server, examples, models, spec):
@@ -1120,6 +1169,8 @@ def phase_slice(args, card, dev, base, resnet_layers, tokenizer):
                cfgs=cfgs, weights=model.state_dict(),
                backbone_bf16=backbone16, server_bf16=servers["kernel_bf16"],
                tags_bf16=runs["kernel_bf16"]["tags"],
+               tags=runs["kernel"]["tags"],
+               examples=runs["kernel"]["examples"],
                max_seq_length=base.max_seq_length,
                num_labels=base.num_labels)
     return runs["kernel"]["counts"], pairs_per_s, ctx
@@ -2662,6 +2713,315 @@ def phase_remat(args, card, dev, base, gc_base, layers, lengths):
     return counts, runs, crf_times
 
 
+# phase 12, two ranks on one card (gloo: NCCL refuses two ranks on one
+# GPU): a global batch of DP_ACCUM x DP_BATCH rows, DP_STEPS steps at
+# data axis DP_RANKS, replicated and under ZeRO-1, against the same steps
+# on one rank (fp32, TF32 off, dropout on, random images for the crop and
+# flip). The two-rank losses differ from one rank's by the order of the
+# sums only (DP_LOSS_RTOL, the CPU tests' bound), the gradients' global
+# norm likewise (STEP_NORM_RTOL); ZeRO-1 against replicated and the NCCL
+# world of one against the trainer without a process group are the same
+# arithmetic, held bit for bit (exact checksums of the bits, `fingerprint`).
+DP_RANKS, DP_BATCH, DP_ACCUM, DP_STEPS = 2, 8, 2, 2
+DP_LOSS_RTOL = 2e-5
+DP_JOIN_S = 900
+
+
+def fingerprint(tensors) -> tuple:
+    """Two exact integer checksums of the tensors' bits, in order (a plain
+    and a position-weighted sum of the 32- or 16-bit words, wrapping in
+    int64): tensors with equal bits give equal checksums."""
+    plain = weighted = None
+    for t in tensors:
+        t = t.detach().contiguous()
+        bits = t.view(torch.int32 if t.element_size() == 4
+                      else torch.int16).reshape(-1).long()
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        s, sw = bits.sum(), (bits * w).sum()
+        plain = s if plain is None else plain + s
+        weighted = sw if weighted is None else weighted + sw
+    return int(plain), int(weighted)
+
+
+def moment_fingerprints(trainer, cuts) -> tuple:
+    """Checksums of the moments as this rank's ZeRO-1 slices (`cuts`, from
+    `moment_slices`): a replicated trainer's full moments are cut first."""
+    mu, nu = trainer.opt_state.mu, trainer.opt_state.nu
+    zero1 = trainer.zero1 is not None
+
+    def local(name, t):
+        return t if zero1 or name not in cuts else t.narrow(*cuts[name])
+    return (fingerprint(local(n, t) for n, t in mu.items()),
+            fingerprint(local(n, t) for n, t in nu.items()))
+
+
+def dp_requests(ctx) -> dict:
+    """Phase 3's fp32 requests (features on the host) and the tags the
+    single-device kernel path gave them."""
+    def host(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+    return {"examples": [{k: host(v) for k, v in ex.items()}
+                         for ex in ctx["examples"]],
+            "tags": ctx["tags"], "cfg": ctx["cfgs"][True],
+            "spec": ctx["spec"]}
+
+
+def dp_steps(trainer, batches, dev):
+    """DP_STEPS train steps; each step's record, the parameters'
+    checksums after it and the peak allocated bytes over the steps."""
+    reset_peak(dev)
+    trainer.init_state(2 * DP_STEPS)
+    records, prints = [], []
+    for i, batch in enumerate(batches):
+        records.append(trainer.train_step(batch, (0, i)))
+        prints.append(fingerprint(trainer.params().values()))
+    return records, prints, peak_bytes(dev)
+
+
+def dp_rank(rank: int, work: str, seed: int, device: str):
+    """One rank of phase 12 (a spawned process): DP serving of phase 3's
+    requests, DP_STEPS replicated steps, DP_STEPS under ZeRO-1 and their
+    snapshot (rank 0 writes it); what it saw goes to work/rank{rank}.pt.
+    Any exception ends the process with a non-zero code."""
+    work = Path(work)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // DP_RANKS))
+    dev = init_distributed(device, init_method=f"file://{work / 'store'}",
+                           rank=rank, world=DP_RANKS)
+    strict_fp32()
+    inputs = torch.load(work / "inputs.pt", weights_only=False)
+    served = inputs["served"]
+    seen = {"backend": dist.get_backend(), "device": str(dev)}
+    mesh = make_mesh(MeshSpec(data=DP_RANKS), device=dev)
+    model = ICKAModel(served["cfg"], device=dev, seed=seed).eval()
+    spec = served["spec"]
+    server = BucketedICKAServer(model, max_batch=MAX_BATCH,
+                                offset=spec.offset,
+                                mask_positions=spec.mask_positions,
+                                mesh=mesh)
+    zero_counts()
+    t0 = time.perf_counter()
+    tags, stats = server.predict(served["examples"])
+    sync(dev)
+    seen["serve"] = dict(tags=tags, pairs=stats.total_pairs,
+                         batches=sum(stats.batches_per_bucket.values()),
+                         counts=read_counts(),
+                         seconds=time.perf_counter() - t0)
+    del model, server
+    torch.cuda.empty_cache()
+    backbone = torch.load(work / "backbone.pt", weights_only=True)
+    for zero1 in (False, True):
+        tcfg = dataclasses.replace(inputs["tcfg"], data_axis=DP_RANKS,
+                                   zero1=zero1)
+        tr = ICKATrainer(inputs["cfg"], tcfg, inputs["spec"],
+                         resnet_layers=inputs["layers"], device=dev)
+        tr.backbone.load_state_dict(backbone)
+        records, prints, peak = dp_steps(tr, inputs["batches"], dev)
+        cuts = moment_slices({n: tuple(p.shape)
+                              for n, p in tr.params().items()}, tr.mesh)
+        run = dict(records=records, params=prints, peak=peak,
+                   moments=moment_fingerprints(tr, cuts))
+        if zero1:
+            t0 = time.perf_counter()
+            tr.save_state(Checkpointer(str(work / "zero1")))
+            run["save_seconds"] = time.perf_counter() - t0
+        seen["zero1" if zero1 else "replicated"] = run
+        del tr
+        torch.cuda.empty_cache()
+    torch.save(seen, work / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def phase_dp(args, card, dev, base, layers, served):
+    """Phase 12: the data axis, two ranks on the one card. Returns every
+    kernel's launch count over both ranks' serving and training."""
+    print(f"# phase 12: the data axis, {DP_RANKS} ranks on one card (gloo, "
+          f"spawn): phase 3's requests through BucketedICKAServer(mesh=) in "
+          f"fp32; ICKAConfig() with ResNet-152 trained in fp32 (TF32 off), "
+          f"global batch {DP_ACCUM} x {DP_BATCH}, dropout, crop and flip on, "
+          f"{DP_STEPS} steps replicated and {DP_STEPS} under ZeRO-1, against "
+          f"one rank; the same steps on a NCCL world of one")
+    strict_fp32()
+    work = WORK_DIR / "dp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = served["cfg"]
+    feats = train_corpus(args, cfg, work / "ds")
+    spec = feats["train"].spec
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, train_batch_size=DP_BATCH,
+                       gradient_accumulation_steps=DP_ACCUM, seed=args.seed,
+                       compute_dtype="float32")
+    loader = MNERLoader(feats["train"], str(work / "ds" / "images"),
+                        DP_BATCH, DP_ACCUM, train=True,
+                        decode_size=TRAIN_DECODE, seed=args.seed, prefetch=0)
+    batches = [b for _, b in zip(range(DP_STEPS), loader)]
+    rng = np.random.default_rng(args.seed)
+    for b in batches:             # images to crop and flip (no files here)
+        b["images"] = rng.integers(0, 256, b["images"].shape,
+                                   dtype=np.uint8)
+
+    def trainer(**kw):
+        return ICKATrainer(cfg, dataclasses.replace(tcfg, **kw), spec,
+                           resnet_layers=layers, device=dev)
+
+    # one rank, no process group: the reference
+    t0 = time.perf_counter()
+    ref = trainer()
+    calibrate_batch_stats(ref.backbone, preprocess_images(
+        batches[0]["images"].reshape(-1, *batches[0]["images"].shape[2:]),
+        224, dev))
+    torch.save(ref.backbone.state_dict(), work / "backbone.pt")
+    backbone = ref.backbone.state_dict()
+    ref_records, ref_prints, ref_peak = dp_steps(ref, batches, dev)
+    shapes = {n: tuple(p.shape) for n, p in ref.params().items()}
+    del ref
+    torch.cuda.empty_cache()
+    for r in ref_records:
+        check(r.applied and math.isfinite(r.loss), f"reference step {r}")
+    print(f"#   one rank: losses {[r.loss for r in ref_records]}, grad norms "
+          f"{[r.grad_norm for r in ref_records]}, peak allocated "
+          f"{ref_peak / 1e9:.3f} GB, step seconds "
+          f"{[round(r.seconds, 3) for r in ref_records]} "
+          f"({time.perf_counter() - t0:.1f} s with the build)")
+
+    # a NCCL world of one (gloo in a CPU rehearsal): the same code path
+    init_distributed(dev.type, init_method=f"file://{work / 'store1'}",
+                     rank=0, world=1)
+    backend1 = dist.get_backend()
+    one = trainer(data_axis=-1)
+    one.backbone.load_state_dict(backbone)
+    one_records, one_prints, _ = dp_steps(one, batches, dev)
+    del one
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    same = ([(r.loss, r.grad_norm) for r in one_records]
+            == [(r.loss, r.grad_norm) for r in ref_records]
+            and one_prints == ref_prints)
+    print(f"#   {backend1} world of one, {DP_STEPS} steps against the "
+          f"trainer without a process group: losses "
+          f"{[r.loss for r in one_records]} vs "
+          f"{[r.loss for r in ref_records]}, grad norms "
+          f"{[r.grad_norm for r in one_records]} vs "
+          f"{[r.grad_norm for r in ref_records]}, parameter checksums "
+          f"{one_prints} vs {ref_prints}: bit-equal {same}; all-reduce "
+          f"{one_records[0].reduce_seconds * 1e3:.1f} ms in the first step "
+          f"(the communicator's set-up with it), "
+          f"{one_records[-1].reduce_seconds * 1e3:.1f} ms in the last")
+    check(same, f"the {backend1} world of one differs from one rank")
+
+    # two ranks on the card
+    torch.save({"served": served, "batches": batches, "cfg": cfg,
+                "spec": spec, "tcfg": tcfg, "layers": layers},
+               work / "inputs.pt")
+    del backbone
+    torch.cuda.empty_cache()
+    print(f"#   the parent holds {torch.cuda.memory_allocated(dev) / 1e9:.3f}"
+          f" GB allocated, {torch.cuda.memory_reserved(dev) / 1e9:.3f} GB "
+          f"reserved before the ranks start" if dev.type == "cuda" else
+          "#   (CPU rehearsal)")
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=dp_rank, args=(r, str(work), args.seed,
+                                                dev.type))
+             for r in range(DP_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_JOIN_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * DP_RANKS, f"phase 12 ranks exited with {codes}")
+    ranks_s = time.perf_counter() - t0
+    seen = [torch.load(work / f"rank{r}.pt", weights_only=False)
+            for r in range(DP_RANKS)]
+
+    counts = {name: 0 for name in COUNTERS}
+    for r, s in enumerate(seen):
+        serve_ = s["serve"]
+        add_counts(counts, serve_["counts"])
+        k1 = serve_["counts"]["fused_attention"]
+        agree = all(np.array_equal(a, b)
+                    for a, b in zip(serve_["tags"], served["tags"]))
+        print(f"#   rank {r}: backend {s['backend']} on {s['device']}; "
+              f"served {serve_['pairs']} requests in {serve_['batches']} "
+              f"device batches of {MAX_BATCH // DP_RANKS} rows a rank in "
+              f"{serve_['seconds']:.2f} s (first call: kernels loaded, no "
+              f"warmup), K1 launches {k1}; tags identical to phase 3's fp32 "
+              f"tags: {agree}")
+        check(s["backend"] == ("gloo" if DP_RANKS > torch.cuda.device_count()
+                               or dev.type == "cpu" else "nccl"),
+              f"rank {r} chose {s['backend']}")
+        check(serve_["pairs"] == len(served["tags"]) and agree,
+              f"rank {r}: DP serving tags differ from phase 3's")
+        if CHECK_CONV_LAUNCHES:
+            check(k1 == LAYERS_PER_BATCH * serve_["batches"],
+                  f"rank {r}: K1 launched {k1} times for "
+                  f"{serve_['batches']} batches")
+        for run in ("replicated", "zero1"):
+            recs = s[run]["records"]
+            for i, (got, want) in enumerate(zip(recs, ref_records)):
+                loss_rel = abs(got.loss - want.loss) / abs(want.loss)
+                norm_rel = abs(got.grad_norm - want.grad_norm) / abs(
+                    want.grad_norm)
+                compute = got.seconds - got.reduce_seconds \
+                    - got.update_seconds
+                print(f"#   rank {r} {run} step {i}: loss {got.loss:.7f} vs "
+                      f"one rank {want.loss:.7f} (relative {loss_rel:.2e}, "
+                      f"tol {DP_LOSS_RTOL:.0e}), grad norm relative "
+                      f"{norm_rel:.2e}; step {got.seconds * 1e3:.1f} ms = "
+                      f"compute {compute * 1e3:.1f} + all-reduce "
+                      f"{got.reduce_seconds * 1e3:.1f} + update "
+                      f"{got.update_seconds * 1e3:.1f} ms (ZeRO-1 gather "
+                      f"{got.gather_seconds * 1e3:.1f} ms of it)")
+                check(got.applied and loss_rel <= DP_LOSS_RTOL
+                      and norm_rel <= STEP_NORM_RTOL,
+                      f"rank {r} {run} step {i}: loss {got.loss} vs "
+                      f"{want.loss}, grad norm {got.grad_norm} vs "
+                      f"{want.grad_norm}")
+        print(f"#   rank {r}: peak allocated replicated "
+              f"{s['replicated']['peak'] / 1e9:.3f} GB, ZeRO-1 "
+              f"{s['zero1']['peak'] / 1e9:.3f} GB (one rank "
+              f"{ref_peak / 1e9:.3f} GB); on {card}")
+        check(s["zero1"]["params"] == s["replicated"]["params"]
+              and s["zero1"]["moments"] == s["replicated"]["moments"],
+              f"rank {r}: ZeRO-1 is not bit-equal to replicated")
+    check(all(s[run]["params"] == seen[0][run]["params"]
+              for s in seen for run in ("replicated", "zero1")),
+          "the ranks' parameters differ")
+    print(f"#   ZeRO-1 bit-equal to replicated (parameters after each step, "
+          f"every rank's moment slices) and the ranks bit-equal to each "
+          f"other: True; snapshot written by rank 0 in "
+          f"{seen[0]['zero1']['save_seconds']:.1f} s; ranks "
+          f"{ranks_s:.1f} s with their start")
+
+    # the ZeRO-1 snapshot resumed by a trainer without a process group
+    t0 = time.perf_counter()
+    single = trainer()
+    single.init_state(2 * DP_STEPS)
+    tree, step = Checkpointer(str(work / "zero1")).resume()
+    single.state_from_checkpoint(tree)
+    del tree
+    params_ok = (fingerprint(single.params().values())
+                 == seen[0]["zero1"]["params"][-1])
+    moments_ok = all(
+        moment_fingerprints(single, moment_slices(
+            shapes, Mesh(DP_RANKS, 1, r, None, dev))) == s["zero1"]["moments"]
+        for r, s in enumerate(seen))
+    print(f"#   the ZeRO-1 snapshot (step {step}) resumed by one rank in "
+          f"{time.perf_counter() - t0:.1f} s: parameters bit-equal "
+          f"{params_ok}, moments bit-equal to every rank's slices "
+          f"{moments_ok}")
+    check(step == DP_STEPS and single.step == DP_STEPS and params_ok
+          and moments_ok, "the ZeRO-1 snapshot did not resume bit-equal")
+    del single
+    torch.cuda.empty_cache()
+    shutil.rmtree(work)
+    return counts
+
+
 def phase_bert_times(gen, row):
     """K1 at BERT-base's heads (12 x 64), B=128, at the longest bucket
     (S=128, key bias) and the short packed tier (S=48, block-diagonal full
@@ -3249,7 +3609,8 @@ def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
     """K1's row: `launches` counts phase 3, phase 9 (the gate_cl family),
     phase 10 (gate_cl on weights from disk, fused QKV) and phase 11 (the
     dev evaluation of rematerialised training), the other paths' counts
-    beside it."""
+    beside it; `main` adds phase 12's (both ranks' data-parallel
+    serving), which runs after this phase."""
     B, S, N, hd, dtype = 128, 150, 16, 64, torch.bfloat16
     print(f"# phase 7: K1 at B={B} Sq=Sk={S} {N}x{hd} bf16, key-mask bias "
           f"(the tensor-core body at {K1_TILES}; the prompted encoder's "
@@ -3560,6 +3921,7 @@ def main(argv=None) -> int:
         lap("phase 9, serving")
         weights_counts = phase_weights(args, card, dev, gc_base, ctx, layers)
         lengths = [len(t["ori_input_ids"]) for t in ctx["texts"]]
+        served = dp_requests(ctx)
         del ctx
         torch.cuda.empty_cache()
         lap("phase 10")
@@ -3571,24 +3933,12 @@ def main(argv=None) -> int:
         remat_counts, _, _ = phase_remat(args, card, dev, base, gc_base,
                                          layers, lengths)
         lap("phase 11")
-        # over the ten main paths, each driven from counts of 0
-        runs = (counts, conv_counts, int8_text_counts, packed_counts,
+        # over the ten main paths before phase 12, each driven from counts
+        # of 0
+        runs = [counts, conv_counts, int8_text_counts, packed_counts,
                 eval_counts, train_counts, gc_serve_counts, gc_train_counts,
-                weights_counts, remat_counts)
+                weights_counts, remat_counts]
         total = {name: sum(c[name] for c in runs) for name in COUNTERS}
-        print(f"#   kernel launches over the ten main paths: {total}")
-        for name in NO_CALLER:
-            check(total[name] == 0, f"{name} has no caller in the model, yet "
-                                    f"the main paths launched it "
-                                    f"{total[name]} times")
-        for name in ("int8_bottleneck_v2", "int8_stem_pool"):
-            for what, c in (("evaluation", eval_counts),
-                            ("training", train_counts),
-                            ("gate_cl serving", gc_serve_counts),
-                            ("gate_cl training", gc_train_counts),
-                            ("rematerialised training", remat_counts)):
-                check(c[name] == 0, f"{what} runs the float backbone, yet "
-                                    f"launched {name}")
         kernels = phase_times(gen, counts["fused_attention"],
                               packed_counts["fused_attention"],
                               eval_counts["fused_attention"],
@@ -3601,6 +3951,33 @@ def main(argv=None) -> int:
                               remat_counts["fused_attention"])
         kernels += phase_conv_times(gen, total, conv_errs)
         lap("phase 7")
+        # last: the older the process, the more of a short profiled
+        # call's device records torch.profiler drops (none kept late in
+        # it: tools/profiler_probe.py), so the phases that read the
+        # profiler come first
+        dp_counts = phase_dp(args, card, dev, base, layers, served)
+        lap("phase 12")
+        runs.append(dp_counts)
+        total = {name: sum(c[name] for c in runs) for name in COUNTERS}
+        print(f"#   kernel launches over the eleven main paths: {total}")
+        # K1's row counts phase 12's launches too; it launched no other
+        # kernel (checked below), so the other rows' counts stand
+        k1 = kernels[0]
+        k1["dp_launches"] = dp_counts["fused_attention"]
+        k1["launches"] += k1["dp_launches"]
+        for name in NO_CALLER:
+            check(total[name] == 0, f"{name} has no caller in the model, yet "
+                                    f"the main paths launched it "
+                                    f"{total[name]} times")
+        for name in ("int8_bottleneck_v2", "int8_stem_pool"):
+            for what, c in (("evaluation", eval_counts),
+                            ("training", train_counts),
+                            ("gate_cl serving", gc_serve_counts),
+                            ("gate_cl training", gc_train_counts),
+                            ("rematerialised training", remat_counts),
+                            ("data-parallel serving", dp_counts)):
+                check(c[name] == 0, f"{what} runs the float backbone, yet "
+                                    f"launched {name}")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

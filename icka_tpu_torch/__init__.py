@@ -19,6 +19,9 @@ nothing of `icka_tpu` or JAX. It covers:
   - training (`train.trainer.ICKATrainer`,
     `train.gate_cl_trainer.GateCLTrainer`, `cli.train`), with snapshots
     in the JAX package's layout;
+  - the data axis of the JAX package's mesh on `torch.distributed`
+    (`core.mesh`, `parallel`): data-parallel training with ZeRO-1 and
+    data-parallel bucketed serving, one process per rank;
   - weights from files on disk (`models.pretrained`: HF directories with
     `pytorch_model.bin` or `model.safetensors`, native msgpack
     directories, TF-1.x BERT bundles, torchvision ResNet `.pth`;

@@ -5,10 +5,19 @@ gate_cl family.
         --tokenizer_dir ... --output_dir out/
     python -m icka_tpu_torch.cli.train --synthetic DIR --tiny --device cpu
     python -m icka_tpu_torch.cli.train --synthetic DIR --tiny --model gate_cl
+    torchrun --nproc_per_node 2 -m icka_tpu_torch.cli.train ... --data_axis -1
 
 The flags are the JAX CLI's, with `--device {cuda,cpu}` (default cuda) in
-place of `--platform`/`--cpu_devices`/`--multihost`: the port trains on one
-device, so `--data_axis` takes 1 or -1 and `--model_axis` 1. `--model
+place of `--platform`/`--cpu_devices`/`--multihost`. Under torchrun (its
+`RANK` and `WORLD_SIZE` in the environment) the ranks form the data axis
+(`core.mesh.init_distributed`: NCCL when each rank has a card of its own,
+gloo otherwise): every rank loads the global batch of
+`--train_batch_size` rows and trains on its share of it, as the JAX
+package's single-host data axis does; rank 0 writes the corpus of
+`--synthetic`, the checkpoints and the lines. A caller that started the
+process group itself has its ranks used the same way. `--model_axis`
+takes 1.
+`--model
 gate_cl|cl|ip` trains that variant of the my_bert family
 (`GateCLTrainer`) on BERT-base, or with `--tiny` on
 `GateCLConfig.tiny(variant)` with `region_dim` 2048 and the tiny ICKA
@@ -27,9 +36,12 @@ import argparse
 import dataclasses
 import os
 
+import torch.distributed as dist
+
 from icka_tpu_torch.core.checkpoint import Checkpointer, PreemptionGuard
 from icka_tpu_torch.core.config import (GateCLConfig, ICKAConfig,
                                         TrainConfig, load_config, to_json)
+from icka_tpu_torch.core.mesh import init_distributed
 from icka_tpu_torch.data.clip_store import ClipFeatureStore
 from icka_tpu_torch.data.conll import read_mm_conll
 from icka_tpu_torch.data.features import convert_examples
@@ -67,8 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--data_axis", type=int, default=-1,
-                   help="mesh size along the data axis (1 or -1: the one "
-                        "device)")
+                   help="mesh size along the data axis (-1: every rank "
+                        "torchrun started, one without torchrun)")
     p.add_argument("--model_axis", type=int, default=1,
                    help="tensor-parallel mesh size (1)")
     p.add_argument("--synthetic", default=None,
@@ -83,13 +95,33 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    start = "RANK" in os.environ and "WORLD_SIZE" in os.environ \
+        and not dist.is_initialized()
+    if start:
+        init_distributed(args.device)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    try:
+        return _main(args, rank)
+    finally:
+        if start:
+            dist.destroy_process_group()
+
+
+def _main(args, rank: int):
     if args.synthetic:
-        root = generate_dataset(args.synthetic, n_train=32, n_valid=8,
-                                n_test=8, image_size=64,
-                                clip_dim=16 if args.tiny else 512)
+        root = args.synthetic
+        tok_dir = os.path.join(root, "tokenizer")
+        if rank == 0:
+            generate_dataset(root, n_train=32, n_valid=8, n_test=8,
+                             image_size=64, clip_dim=16 if args.tiny else 512)
+            tiny_tokenizer(tok_dir)
+        if dist.is_initialized():
+            dist.barrier()
         args.data_dir = root
         args.path_image = os.path.join(root, "images")
-        tokenizer = tiny_tokenizer(os.path.join(root, "tokenizer"))
+        tokenizer = ByteLevelBPETokenizer(
+            os.path.join(tok_dir, "vocab.json"),
+            os.path.join(tok_dir, "merges.txt"))
     else:
         if not (args.data_dir and args.path_image and args.tokenizer_dir):
             raise SystemExit(
@@ -159,14 +191,16 @@ def main(argv=None):
         train=False, decode_size=decode_size)
 
     ckpt = Checkpointer(args.output_dir)
-    ckpt.save_config(to_json(model_cfg))
+    if rank == 0:
+        ckpt.save_config(to_json(model_cfg))
     epochs = args.epochs_override or train_cfg.num_train_epochs
     # SIGTERM/SIGINT during training snapshots the last completed step
     # (atomic write) and exits cleanly; rerunning the same command resumes
     with PreemptionGuard() as guard:
         trainer.fit(train_loader, dev_loader, epochs=epochs,
                     checkpointer=ckpt, preemption_guard=guard)
-    print(f"done; best dev F1 = {ckpt.manifest['best_metric']}")
+    if rank == 0:
+        print(f"done; best dev F1 = {ckpt.manifest['best_metric']}")
     return trainer
 
 

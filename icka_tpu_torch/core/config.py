@@ -175,10 +175,12 @@ class GateCLConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Training-loop hyperparameters (reference defaults), every field of
-    the JAX package's `TrainConfig` with its name and default. This package
-    trains on one device: `data_axis` (1, or -1 for all devices, which is
-    one), `model_axis` 1 and `zero1` False are the only values it takes;
-    any other raises `NotImplementedError`."""
+    the JAX package's `TrainConfig` with its name and default. The mesh
+    (`icka_tpu_torch.core.mesh.MeshSpec`): `data_axis` is the number of
+    data-parallel ranks (-1 or any value below 1: every rank of the
+    process group, one without a group) and `zero1` splits Adam's moments
+    over them (`train.optimizer.Zero1`); a `model_axis` above 1 raises
+    `NotImplementedError`, as tensor parallelism is not ported."""
 
     learning_rate: float = 3e-5
     weight_decay: float = 0.01
@@ -193,20 +195,18 @@ class TrainConfig:
     compute_dtype: str = "bfloat16"      # or "float32"
     data_axis: int = 1                  # mesh size along the data axis
     model_axis: int = 1                 # mesh size along the model (TP) axis
-    # ZeRO-1 in the JAX package: Adam moments sharded over the data axis
+    # ZeRO-1: Adam moments split over the data axis
     zero1: bool = False
     # dtype of the Adam first moment (mu); bf16 halves its memory. The
     # second moment stays fp32 (sqrt(nu) precision gates the update).
     mu_dtype: str = "float32"
 
     def __post_init__(self):
-        for name, ok in (("data_axis", self.data_axis in (1, -1)),
-                         ("model_axis", self.model_axis == 1),
-                         ("zero1", not self.zero1)):
-            if not ok:
-                raise NotImplementedError(
-                    f"TrainConfig.{name}={getattr(self, name)!r}: the mesh "
-                    f"is not ported; this package trains on one device")
+        if self.model_axis > 1:
+            raise NotImplementedError(
+                f"TrainConfig.model_axis={self.model_axis}: tensor "
+                f"parallelism (the model axis) is not ported; this package "
+                f"splits the data axis only")
 
 
 @dataclass(frozen=True)

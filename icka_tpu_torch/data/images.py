@@ -7,7 +7,8 @@
            train + ImageNet normalisation.
 
 The training draws (crop offsets and flips) come from the caller's
-`torch.Generator`; `augment_images` takes them explicitly.
+`torch.Generator` (or `core.mesh.RowDraws` of one, for a rank's rows of a
+batch); `augment_images` takes them explicitly.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from icka_tpu_torch.core.device import resolve_device
+from icka_tpu_torch.core.mesh import draw
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -74,8 +76,10 @@ def preprocess_images(images, crop_size: int = 224, device="cuda",
         raise ValueError(f"image size {S} is smaller than crop {crop_size}")
     margin = S - crop_size
     if train and margin > 0:
-        offsets = torch.randint(0, margin + 1, (B, 2), generator=generator)
-        flips = torch.rand(B, generator=generator) < 0.5
+        offsets = draw(lambda shape, gen: torch.randint(
+            0, margin + 1, shape, generator=gen), (B, 2), generator)
+        flips = draw(lambda shape, gen: torch.rand(shape, generator=gen),
+                     (B,), generator) < 0.5
         return augment_images(x, offsets, flips, crop_size)
     o = margin // 2
     x = x[:, o:o + crop_size, o:o + crop_size, :].float() / 255.0

@@ -5,13 +5,18 @@ Each source `csrc/<name>.cu` has a plain C interface and compiles with
 the checkout (listed in `.gitignore`). The library's file name carries a
 hash of the source, of every header `csrc/*.cuh` and of the flags, so an
 edited source or header is rebuilt and a stale library is never loaded. `build()` starts one `nvcc` per source, all
-at once, and waits for them. Nothing here runs at import time: the CPU
+at once, and waits for them, under an exclusive lock on a file in the
+build directory: processes that start together (the ranks of a
+data-parallel run) build once and load the same libraries. The lock is an
+`flock`, which the system drops when its holder exits, so a process killed
+mid-build leaves none behind. Nothing here runs at import time: the CPU
 tests import every module on a host without `nvcc`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -56,13 +61,22 @@ def build_log(name: str) -> str:
 
 def build(names=SOURCES) -> dict[str, Path]:
     """Compile every named source that has no library yet, one nvcc process
-    per source, all started together. Raises with nvcc's output on error."""
+    per source, all started together, holding the build directory's lock
+    (a process that waited for it finds the libraries built). Raises with
+    nvcc's output on error."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _build(names)
+    return {name: library_path(name) for name in names}
+
+
+def _build(names) -> None:
     jobs = []
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         log_path = out.with_suffix(".log")
         with open(log_path, "w") as log:
@@ -79,7 +93,6 @@ def build(names=SOURCES) -> dict[str, Path]:
             failed.append(f"{name}:\n{log_path.read_text()}")
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return {name: library_path(name) for name in names}
 
 
 @functools.cache

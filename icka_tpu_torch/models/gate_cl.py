@@ -103,7 +103,7 @@ class GateCLModel(nn.Module):
 
     def forward(self, input_ids, segment_ids, input_mask, img_mask,
                 visual_mean, visual_grid, labels=None, dropout_gen=None,
-                return_emissions=False):
+                return_emissions=False, rows=None):
         """Inference (`labels` None): (B, L) int32 Viterbi tags under
         `input_mask`. Training (`labels` given): the scalar loss, the CRF's
         batch-mean NLL for "ip", else alpha * NLL + (1 - alpha) * (relation
@@ -111,7 +111,13 @@ class GateCLModel(nn.Module):
         `return_emissions=True` returns the pre-CRF emissions. Dropout masks
         come from `dropout_gen`; None runs deterministically. With
         `EncoderConfig.remat`, the BERT encoder rematerialises its layers
-        whenever grad is enabled (`icka_tpu_torch.nn.remat`)."""
+        whenever grad is enabled (`icka_tpu_torch.nn.remat`).
+
+        `rows` (`core.mesh.RowSplit`, training only): the inputs are one
+        rank's rows of a microbatch that the data axis splits. The
+        negative swap and InfoNCE then run over the whole microbatch, on
+        features gathered from every rank; the CRF and relation terms are
+        means over this rank's rows."""
         cfg = self.cfg
         B = input_ids.shape[0]
         seq, pooled = self.bert(input_ids, input_mask, segment_ids,
@@ -126,12 +132,20 @@ class GateCLModel(nn.Module):
         aux_loss = 0.0
         if cfg.variant == "gate_cl":
             if training:
-                perm = negative_swap_permutation(B, cfg.negative_rate)
-                cross_used = cross[torch.from_numpy(perm).to(cross.device)]
-                swapped = cfg.negative_rate and B > cfg.negative_rate
-                labels_crs = torch.from_numpy(
-                    (np.arange(B) < B - cfg.negative_rate).astype(np.int64)
-                    if swapped else np.ones(B, np.int64)).to(cross.device)
+                total = B if rows is None else rows.total
+                perm = negative_swap_permutation(total, cfg.negative_rate)
+                swapped = cfg.negative_rate and total > cfg.negative_rate
+                positive = ((np.arange(total) < total - cfg.negative_rate)
+                            .astype(np.int64) if swapped
+                            else np.ones(total, np.int64))
+                source = cross
+                if rows is not None:
+                    # a swapped pair may span two ranks
+                    perm = perm[rows.start:rows.stop]
+                    positive = positive[rows.start:rows.stop]
+                    source = rows.gather(cross)
+                cross_used = source[torch.from_numpy(perm).to(cross.device)]
+                labels_crs = torch.from_numpy(positive).to(cross.device)
             else:
                 cross_used = cross
             # the relation classifier flattens (L, 2H) positions padded to
@@ -168,6 +182,8 @@ class GateCLModel(nn.Module):
         if not training:
             return self.crf.decode(emissions, input_mask)
         if cfg.variant in ("gate_cl", "cl"):
+            if rows is not None:
+                text_cl, image_cl = rows.gather(text_cl), rows.gather(image_cl)
             aux_loss = aux_loss + info_nce(text_cl, image_cl, cfg.temp,
                                            cfg.temp_lamb)
         main_loss = -self.crf(emissions, labels, input_mask, reduction="mean")

@@ -11,7 +11,8 @@
 Dropout follows the JAX package's sites (attention probabilities of the
 plain core, the attention output and the FFN output, before each residual):
 every `forward` takes `dropout_gen`, a `torch.Generator` on the device that
-draws the masks, and None (the default) runs deterministically. Heads are
+draws the masks (or `core.mesh.RowDraws` of one, for a rank's rows of a
+batch), and None (the default) runs deterministically. Heads are
 laid out (B, S, N, H).
 Submodule names are the flax names (`layer_0`, `attn`, `query`, ...), so a
 flax parameter path is a `state_dict` key. `EncoderConfig.quant` reaches
@@ -29,6 +30,7 @@ from torch import nn
 
 from icka_tpu_torch.core.config import EncoderConfig
 from icka_tpu_torch.core.device import generator_for, resolve_device
+from icka_tpu_torch.core.mesh import draw
 from icka_tpu_torch.kernels.attention import fused_attention
 from icka_tpu_torch.nn.layers import ACT2FN, Dense, LayerNorm, dropout
 from icka_tpu_torch.nn.remat import rematerialised, remat_call
@@ -59,8 +61,9 @@ def dot_product_attention(q, k, v, bias=None, dtype=torch.float32,
         scores = scores + bias.to(softmax_dtype)
     probs = torch.softmax(scores, dim=-1)
     if dropout_rate > 0.0 and dropout_gen is not None:
-        keep = torch.rand(probs.shape, generator=dropout_gen,
-                          device=probs.device) < 1.0 - dropout_rate
+        keep = draw(lambda shape, gen: torch.rand(shape, generator=gen,
+                                                  device=probs.device),
+                    probs.shape, dropout_gen) < 1.0 - dropout_rate
         probs = probs * keep / (1.0 - dropout_rate)
     probs = probs.to(dtype)
     return torch.einsum("bnqk,bknh->bqnh", probs, v.to(dtype))

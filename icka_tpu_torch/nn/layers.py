@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from icka_tpu_torch.core.device import generator_for, resolve_device
+from icka_tpu_torch.core.mesh import draw
 from icka_tpu_torch.nn.quant import (abs_max_scale, column_major,
                                      int8_matmul, quantize_activation)
 
@@ -42,13 +43,15 @@ ACT2FN = {
 def dropout(x, rate: float, dropout_gen=None):
     """flax `nn.Dropout`: each element kept with probability 1 - rate and
     scaled by 1 / (1 - rate), the mask drawn from `dropout_gen` (a
-    `torch.Generator` on x's device; no module touches the global RNG).
-    The identity when `dropout_gen` is None (deterministic) or rate is 0."""
+    `torch.Generator` on x's device, or `core.mesh.RowDraws` of one for a
+    rank's rows of a batch; no module touches the global RNG). The
+    identity when `dropout_gen` is None (deterministic) or rate is 0."""
     if dropout_gen is None or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=dropout_gen,
-                      device=x.device) < keep_prob
+    keep = draw(lambda shape, gen: torch.rand(shape, generator=gen,
+                                              device=x.device),
+                x.shape, dropout_gen) < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
 
 

@@ -1,6 +1,5 @@
 """Length-bucketed serving of the flagship ICKA model and of the gate_cl
-family (port of `icka_tpu.serving.bucketed`, without the data-parallel
-`mesh`).
+family (port of `icka_tpu.serving.bucketed`).
 
 Each request goes to the smallest length bucket that holds it, and bucket
 queues run as fixed-size batches: short tweets pass through a 16- or
@@ -21,6 +20,13 @@ token's attention, so:
 not pay for the first launches (kernel builds, library handles, the
 allocator's growth). The servers run eager PyTorch: there is no program to
 compile per bucket as there is under `jax.jit`.
+
+Data-parallel serving (`mesh=`, a `core.mesh.Mesh`): every rank gets the
+same requests and holds the whole model, runs its share of the rows of
+each device batch, and the tags are gathered from the ranks, so every rank
+returns the single-device server's tags. The batch must divide by the
+data size. A placement change, never a math change: no collective runs
+inside the model.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ import numpy as np
 import torch
 
 from icka_tpu_torch.core.device import resolve_device
+from icka_tpu_torch.core.mesh import shard_batch
+from icka_tpu_torch.parallel.collectives import all_gather_objects
 
 
 def pick_bucket(length: int, buckets: Sequence[int]) -> int:
@@ -68,6 +76,41 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _server_device(model, mesh, device):
+    """The device a server runs on: the mesh's when there is one; the
+    model must live there."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    if model.device != dev:
+        raise ValueError(f"model lives on {model.device}, server on {dev}")
+    return dev
+
+
+def _predict(batches, forward, mesh, n: int):
+    """(tags, stats) of `n` examples from `batches` (the servers'
+    `batches()`): each device batch through `forward`, on a mesh this
+    rank's rows of it, the ranks' tags gathered in rank order."""
+    results: list = [None] * n
+    pairs: dict[int, int] = {}
+    counts: dict[int, int] = {}
+    tags, kept = [], []
+    with torch.inference_mode():
+        for b, chunk, lens, batch in batches:
+            if mesh is not None:
+                batch = shard_batch(mesh, batch)
+            tags.append(forward(batch).cpu().numpy())
+            kept.append((chunk, lens))
+            pairs[b] = pairs.get(b, 0) + len(chunk)
+            counts[b] = counts.get(b, 0) + 1
+    if mesh is not None:
+        ranks = all_gather_objects(tags, mesh.group)
+        tags = [np.concatenate([r[i] for r in ranks])
+                for i in range(len(tags))]
+    for t, (chunk, lens) in zip(tags, kept):
+        for r, i in enumerate(chunk):
+            results[i] = t[r, :lens[r]].astype(np.int32)
+    return results, ServingStats(pairs, counts)
+
+
 class BucketedGateCLServer:
     """Bucketed request-level inference for `GateCLModel` (every variant).
 
@@ -78,6 +121,9 @@ class BucketedGateCLServer:
     max_batch: rows per device batch: one int for every bucket, a
         {bucket: batch} mapping (128 for buckets it does not list), or None
         for `RECOMMENDED_BATCH`.
+
+    mesh: a `core.mesh.Mesh` for data-parallel serving (see the module
+        docstring); every bucket's batch must divide by its data size.
 
     Examples are dicts with a variable-length 1-D ``input_ids`` (optional
     ``segment_ids``), ``visual_mean`` (R,), ``visual_grid`` (7, 7, R) and
@@ -90,19 +136,23 @@ class BucketedGateCLServer:
 
     def __init__(self, model, buckets: Sequence[int] = (16, 24, 32, 48, 64,
                                                         128),
-                 max_batch=None, device="cuda"):
+                 max_batch=None, mesh=None, device="cuda"):
         buckets = tuple(sorted(buckets))
         if buckets[-1] != model.cfg.max_seq_length:
             raise ValueError(
                 f"largest bucket {buckets[-1]} must equal "
                 f"max_seq_length {model.cfg.max_seq_length}")
-        self.device = resolve_device(device)
-        if model.device != self.device:
-            raise ValueError(f"model lives on {model.device}, server on "
-                             f"{self.device}")
+        self.device = _server_device(model, mesh, device)
         self.model = model
         self.buckets = buckets
         self.max_batch = max_batch
+        self.mesh = mesh
+        if mesh is not None:
+            for b in buckets:
+                if self._batch_of(b) % mesh.data:
+                    raise ValueError(
+                        f"bucket {b} batch {self._batch_of(b)} not "
+                        f"divisible by mesh size {mesh.data}")
 
     def _batch_of(self, bucket: int) -> int:
         if self.max_batch is None:
@@ -138,6 +188,8 @@ class BucketedGateCLServer:
                                                device=self.device)
             batch["visual_grid"] = torch.zeros(B, 7, 7, cfg.region_dim,
                                                device=self.device)
+            if self.mesh is not None:
+                batch = shard_batch(self.mesh, batch)
             with torch.inference_mode():
                 self.model(**batch)
         _sync(self.device)
@@ -181,18 +233,11 @@ class BucketedGateCLServer:
 
     def predict(self, examples: Sequence[dict]):
         """Returns (tags, stats): ``tags[i]`` is a 1-D int32 numpy array of
-        decoded labels at the example's true (possibly truncated) length."""
-        results: list = [None] * len(examples)
-        pairs: dict[int, int] = {}
-        batches: dict[int, int] = {}
-        with torch.inference_mode():
-            for b, chunk, lens, batch in self.batches(examples):
-                tags = self.model(**batch).cpu().numpy()
-                pairs[b] = pairs.get(b, 0) + len(chunk)
-                batches[b] = batches.get(b, 0) + 1
-                for r, i in enumerate(chunk):
-                    results[i] = tags[r, :lens[r]].astype(np.int32)
-        return results, ServingStats(pairs, batches)
+        decoded labels at the example's true (possibly truncated) length
+        (the same on every rank of a mesh)."""
+        return _predict(self.batches(examples),
+                        lambda batch: self.model(**batch), self.mesh,
+                        len(examples))
 
 
 class BucketedICKAServer:
@@ -207,27 +252,30 @@ class BucketedICKAServer:
         ``clip_features`` (C,) or (1, C): numpy arrays or tensors (tensors
         already on the device are not copied through the host)
 
-    The model's parameters must live on `device`.
+    The model's parameters must live on `device` (on `mesh`'s device for
+    data-parallel serving, see the module docstring; `max_batch` must
+    divide by its data size).
     """
 
     def __init__(self, model, buckets: Sequence[int] = (16, 24, 32, 48, 64,
                                                         128),
                  max_batch: int = 128, offset: int = 14,
-                 mask_positions: tuple = (3, 11), device="cuda"):
+                 mask_positions: tuple = (3, 11), mesh=None, device="cuda"):
         buckets = tuple(sorted(buckets))
         if buckets[-1] != model.cfg.max_seq_length:
             raise ValueError(
                 f"largest bucket {buckets[-1]} must equal "
                 f"max_seq_length {model.cfg.max_seq_length}")
-        self.device = resolve_device(device)
-        if model.device != self.device:
-            raise ValueError(f"model lives on {model.device}, server on "
-                             f"{self.device}")
+        self.device = _server_device(model, mesh, device)
         self.model = model
         self.buckets = buckets
         self.max_batch = max_batch
         self.offset = offset
         self.mask_positions = tuple(mask_positions)
+        self.mesh = mesh
+        if mesh is not None and max_batch % mesh.data:
+            raise ValueError(f"max_batch {max_batch} not divisible by mesh "
+                             f"size {mesh.data}")
 
     def _empty_batch(self, b: int):
         cfg = self.model.cfg
@@ -261,6 +309,8 @@ class BucketedICKAServer:
                                ("visual_mean", (cfg.region_dim,)),
                                ("visual_grid", (7, 7, cfg.region_dim))):
                 batch[key] = torch.zeros(B, *shape, device=self.device)
+            if self.mesh is not None:
+                batch = shard_batch(self.mesh, batch)
             with torch.inference_mode():
                 self.model(batch, self.mask_positions, self.offset,
                            mode="test")
@@ -310,19 +360,13 @@ class BucketedICKAServer:
 
     def predict(self, examples: Sequence[dict]):
         """Returns (tags, stats): ``tags[i]`` is a 1-D int32 numpy array of
-        decoded labels at the example's true (possibly truncated) length."""
-        results: list = [None] * len(examples)
-        pairs: dict[int, int] = {}
-        batches: dict[int, int] = {}
-        with torch.inference_mode():
-            for b, chunk, lens, batch in self.batches(examples):
-                tags = self.model(batch, self.mask_positions, self.offset,
-                                  mode="test").cpu().numpy()
-                pairs[b] = pairs.get(b, 0) + len(chunk)
-                batches[b] = batches.get(b, 0) + 1
-                for r, i in enumerate(chunk):
-                    results[i] = tags[r, :lens[r]].astype(np.int32)
-        return results, ServingStats(pairs, batches)
+        decoded labels at the example's true (possibly truncated) length
+        (the same on every rank of a mesh)."""
+        return _predict(
+            self.batches(examples),
+            lambda batch: self.model(batch, self.mask_positions, self.offset,
+                                     mode="test"),
+            self.mesh, len(examples))
 
 
 def sample_tweet_lengths(n: int, rng: np.random.Generator,

@@ -18,16 +18,25 @@ sees the uninterrupted run's batches (the JAX loader reshuffles it with
 `seed + 0`: a deliberate difference). And, as in the JAX package, the
 evaluation computes no dev loss for this family: `EvalResult.loss` is
 0.0.
+
+Data parallelism runs through `ICKATrainer`'s loop. The CRF and relation
+terms are means over rows, so equal shares of a microbatch need no weight
+(`loss_share` is 1). The in-batch terms see the whole microbatch, as the
+JAX package's SPMD program does: each rank gathers the cross-modal
+features for the relation classifier's swapped pairs and the contrastive
+projections for InfoNCE from every rank (`core.mesh.RowSplit`, with their
+gradients), so the ranks compute the one-rank step in every variant.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 
 from icka_tpu_torch.core.config import GateCLConfig, TrainConfig
+from icka_tpu_torch.core.mesh import Mesh, RowSplit
 from icka_tpu_torch.data.labels import MNER_LABELS
 from icka_tpu_torch.models.gate_cl import GateCLModel
 from icka_tpu_torch.train.trainer import EvalResult, ICKATrainer
@@ -46,28 +55,36 @@ def model_args(inputs: Mapping) -> dict:
 
 class GateCLTrainer(ICKATrainer):
     """`GateCLModel` and the frozen float visual backbone on `device` (the
-    card unless the caller asks for the CPU), computing in
+    card unless the caller asks for the CPU) or on `mesh`'s, computing in
     `train_cfg.compute_dtype` over fp32 parameters; the model's weights
     come from `train_cfg.seed`."""
 
     def __init__(self, model_cfg: GateCLConfig, train_cfg: TrainConfig,
-                 label_list=None, resnet_layers=(3, 8, 36, 3),
-                 device="cuda"):
+                 label_list=None, mesh: Optional[Mesh] = None,
+                 resnet_layers=(3, 8, 36, 3), device="cuda"):
         super().__init__(model_cfg, train_cfg, spec=None,
-                         label_list=label_list or MNER_LABELS,
+                         label_list=label_list or MNER_LABELS, mesh=mesh,
                          resnet_layers=resnet_layers, device=device)
 
     def _build_model(self, dtype):
         return GateCLModel(self.model_cfg, dtype=dtype, device=self.device,
                            seed=self.train_cfg.seed).eval()
 
-    def loss(self, batch: Mapping, image_gen=None, dropout_gen=None):
+    def loss(self, batch: Mapping, image_gen=None, dropout_gen=None,
+             rows: Optional[RowSplit] = None):
         """The training loss of one microbatch: train-mode crop and flip
         drawn from `image_gen`, dropout from `dropout_gen`; either None
-        runs that part deterministically."""
+        runs that part deterministically. With `rows` (a rank's rows of a
+        microbatch the data axis splits) the in-batch terms cover the
+        whole microbatch (`GateCLModel.forward`)."""
         inputs = self.model_inputs(batch, image_gen)
         return self.model(**model_args(inputs), labels=inputs["label_ids"],
-                          dropout_gen=dropout_gen)
+                          dropout_gen=dropout_gen, rows=rows)
+
+    def loss_share(self, micro: Mapping, start: int, stop: int) -> float:
+        """1: the CRF and relation terms are means over rows, and the
+        data axis splits a microbatch into equal shares."""
+        return 1.0
 
     def eval_step(self, batch: Mapping):
         """(tags (B, L), None): no dev loss for this family."""

@@ -19,6 +19,13 @@ decoupled decay adds `weight_decay * p` on masked leaves; the learning rate
 is read at the count before the increment, so the first update of a warmup
 schedule has lr 0; the first moment may be held in bf16 (`mu_dtype`).
 
+ZeRO-1 (`Zero1`, the JAX package's `zero1_moment_specs` layout): each
+data-parallel rank keeps and updates only its slice of every moment leaf
+that the data axis divides, and of the parameter beside it, then the
+updated parameter slices are gathered from every rank. The gradients are
+the full all-reduced ones on every rank and the global norm is taken over
+them, so the update is the replicated one, element for element.
+
 Also the legacy `BertAdam` (no bias correction, per-leaf clipping) and its
 warmup schedules. A schedule maps a step to an fp32 0-d tensor.
 """
@@ -26,12 +33,15 @@ warmup schedules. A schedule maps a step to an fp32 0-d tensor.
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
-from typing import Callable, Mapping, Optional
+from typing import Callable, Mapping, Optional, Sequence
 
 import torch
 
 from icka_tpu_torch.core.config import TrainConfig
+from icka_tpu_torch.parallel.collectives import all_gather_slices_, buckets
+from icka_tpu_torch.parallel.partitioning import moment_slices
 
 Schedule = Callable[[int], torch.Tensor]
 MU_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -120,6 +130,60 @@ def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
 
 
+class Zero1:
+    """ZeRO-1 on `mesh`'s data axis for parameters of the given shapes
+    (`{name: shape}`): `cuts` holds, for each leaf that
+    `zero1_moment_specs` splits, (dimension, this rank's first index,
+    slice length); every other leaf is updated whole on every rank.
+    `seconds` sums the host-clock time of the gathers."""
+
+    def __init__(self, mesh, shapes: Mapping[str, Sequence[int]]):
+        self.mesh = mesh
+        self.cuts = moment_slices(shapes, mesh)
+        self.seconds = 0.0
+
+    def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a full-shaped leaf (a view), or the leaf."""
+        cut = self.cuts.get(name)
+        return t if cut is None else t.narrow(*cut)
+
+    def gather_(self, tensors: Mapping[str, torch.Tensor]) -> None:
+        """Full-shaped leaves whose slice on this rank is up to date get
+        every rank's slice, in place."""
+        names = [n for n in tensors if n in self.cuts]
+        if not names:
+            return
+        t0 = time.perf_counter()
+        all_gather_slices_([tensors[n] for n in names],
+                           [(self.cuts[n][0], self.cuts[n][2])
+                            for n in names],
+                           self.mesh.rank, self.mesh.group)
+        if tensors[names[0]].is_cuda:
+            torch.cuda.synchronize(tensors[names[0]].device)
+        self.seconds += time.perf_counter() - t0
+
+    def gathered(self, moments: Mapping[str, torch.Tensor],
+                 shapes: Mapping[str, Sequence[int]]) -> dict:
+        """The full moment leaves, on the CPU, from every rank's slices (a
+        collective: every rank calls it), one flat bucket on the device at
+        a time."""
+        names = list(moments)
+        out = {}
+        for idx in buckets([math.prod(shapes[n]) for n in names]):
+            full = {}
+            for i in idx:
+                n, m = names[i], moments[names[i]]
+                if n in self.cuts:
+                    full[n] = torch.empty(tuple(shapes[n]), dtype=m.dtype,
+                                          device=m.device)
+                    self.local(n, full[n]).copy_(m)
+                else:
+                    full[n] = m
+            self.gather_(full)
+            out.update({n: t.cpu() for n, t in full.items()})
+        return out
+
+
 class AdamW:
     """`optax.chain(clip_by_global_norm(max_grad_norm), adamw(...))` over a
     dict of named fp32 parameters, updated in place.
@@ -127,25 +191,33 @@ class AdamW:
         opt = make_optimizer(cfg, total_steps, names)
         state = opt.init(params)
         opt.update(grads, state, params)     # params and state in place
+
+    With `zero1`, the moments hold this rank's slices of the leaves it
+    splits, and `update` ends by gathering the updated parameter slices.
     """
 
     def __init__(self, schedule: Schedule, max_grad_norm: float,
                  weight_decay: float, mask: Mapping[str, bool],
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 mu_dtype: str = "float32"):
+                 mu_dtype: str = "float32", zero1: Optional[Zero1] = None):
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
         self.weight_decay = weight_decay
         self.mask = dict(mask)
         self.b1, self.b2, self.eps = b1, b2, eps
         self.mu_dtype = MU_DTYPES[mu_dtype]
+        self.zero1 = zero1
+
+    def _local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        return t if self.zero1 is None else self.zero1.local(name, t)
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AdamState:
         return AdamState(
             count=torch.zeros((), dtype=torch.int32),
-            mu={n: torch.zeros_like(p, dtype=self.mu_dtype)
+            mu={n: torch.zeros_like(self._local(n, p), dtype=self.mu_dtype)
                 for n, p in params.items()},
-            nu={n: torch.zeros_like(p) for n, p in params.items()})
+            nu={n: torch.zeros_like(self._local(n, p))
+                for n, p in params.items()})
 
     def learning_rate(self, count) -> torch.Tensor:
         """The schedule at `count` updates applied (read before the
@@ -156,7 +228,8 @@ class AdamW:
     def update(self, grads: Mapping[str, torch.Tensor], state: AdamState,
                params: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """One optimizer step: params, mu, nu and count in place. Returns
-        the gradients' global norm before clipping."""
+        the gradients' global norm before clipping (over the full
+        gradients, also under ZeRO-1)."""
         norm = global_norm(grads)
         clip = not bool(norm < self.max_grad_norm)
         count = int(state.count) + 1
@@ -170,7 +243,7 @@ class AdamW:
             -self.learning_rate(state.count)))
         b1_mu = torch.tensor(b1, dtype=self.mu_dtype, device=dev)
         for name, p in params.items():
-            g = grads[name]
+            g, p = self._local(name, grads[name]), self._local(name, p)
             if clip:
                 g = (g / norm) * self.max_grad_norm
             mu = (1 - b1) * g + b1_mu * state.mu[name]
@@ -182,19 +255,22 @@ class AdamW:
             state.mu[name] = mu.to(self.mu_dtype)
             state.nu[name] = nu
         state.count = torch.tensor(count, dtype=torch.int32)
+        if self.zero1 is not None:
+            self.zero1.gather_(params)
         return norm
 
 
-def make_optimizer(cfg: TrainConfig, total_steps: int, names) -> AdamW:
+def make_optimizer(cfg: TrainConfig, total_steps: int, names,
+                   zero1: Optional[Zero1] = None) -> AdamW:
     """The JAX package's `make_optimizer`: clip by `cfg.max_grad_norm`,
     AdamW on `linear_warmup_schedule(lr, int(warmup_proportion * total),
     total)` with `cfg.mu_dtype`, decay `cfg.weight_decay` masked by
-    `decay_mask(names)`."""
+    `decay_mask(names)`; ZeRO-1 under `zero1`."""
     schedule = linear_warmup_schedule(
         cfg.learning_rate, int(cfg.warmup_proportion * total_steps),
         total_steps)
     return AdamW(schedule, cfg.max_grad_norm, cfg.weight_decay,
-                 decay_mask(names), mu_dtype=cfg.mu_dtype)
+                 decay_mask(names), mu_dtype=cfg.mu_dtype, zero1=zero1)
 
 
 class BertAdam:

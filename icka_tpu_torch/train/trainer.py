@@ -1,7 +1,8 @@
 """Training and evaluation loops (port of `icka_tpu.train.trainer`).
 
 `ICKATrainer` holds the flagship model and the frozen float visual
-backbone on one device (the card unless the caller asks for the CPU).
+backbone on one device (the card unless the caller asks for the CPU), or on
+each rank of a data-parallel mesh (`icka_tpu_torch.core.mesh`).
 
 Training (the reference's `train_and_dev`): a loader batch (accum,
 micro_batch, ...) runs microbatch by microbatch through train-mode image
@@ -20,6 +21,21 @@ saves the best-F1 state and a step snapshot; `state_tree` is the JAX
 `ICKATrainState`'s state dict, so both packages resume each other's
 snapshots.
 
+Data parallelism (`mesh` with more than one rank, the JAX trainers' data
+axis): every rank gets the same global batch and runs its rows of each
+microbatch. The crop, flip and dropout draws are made at the whole
+microbatch's shape and cut to the rank's rows (`RowDraws`), and each
+rank's token-mean loss is weighted by its share of the microbatch's
+tokens, so the ranks together compute the step that one rank computes on
+the whole batch. After accumulation the gradients are averaged over the
+ranks in flat buckets; the finite flag is agreed by a MIN all-reduce, so
+every rank applies or skips together; the reported loss is the global
+mean. Under `TrainConfig.zero1` each rank keeps its slice of the moments
+(`train.optimizer.Zero1`). `evaluate` splits each batch's rows and gathers
+the tags, so every rank returns the same result; in `fit` only rank 0 logs
+and writes, with barriers around each write, and a preemption request on
+any rank stops every rank before the same step.
+
 Evaluation (the reference's `test()`): images -> eval preprocessing ->
 backbone -> `ICKAModel(mode="dev", loss_reduction="none")`, the padded
 tail rows dropped, the exact token-mean loss, the reference's label
@@ -30,10 +46,11 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from icka_tpu_torch.convert import (backbone_state_dict,
                                     backbone_variables_from_state_dict,
@@ -41,7 +58,9 @@ from icka_tpu_torch.convert import (backbone_state_dict,
                                     state_dict_from_flax)
 from icka_tpu_torch.core.checkpoint import Bfloat16Array
 from icka_tpu_torch.core.config import ICKAConfig, TrainConfig
-from icka_tpu_torch.core.device import resolve_device
+from icka_tpu_torch.core.dtypes import DTypePolicy
+from icka_tpu_torch.core.mesh import (Mesh, MeshSpec, RowDraws, RowSplit,
+                                      make_mesh, shard_batch)
 from icka_tpu_torch.data.features import PromptSpec
 from icka_tpu_torch.data.images import preprocess_images
 from icka_tpu_torch.data.labels import FILTERED_LABELS, MNER_LABELS, id_to_label
@@ -52,11 +71,12 @@ from icka_tpu_torch.evaluation import (
 )
 from icka_tpu_torch.models.icka import ICKAModel
 from icka_tpu_torch.models.resnet import VisualBackbone
-from icka_tpu_torch.train.optimizer import make_optimizer
+from icka_tpu_torch.parallel.collectives import (all_gather_objects,
+                                                 all_reduce_mean_)
+from icka_tpu_torch.parallel.partitioning import shard_train_state
+from icka_tpu_torch.train.optimizer import AdamState, Zero1, make_optimizer
 
 CROP_SIZE = 224
-COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
-                  "float32": torch.float32, "fp32": torch.float32}
 
 
 def filter_predictions(pred_ids, label_ids, output_mask, label_list=None):
@@ -102,10 +122,12 @@ class EvalResult:
 @dataclass
 class StepRecord:
     """One train step: its global number before the step, the mean
-    microbatch loss, whether it was applied (False: skipped as not
-    finite), the gradients' global norm before clipping (None when
-    skipped), and host-clock seconds of the whole step and of the optimizer
-    update, each ending in a synchronise."""
+    microbatch loss (over every rank), whether it was applied (False:
+    skipped as not finite), the gradients' global norm before clipping
+    (None when skipped), and host-clock seconds of the whole step, of the
+    agreement across ranks (the all-reduces; 0 without a process group),
+    of the optimizer update and, within it, of ZeRO-1's gather, each
+    ending in a synchronise."""
 
     step: int
     loss: float
@@ -113,6 +135,8 @@ class StepRecord:
     grad_norm: float | None
     seconds: float
     update_seconds: float
+    reduce_seconds: float = 0.0
+    gather_seconds: float = 0.0
 
 
 def _seed(*words: int) -> int:
@@ -121,22 +145,34 @@ def _seed(*words: int) -> int:
         1, np.uint64)[0] >> np.uint64(1))
 
 
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class ICKATrainer:
     """The flagship model and its frozen visual backbone on `device` (the
-    card unless the caller asks for the CPU). Both compute in
+    card unless the caller asks for the CPU), or on `mesh`'s device (by
+    default the mesh of `train_cfg.data_axis` over the process group's
+    ranks: one rank without a group). Both compute in
     `train_cfg.compute_dtype` with fp32 parameters, as the JAX trainer;
-    the model's weights come from `train_cfg.seed`. `init_state` (or `fit`)
-    builds the optimizer; `step` counts the updates applied."""
+    the model's weights come from `train_cfg.seed`, the same on every
+    rank. `init_state` (or `fit`) builds the optimizer;
+    `step` counts the updates applied."""
 
     def __init__(self, model_cfg: ICKAConfig, train_cfg: TrainConfig,
                  spec: PromptSpec, label_list=None,
+                 mesh: Optional[Mesh] = None,
                  resnet_layers=(3, 8, 36, 3), device="cuda"):
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.spec = spec
         self.label_list = label_list
-        self.device = resolve_device(device)
-        dtype = COMPUTE_DTYPES[train_cfg.compute_dtype]
+        self.mesh = mesh or make_mesh(
+            MeshSpec(data=train_cfg.data_axis, model=train_cfg.model_axis),
+            device=device)
+        self.device = self.mesh.device
+        dtype = DTypePolicy.from_str(train_cfg.compute_dtype).compute_dtype
         self.model = self._build_model(dtype)
         self.backbone = VisualBackbone(resnet_layers, dtype=dtype,
                                        device=self.device,
@@ -144,6 +180,7 @@ class ICKATrainer:
         self.backbone.requires_grad_(False)
         self.optimizer = None
         self.opt_state = None
+        self.zero1 = None
         self.step = 0
         self.records: list[StepRecord] = []
 
@@ -159,9 +196,14 @@ class ICKATrainer:
 
     def init_state(self, total_steps: int) -> None:
         """The optimizer of `total_steps` updates (the warmup-linear
-        schedule's length) and its zero state; the step count restarts."""
+        schedule's length) and its zero state (under ZeRO-1, this rank's
+        slices); the step count restarts."""
         params = self.params()
-        self.optimizer = make_optimizer(self.train_cfg, total_steps, params)
+        self.zero1 = (Zero1(self.mesh, {n: tuple(p.shape)
+                                        for n, p in params.items()})
+                      if self.train_cfg.zero1 else None)
+        self.optimizer = make_optimizer(self.train_cfg, total_steps, params,
+                                        zero1=self.zero1)
         self.opt_state = self.optimizer.init(params)
         self.step = 0
 
@@ -169,9 +211,15 @@ class ICKATrainer:
         """The JAX `ICKATrainState`'s state dict: `step`, `params`,
         `opt_state` in optax's chain layout ((clip), (adam, masked decay,
         schedule)) and `backbone_variables`, as numpy trees with flax's
-        leaf names and layouts (a bf16 first moment as bf16)."""
+        leaf names and layouts (a bf16 first moment as bf16). Under ZeRO-1
+        the moments are gathered to the full layout first: every rank
+        calls it."""
         count = np.asarray(int(self.opt_state.count), np.int32)
-        mu = flax_tree_from_state_dict(self.opt_state.mu)
+        mu, nu = self.opt_state.mu, self.opt_state.nu
+        if self.zero1 is not None:
+            shapes = {n: tuple(p.shape) for n, p in self.params().items()}
+            mu, nu = (self.zero1.gathered(m, shapes) for m in (mu, nu))
+        mu = flax_tree_from_state_dict(mu)
         if self.optimizer.mu_dtype == torch.bfloat16:
             mu = _map_leaves(Bfloat16Array.from_float32, mu)
         return {
@@ -179,18 +227,29 @@ class ICKATrainer:
             "params": flax_tree_from_state_dict(self.model.state_dict()),
             "opt_state": {"0": {}, "1": {
                 "0": {"count": count, "mu": mu,
-                      "nu": flax_tree_from_state_dict(self.opt_state.nu)},
+                      "nu": flax_tree_from_state_dict(nu)},
                 "1": {"inner_state": {}},
                 "2": {"count": count}}},
             "backbone_variables": backbone_variables_from_state_dict(
                 self.backbone.state_dict()),
         }
 
+    def save_state(self, checkpointer, metric=None) -> None:
+        """`checkpointer.save` of `state_tree()` at the current step, by
+        rank 0 only, between barriers (every rank calls it)."""
+        tree = (self.state_tree()
+                if self.mesh.rank == 0 or self.zero1 is not None else None)
+        self.mesh.barrier()
+        if self.mesh.rank == 0:
+            checkpointer.save(tree, step=self.step, metric=metric)
+        self.mesh.barrier()
+
     def state_from_checkpoint(self, state: Mapping) -> None:
         """Load a JAX train state (as `Checkpointer.restore_best` or
         `resume` gives it): `params` and `backbone_variables` into the model
         and the backbone, every name checked; and, once the optimizer
-        exists, `step` and the moments and count of `opt_state`."""
+        exists, `step` and the moments and count of `opt_state` (under
+        ZeRO-1, this rank's slices)."""
         self.model.load_state_dict(state_dict_from_flax(state["params"]),
                                    strict=True)
         self.backbone.load_state_dict(
@@ -199,16 +258,21 @@ class ICKATrainer:
             return
         adam = state["opt_state"]["1"]["0"]
         params = self.params()
-        for key, dtype in (("mu", self.optimizer.mu_dtype),
-                           ("nu", torch.float32)):
-            moments = state_dict_from_flax(adam[key])
-            if moments.keys() != params.keys():
+        moments = {key: state_dict_from_flax(adam[key]) for key in ("mu",
+                                                                  "nu")}
+        for key, m in moments.items():
+            if m.keys() != params.keys():
                 raise ValueError(f"opt_state {key} names differ from the "
                                  f"model's parameters")
-            setattr(self.opt_state, key, {
-                n: moments[n].to(self.device, dtype) for n in params})
-        self.opt_state.count = torch.tensor(int(adam["count"]),
-                                            dtype=torch.int32)
+        count = torch.tensor(int(adam["count"]), dtype=torch.int32)
+        host = shard_train_state(AdamState(count, **moments), self.mesh,
+                                 zero1=self.zero1 is not None)
+        self.opt_state.mu = {n: host.mu[n].to(self.device,
+                                              self.optimizer.mu_dtype)
+                             for n in params}
+        self.opt_state.nu = {n: host.nu[n].to(self.device, torch.float32)
+                             for n in params}
+        self.opt_state.count = count
         self.step = int(state["step"])
 
     # -- steps ---------------------------------------------------------------
@@ -236,11 +300,14 @@ class ICKATrainer:
         out["visual_grid"] = att
         return out
 
-    def loss(self, batch: Mapping, image_gen=None, dropout_gen=None):
+    def loss(self, batch: Mapping, image_gen=None, dropout_gen=None,
+             rows: Optional[RowSplit] = None):
         """The token-mean CRF NLL of one microbatch in train mode: crop and
         flip drawn from `image_gen` (a CPU generator) and dropout from
         `dropout_gen` (a generator on the device); either None runs that
-        part deterministically (eval preprocessing, no dropout)."""
+        part deterministically (eval preprocessing, no dropout). `rows`
+        places a rank's rows in the microbatch; this loss has no term
+        across rows and does not read it."""
         inputs = self.model_inputs(batch, image_gen)
         labels = inputs.pop("label_ids")
         return self.model(inputs, self.spec.mask_positions, self.spec.offset,
@@ -248,23 +315,44 @@ class ICKATrainer:
                           deterministic=dropout_gen is None,
                           dropout_gen=dropout_gen)
 
-    def train_step(self, batch: Mapping, key) -> StepRecord:
-        """One optimizer step over a loader batch (accum, micro_batch,
-        ...). `key` (epoch, batch index) seeds its random draws. Returns
-        (and appends to `records`) the step's record; the loss is the mean
-        over the microbatches."""
-        t0 = time.perf_counter()
+    def loss_share(self, micro: Mapping, start: int, stop: int) -> float:
+        """The weight on a rank's loss over rows [start, stop) of a
+        microbatch that the data axis splits, for the mean over the ranks
+        to be the whole microbatch's loss: the token-mean NLL's share of
+        the microbatch's tokens, times the data size."""
+        mask = np.asarray(micro["output_mask"])
+        return (float(mask[start:stop].sum()) * self.mesh.data
+                / float(mask.sum()))
+
+    def local_gradients(self, batch: Mapping, key):
+        """This rank's part of a step over a loader batch (accum,
+        micro_batch, ...), whose draws `key` (epoch, batch index) seeds:
+        its rows of every microbatch (`loss` gets their `RowSplit`), the
+        gradients summed and divided by `accum`. Returns (the loss summed
+        over microbatches, {name: gradient}, a 0-d bool tensor: loss and
+        gradients finite)."""
         params = self.params()
         for p in params.values():
             p.grad = None
         accum = len(batch["input_ids"])
+        total = len(batch["input_ids"][0])
+        start, stop = self.mesh.rows(total)
+        split = stop - start < total
         loss_sum = torch.zeros((), device=self.device)
         for a in range(accum):
+            micro = {k: v[a] for k, v in batch.items()}
             seed = _seed(self.train_cfg.seed, *key, a)
             image_gen = torch.Generator().manual_seed(seed)
             dropout_gen = torch.Generator(self.device).manual_seed(seed)
-            loss = self.loss({k: v[a] for k, v in batch.items()},
-                             image_gen, dropout_gen)
+            rows = None
+            if split:
+                image_gen = RowDraws(image_gen, start, stop, total)
+                dropout_gen = RowDraws(dropout_gen, start, stop, total)
+                rows = RowSplit(start, stop, total, self.mesh.group)
+            loss = self.loss({k: v[start:stop] for k, v in micro.items()},
+                             image_gen, dropout_gen, rows)
+            if split:
+                loss = loss * self.loss_share(micro, start, stop)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
         grads = {}
@@ -273,21 +361,58 @@ class ICKATrainer:
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             grads[n] = g.div_(accum)
             finite = finite & torch.isfinite(g).all()
+        return loss_sum, grads, finite
+
+    def reduce_gradients(self, loss_sum, grads: Mapping, finite):
+        """The ranks' agreement on a step (nothing to agree without a
+        process group): the finite flag by a MIN all-reduce, so every rank
+        applies or skips together; the loss sum and, when the step is
+        applied, the gradients (in place, flat buckets) averaged over the
+        ranks. Returns (the global loss sum, applied)."""
+        group = self.mesh.group
+        if group is None:
+            return loss_sum, bool(finite)
+        flag = finite.to(torch.int32).reshape(1)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+        loss = loss_sum.reshape(1).clone()
+        all_reduce_mean_([loss], group)
+        applied = bool(flag.item())
+        if applied:
+            all_reduce_mean_(list(grads.values()), group)
+        return loss[0], applied
+
+    def train_step(self, batch: Mapping, key) -> StepRecord:
+        """One optimizer step over a loader batch (accum, micro_batch,
+        ...). `key` (epoch, batch index) seeds its random draws. Returns
+        (and appends to `records`) the step's record; the loss is the mean
+        over the microbatches (and the ranks)."""
+        t0 = time.perf_counter()
+        params = self.params()
+        loss_sum, grads, finite = self.local_gradients(batch, key)
+        _sync(self.device)
+        t1 = time.perf_counter()
+        loss_sum, applied = self.reduce_gradients(loss_sum, grads, finite)
         # a step with a non-finite loss or gradient is a TRUE skip: params,
         # moments, step count and so the schedule stay put
-        applied = bool(finite)
-        t1 = time.perf_counter()
+        _sync(self.device)
+        t2 = time.perf_counter()
+        gathered = self.zero1.seconds if self.zero1 is not None else 0.0
         norm = None
         if applied:
-            norm = float(self.optimizer.update(grads, self.opt_state, params))
+            norm = float(self.optimizer.update(grads, self.opt_state,
+                                               params))
             self.step += 1
         for p in params.values():
             p.grad = None
         record = StepRecord(
-            step=self.step - applied, loss=float(loss_sum / accum),
+            step=self.step - applied,
+            loss=float(loss_sum / len(batch["input_ids"])),
             applied=applied, grad_norm=norm,
             seconds=time.perf_counter() - t0,
-            update_seconds=time.perf_counter() - t1)
+            update_seconds=time.perf_counter() - t2,
+            reduce_seconds=t2 - t1,
+            gather_seconds=(self.zero1.seconds - gathered
+                            if self.zero1 is not None else 0.0))
         self.records.append(record)
         return record
 
@@ -312,9 +437,10 @@ class ICKATrainer:
         the latest one (params, moments and step) and continues at its
         epoch and batch; each epoch's shuffle is its own (the loader's
         `epoch` is set), so a resumed run sees the uninterrupted run's
-        batches. A `preemption_guard` that is set before a step snapshots
-        the last completed step and returns. Returns each epoch's mean
-        train loss."""
+        batches. A `preemption_guard` that is set before a step, on any
+        rank, snapshots the last completed step and returns. On a mesh of
+        several ranks only rank 0 logs and writes. Returns each epoch's
+        mean train loss."""
         cfg = self.train_cfg
         epochs = epochs or cfg.num_train_epochs
         steps_per_epoch = len(train_loader)
@@ -322,6 +448,8 @@ class ICKATrainer:
         if self.optimizer is None:
             self.init_state(total_steps)
         start_epoch, skip_batches = 0, 0
+        if self.mesh.rank != 0:
+            log = _silent
         if checkpointer is not None and checkpointer.manifest["steps"]:
             tree, ck_step = checkpointer.resume()
             self.state_from_checkpoint(tree)
@@ -342,9 +470,9 @@ class ICKATrainer:
                 if epoch == start_epoch and i < skip_batches:
                     continue                  # trained before the resume
                 if preemption_guard is not None and \
-                        preemption_guard.requested:
+                        self._any_rank(preemption_guard.requested):
                     if checkpointer is not None:
-                        checkpointer.save(self.state_tree(), step=self.step)
+                        self.save_state(checkpointer)
                     log(f"preempted: saved step {self.step}, exiting fit")
                     return history
                 losses.append(self.train_step(batch, (epoch, i)).loss)
@@ -358,21 +486,30 @@ class ICKATrainer:
                 if result.f1 > best_f1:
                     best_f1 = result.f1
                     if checkpointer is not None:
-                        checkpointer.save(self.state_tree(), step=self.step,
-                                          metric=result.f1)
+                        self.save_state(checkpointer, metric=result.f1)
             log(msg)
             history.append(train_loss)
         return history
+
+    def _any_rank(self, flag: bool) -> bool:
+        """`flag` agreed over the ranks: True on every rank when it is
+        True on any."""
+        if self.mesh.group is None:
+            return flag
+        t = torch.tensor([int(flag)], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        return bool(t.item())
 
     def _dev_message(self, result: EvalResult) -> str:
         return (f" dev_loss={result.loss:.4f} f1={result.f1:.4f} "
                 f"p={result.precision:.4f} r={result.recall:.4f}")
 
     def evaluate(self, loader) -> EvalResult:
-        """Every batch through `eval_step`, the padded tail rows dropped,
-        the reference's label filtering and the chunk-F1 evaluator. The
-        loss is the exact token mean of the rows' NLLs; 0.0 where
-        `eval_step` gives none."""
+        """Every batch through `eval_step` (on a mesh, each rank its rows,
+        the tags and NLLs gathered: every rank returns the same result),
+        the padded tail rows dropped, the reference's label filtering and
+        the chunk-F1 evaluator. The loss is the exact token mean of the
+        rows' NLLs; 0.0 where `eval_step` gives none."""
         y_true_all, y_pred_all = [], []
         yt_idx_all, yp_idx_all = [], []
         nll_sum = 0.0
@@ -382,6 +519,7 @@ class ICKATrainer:
         label_map = {l: i for i, l in enumerate(
             self.label_list or MNER_LABELS, 1)}
         label_map["PAD"] = 0
+        hosts, outs = [], []
         for batch in loader:
             batch = dict(batch)
             # padded-tail duplicates (the loader pads the last eval batch
@@ -391,14 +529,26 @@ class ICKATrainer:
             row_valid = batch.pop("row_valid", None)
             n = (int(np.sum(row_valid)) if row_valid is not None
                  else len(batch["label_ids"]))
-            pred, row_nll = self.eval_step(batch)
+            start, stop = self.mesh.rows(len(batch["label_ids"]))
+            pred, row_nll = self.eval_step(shard_batch(self.mesh, batch))
+            outs.append((pred.cpu().numpy(), None if row_nll is None
+                         else row_nll.cpu().numpy()))
+            hosts.append((n, stop - start < len(batch["label_ids"]),
+                          np.asarray(batch["label_ids"]),
+                          np.asarray(batch["output_mask"])))
+        ranks = all_gather_objects(outs, self.mesh.group)
+        for i, (n, split, label_ids, output_mask) in enumerate(hosts):
+            # a split batch's rows are the ranks' rows in rank order; an
+            # unsplit one ran whole on every rank
+            pred, row_nll = ((np.concatenate([r[i][0] for r in ranks]),
+                              None if ranks[0][i][1] is None else
+                              np.concatenate([r[i][1] for r in ranks]))
+                             if split else ranks[0][i])
             if row_nll is not None:
-                nll_sum += float(np.sum(row_nll.cpu().numpy()[:n]))
-            token_sum += float(
-                np.sum(np.asarray(batch["output_mask"])[:n]))
+                nll_sum += float(np.sum(row_nll[:n]))
+            token_sum += float(np.sum(output_mask[:n]))
             yt, yp, yt_idx, yp_idx = filter_predictions(
-                pred.cpu().numpy()[:n], np.asarray(batch["label_ids"])[:n],
-                np.asarray(batch["output_mask"])[:n], self.label_list)
+                pred[:n], label_ids[:n], output_mask[:n], self.label_list)
             y_true_all += yt
             y_pred_all += yp
             yt_idx_all += yt_idx
@@ -416,6 +566,10 @@ class ICKATrainer:
                           report=report, per_class=per_class,
                           rows=rows, batches=batches,
                           seconds=time.perf_counter() - t0)
+
+
+def _silent(*args) -> None:
+    """The log of a rank other than 0."""
 
 
 def _map_leaves(fn, tree):

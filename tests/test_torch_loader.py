@@ -86,11 +86,12 @@ def test_batches_equal_the_jax_loaders(split, prefetch, cache, batch_size):
 
 def test_train_mode_is_not_ported_and_errors_reach_the_consumer(split):
     feats, images = split
-    # training batches are ported; the mesh that would shard them over a
-    # data axis is not
+    # training batches are ported, and so is the data axis that shards
+    # them over ranks; the model axis is not
     assert len(MNERLoader(feats, images, 2)) == 3
+    TrainConfig(data_axis=2, zero1=True)
     with pytest.raises(NotImplementedError):
-        TrainConfig(data_axis=2)
+        TrainConfig(model_axis=2)
     loader = MNERLoader(feats, images, 2, train=False, prefetch=2)
 
     def broken(rows):

@@ -2,7 +2,8 @@
 preempted by a real signal and resumed from its snapshot ends bit-equal to
 the uninterrupted run (dropout on, so the seeded draws must line up); the
 training CLI prints the JAX CLI's line shapes and writes its checkpoint
-directory; the mesh in `TrainConfig`, which stays unported, raises; and
+directory; the model axis in `TrainConfig`, which stays unported,
+raises; and
 training with rematerialisation equals training without it, the flagship's
 and the gate_cl family's."""
 
@@ -132,9 +133,7 @@ def test_cli_prints_the_jax_clis_lines(tmp_path):
                             out / "state_step6.msgpack")
 
 
-@pytest.mark.parametrize("field,value", [("data_axis", 2),
-                                         ("model_axis", 2),
-                                         ("zero1", True)])
+@pytest.mark.parametrize("field,value", [("model_axis", 2)])
 def test_the_mesh_is_not_ported(field, value):
     with pytest.raises(NotImplementedError, match=field):
         TrainConfig(**{field: value})
