@@ -162,6 +162,23 @@ Phases; any failure exits non-zero:
      short profiled call in a process a minute or more old may keep no
      device record (`tools/profiler_probe.py`, PERF.md section 7), and a
      profiled call that records none fails the run (`recorded`);
+ 13. the model axis (in phase 12's ranks, after their phase 12 work): the
+     two ranks as a mesh (1, 2), tensor-parallel: phase 12's weights,
+     seed and global batch (`ICKAConfig()` at full width and depth, fp32,
+     TF32 off, dropout, crop and flip on), two steps against phase 12's
+     one rank (losses within 2e-5 relative, gradient norms 1e-4, each
+     rank's replicated leaves bit-equal to the other's after each step,
+     the state gathered to the JAX layout with the one-rank tree's names,
+     shapes and dtypes and each rank's slice of it bit-equal to what the
+     rank holds; per rank: peak allocated, each step's compute, TP
+     collectives (timed, counted) and update); then phase 3's requests on
+     phase 3's fp32 weights (the seed's) and backbone through the
+     trainer's evaluation step, K1 on 8 heads a rank (emissions within
+     1e-3 of one rank's evaluation on the same batch, tags >= 0.99 against
+     phase 3's fp32 tags, K1 48 times a batch a rank, added into the
+     `kernels` line; 0 in the steps). Then K1 against its plain version
+     at a rank's 8 heads of 64 (S=150 key bias, S=172 full bias, and the
+     evaluation's 128 and 172, fp32 and bf16);
   7. time each kernel at its main-path shape beside its plain version, the
      PyTorch library call for the same function where there is one, its
      bound and its recorded time before its redesign (comment lines only);
@@ -246,7 +263,7 @@ from icka_tpu_torch.nn.crf import CRF
 from icka_tpu_torch.nn.quant import column_major, int8_matmul
 from icka_tpu_torch.parallel.partitioning import moment_slices
 from icka_tpu_torch.serving.bucketed import (BucketedGateCLServer,
-                                             BucketedICKAServer,
+                                             BucketedICKAServer, pick_bucket,
                                              sample_tweet_lengths)
 from icka_tpu_torch.serving.packing import (PackedGateCLServer,
                                             PackedICKAServer)
@@ -2756,14 +2773,17 @@ def moment_fingerprints(trainer, cuts) -> tuple:
 
 
 def dp_requests(ctx) -> dict:
-    """Phase 3's fp32 requests (features on the host) and the tags the
-    single-device kernel path gave them."""
+    """Phase 3's fp32 requests (features on the host), the tags the
+    single-device kernel path gave them, their images and phase 3's
+    backbone (its state on the host)."""
     def host(x):
         return x.cpu() if isinstance(x, torch.Tensor) else x
     return {"examples": [{k: host(v) for k, v in ex.items()}
                          for ex in ctx["examples"]],
             "tags": ctx["tags"], "cfg": ctx["cfgs"][True],
-            "spec": ctx["spec"]}
+            "spec": ctx["spec"], "images": ctx["images"],
+            "backbone": {k: v.cpu() for k, v in
+                         ctx["backbone"].state_dict().items()}}
 
 
 def dp_steps(trainer, batches, dev):
@@ -2779,10 +2799,12 @@ def dp_steps(trainer, batches, dev):
 
 
 def dp_rank(rank: int, work: str, seed: int, device: str):
-    """One rank of phase 12 (a spawned process): DP serving of phase 3's
-    requests, DP_STEPS replicated steps, DP_STEPS under ZeRO-1 and their
-    snapshot (rank 0 writes it); what it saw goes to work/rank{rank}.pt.
-    Any exception ends the process with a non-zero code."""
+    """One rank of phases 12 and 13 (a spawned process): DP serving of
+    phase 3's requests, DP_STEPS replicated steps, DP_STEPS under ZeRO-1
+    and their snapshot (rank 0 writes it), then phase 13's tensor-parallel
+    steps and evaluation (`tp_rank`); what it saw goes to
+    work/rank{rank}.pt. Any exception ends the process with a non-zero
+    code."""
     work = Path(work)
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // DP_RANKS))
     dev = init_distributed(device, init_method=f"file://{work / 'store'}",
@@ -2827,13 +2849,274 @@ def dp_rank(rank: int, work: str, seed: int, device: str):
         seen["zero1" if zero1 else "replicated"] = run
         del tr
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    seen["tp"] = tp_rank(work, inputs, dev)
+    seen["tp"]["seconds"] = time.perf_counter() - t0
     torch.save(seen, work / f"rank{rank}.pt")
     dist.destroy_process_group()
 
 
+# phase 13, the model axis: the same two ranks at mesh (1, 2) train
+# phase 12's DP_STEPS steps on its weights, seed and global batch
+# (`ICKAConfig()` at full width and depth, fp32, TF32 off, dropout, crop
+# and flip on) against phase 12's one rank: losses within DP_LOSS_RTOL,
+# gradient norms within STEP_NORM_RTOL (the order of sums differs: the
+# row-parallel products are summed over the ranks); each rank's replicated
+# leaves bit-equal to the other's; the state gathered to the JAX layout.
+# Then phase 3's requests on phase 3's fp32 weights and backbone through
+# the trainer's evaluation step, K1 on TP_HEADS heads a rank: emissions
+# within EMISSIONS_TOL of one rank's on the same batch, tags against
+# phase 3's at >= 0.99 (PERF.md section 2).
+TP_HEADS = 16 // DP_RANKS
+SERVER_BUCKETS = (16, 24, 32, 48, 64, 128)     # BucketedICKAServer's
+
+
+def tp_eval_batches(served, cfg, spec) -> list:
+    """Phase 3's requests as the trainer's evaluation batches, laid out as
+    phase 3's `BucketedICKAServer` laid them out (the flagship's BiLSTM
+    reads the padding tail, so the padded width moves the tags): each
+    request in the smallest of the server's buckets that holds it, batches
+    of MAX_BATCH rows padded by repeating the chunk's first, the prompt
+    head then the sentence; the images whole (eval preprocessing crops
+    them), labels 0. Returns (batches, the request index of each row)."""
+    examples = served["examples"]
+    off, pad = spec.offset, cfg.embedding.pad_token_id
+    buckets = SERVER_BUCKETS
+    order = {b: [] for b in buckets}
+    for i, ex in enumerate(examples):
+        order[pick_bucket(min(len(ex["ori_input_ids"]), buckets[-1]),
+                          buckets)].append(i)
+    out, index = [], []
+    for L, idxs in order.items():
+        for lo in range(0, len(idxs), MAX_BATCH):
+            rows = idxs[lo:lo + MAX_BATCH]
+            index.append(rows)
+            rows = rows + [rows[0]] * (MAX_BATCH - len(rows))
+            B = len(rows)
+            b = {"input_ids": np.full((B, off + L), pad, np.int64),
+                 "segment_ids": np.concatenate(
+                     [np.zeros((B, off), np.int64),
+                      np.ones((B, L), np.int64)], 1),
+                 "input_mask": np.zeros((B, off + L), np.int64),
+                 "ori_input_ids": np.full((B, L), pad, np.int64),
+                 "ori_input_mask": np.zeros((B, L), np.int64),
+                 "ori_segment_ids": np.zeros((B, L), np.int64),
+                 "img_mask": np.ones((B, cfg.num_regions), np.int64),
+                 "clip_features": np.zeros((B, 1, cfg.clip_dim),
+                                           np.float32),
+                 "label_ids": np.zeros((B, L), np.int64),
+                 "images": served["images"][rows]}
+            for r, i in enumerate(rows):
+                ex = examples[i]
+                n = min(len(ex["ori_input_ids"]), L)
+                b["ori_input_ids"][r, :n] = np.asarray(
+                    ex["ori_input_ids"][:n])
+                b["ori_input_mask"][r, :n] = 1
+                pl = min(len(ex["input_ids"]), off + n)
+                b["input_ids"][r, :pl] = np.asarray(ex["input_ids"][:pl])
+                b["input_mask"][r, :pl] = 1
+                b["clip_features"][r, 0] = np.asarray(ex["clip_features"])
+            b["output_mask"] = b["ori_input_mask"].copy()
+            out.append(b)
+    return out, index
+
+
+def tp_eval(trainer, batches, index):
+    """The trainer's evaluation step on each batch (`eval_step`: images ->
+    backbone -> the model in "dev" mode): each request's tags cut to its
+    length (`index`: `tp_eval_batches`'s request of each row), the kernel
+    launches of those steps, and then the first batch's emissions."""
+    tags = [None] * sum(len(rows) for rows in index)
+    zero_counts()
+    for b, rows in zip(batches, index):
+        pred, _ = trainer.eval_step(b)
+        for r, i in enumerate(rows):
+            tags[i] = pred[r, :int(b["ori_input_mask"][r].sum())].cpu(
+                ).numpy()
+    counts = read_counts()
+    with torch.inference_mode():
+        inputs = trainer.model_inputs(batches[0])
+        inputs.pop("label_ids")
+        em = trainer.model.batch_emissions(inputs,
+                                           trainer.spec.mask_positions,
+                                           trainer.spec.offset)
+    return tags, em.float().cpu(), counts
+
+
+def tp_steps(trainer, batches, dev):
+    """DP_STEPS train steps; each step's record, the checksums of the
+    replicated and of the split leaves after it, and the peak allocated
+    bytes over the steps."""
+    reset_peak(dev)
+    trainer.init_state(2 * DP_STEPS)
+    split = trainer.tp.split
+    records, prints = [], []
+    for i, batch in enumerate(batches):
+        records.append(trainer.train_step(batch, (0, i)))
+        params = trainer.params()
+        prints.append({
+            "replicated": fingerprint(p for n, p in params.items()
+                                      if n not in split),
+            "split": fingerprint(p for n, p in params.items() if n in split)})
+    return records, prints, peak_bytes(dev)
+
+
+def tp_rank(work: Path, inputs: dict, dev) -> dict:
+    """Phase 13 in one of phase 12's ranks: the mesh (1, DP_RANKS), its
+    DP_STEPS steps (the layers' collectives timed), the state gathered to
+    the JAX layout, and phase 3's requests through a fresh trainer's
+    evaluation step on phase 3's backbone. Launch counts from 0 for the
+    steps and for the evaluation."""
+    mesh = make_mesh(MeshSpec(data=1, model=DP_RANKS), device=dev)
+    tcfg = dataclasses.replace(inputs["tcfg"], data_axis=1,
+                               model_axis=DP_RANKS)
+
+    def trainer():
+        return ICKATrainer(inputs["cfg"], tcfg, inputs["spec"],
+                           resnet_layers=inputs["layers"], mesh=mesh)
+    seen = {"coords": (mesh.rank, mesh.model_rank)}
+    tr = trainer()
+    tr.backbone.load_state_dict(torch.load(work / "backbone.pt",
+                                           weights_only=True))
+    zero_counts()
+    tr.tp.clock.timed = True
+    records, prints, peak = tp_steps(tr, inputs["batches"], dev)
+    seen["train"] = dict(records=records, prints=prints, peak=peak,
+                         counts=read_counts(),
+                         local=sum(p.numel() for p in tr.params().values()))
+    t0 = time.perf_counter()
+    tree = tr.state_tree()
+    seen["gather_seconds"] = time.perf_counter() - t0
+    flat = flat_leaves(tree)
+    seen["layout"] = {k: (v.shape, str(v.dtype)) for k, v in flat.items()}
+    adam = tree["opt_state"]["1"]["0"]
+    held = {"params": tr.params(), "mu": tr.opt_state.mu,
+            "nu": tr.opt_state.nu}
+    whole = {"params": tree["params"], "mu": adam["mu"], "nu": adam["nu"]}
+    seen["slices_equal"] = all(
+        torch.equal(tr.tp.local(n, sd[n]), held[key][n].cpu())
+        for key in held
+        for sd in [state_dict_from_flax(whole[key])] for n in held[key])
+    del tr, tree, flat, whole, held, adam
+    torch.cuda.empty_cache()
+    ev = trainer()
+    ev.backbone.load_state_dict(inputs["backbone3"])
+    t0 = time.perf_counter()
+    tags, em, counts = tp_eval(ev, *inputs["eval_batches"])
+    sync(dev)
+    seen["eval"] = dict(tags=tags, emissions=em, counts=counts,
+                        seconds=time.perf_counter() - t0)
+    del ev
+    torch.cuda.empty_cache()
+    return seen
+
+
+def phase_tp(seen, ref, served, card) -> dict:
+    """Phase 13's checks and lines on what the ranks saw against phase
+    12's one rank (`ref`: its records, peak, evaluation and state
+    layout). Returns every kernel's launch count over both ranks' steps
+    and evaluation."""
+    print(f"# phase 13: the model axis, mesh (1, {DP_RANKS}) on phase 12's "
+          f"ranks: ICKAConfig() trained in fp32 (TF32 off) on phase 12's "
+          f"global batch, seed and weights with dropout, crop and flip, "
+          f"{DP_STEPS} steps against one rank; phase 3's requests through "
+          f"the trainer's evaluation step, K1 on {TP_HEADS} heads a rank")
+    counts = {name: 0 for name in COUNTERS}
+    for r, s in enumerate(seen):
+        t = s["tp"]
+        check(t["coords"] == (0, r), f"rank {r} sits at {t['coords']}")
+        train, ev = t["train"], t["eval"]
+        add_counts(counts, train["counts"])
+        add_counts(counts, ev["counts"])
+        check(train["counts"]["fused_attention"] == 0,
+              f"rank {r}: K1 launched in the TP train steps (dropout on: "
+              f"the plain core)")
+        for i, (got, want) in enumerate(zip(train["records"],
+                                            ref["records"])):
+            loss_rel = abs(got.loss - want.loss) / abs(want.loss)
+            norm_rel = abs(got.grad_norm - want.grad_norm) / abs(
+                want.grad_norm)
+            compute = (got.seconds - got.reduce_seconds
+                       - got.update_seconds - got.tp_seconds)
+            print(f"#   rank {r} TP step {i}: loss {got.loss:.7f} vs one "
+                  f"rank {want.loss:.7f} (relative {loss_rel:.2e}, tol "
+                  f"{DP_LOSS_RTOL:.0e}), grad norm relative {norm_rel:.2e}; "
+                  f"step {got.seconds * 1e3:.1f} ms = compute "
+                  f"{compute * 1e3:.1f} + TP collectives "
+                  f"{got.tp_seconds * 1e3:.1f} ({got.tp_calls} all-reduces)"
+                  f" + agreement {got.reduce_seconds * 1e3:.1f} + update "
+                  f"{got.update_seconds * 1e3:.1f} ms")
+            check(got.applied and loss_rel <= DP_LOSS_RTOL
+                  and norm_rel <= STEP_NORM_RTOL,
+                  f"rank {r} TP step {i}: loss {got.loss} vs {want.loss}, "
+                  f"grad norm {got.grad_norm} vs {want.grad_norm}")
+        print(f"#   rank {r}: {train['local'] / 1e6:.1f} M parameters held "
+              f"of {ref['params'] / 1e6:.1f} M; peak allocated "
+              f"{train['peak'] / 1e9:.3f} GB (one rank {ref['peak'] / 1e9:.3f}"
+              f" GB); state gathered to the JAX layout in "
+              f"{t['gather_seconds']:.1f} s, its slices bit-equal to the "
+              f"rank's leaves: {t['slices_equal']}; on {card}")
+        check(t["layout"] == ref["layout"],
+              f"rank {r}: the gathered state's names, shapes or dtypes "
+              f"differ from one rank's")
+        check(t["slices_equal"], f"rank {r}: a slice of the gathered state "
+                                 f"differs from the leaf the rank holds")
+        k1 = ev["counts"]["fused_attention"]
+        err = (ev["emissions"] - ref["emissions"]).abs().max().item()
+        agree = agreement(ev["tags"], served["tags"])
+        agree_ref = agreement(ev["tags"], ref["tags"])
+        n_batches = len(ref["eval_batches"][0])
+        print(f"#   rank {r} evaluation: {len(ev['tags'])} requests in "
+              f"{n_batches} batches (phase 3's buckets) in "
+              f"{ev['seconds']:.2f} s, K1 launches {k1} (on "
+              f"{TP_HEADS} heads); first-batch emissions vs one rank's "
+              f"max_abs_err {err:.3e} (tol {EMISSIONS_TOL:.0e}); tags vs "
+              f"phase 3's fp32 tags {agree:.6f}, vs one rank's evaluation "
+              f"{agree_ref:.6f}")
+        check(err <= EMISSIONS_TOL, f"rank {r}: TP emissions differ by {err}")
+        check(agree >= 0.99, f"rank {r}: TP tags agree {agree} < 0.99")
+        if CHECK_CONV_LAUNCHES:
+            check(k1 == LAYERS_PER_BATCH * n_batches,
+                  f"rank {r}: K1 launched {k1} times for {n_batches} "
+                  f"evaluation batches")
+    check(all(s["tp"]["train"]["prints"][i]["replicated"]
+              == seen[0]["tp"]["train"]["prints"][i]["replicated"]
+              for s in seen for i in range(DP_STEPS)),
+          "the ranks' replicated leaves differ")
+    print(f"#   replicated leaves bit-equal on both ranks after each step: "
+          f"True; phase 13 in the ranks "
+          f"{max(s['tp']['seconds'] for s in seen):.1f} s")
+    return counts
+
+
+def phase_k1_local_heads(gen):
+    """K1 against its plain version at a tensor-parallel rank's shape:
+    TP_HEADS heads of 64, B=8, S=150 with a key bias and S=172 with a full
+    bias, and the evaluation's lengths (128 bare, 172 prompted) with key
+    biases, in fp32 and bf16, to phase 2's tolerances."""
+    print(f"# phase 13: K1 fused_attention vs attention_reference at a TP "
+          f"rank's {TP_HEADS} heads of 64 (B=8)")
+    for dtype in (torch.float32, torch.bfloat16):
+        for S, kind in ((150, "B11Sk"), (172, "BSqSk"), (128, "B11Sk"),
+                        (172, "B11Sk")):
+            q, k, v, bias = attention_inputs(8, S, S, dtype, kind, gen,
+                                             N=TP_HEADS)
+            out = fused_attention(q, k, v, bias, TP_HEADS)
+            torch.cuda.synchronize()
+            check(out.shape == q.shape and out.dtype == dtype,
+                  f"K1 {TP_HEADS} heads: {out.dtype} {tuple(out.shape)}")
+            err, share = attention_close(
+                out, attention_reference(q, k, v, bias, TP_HEADS),
+                f"K1 {TP_HEADS}x64 {dtype} S={S} {kind}")
+            print(f"#   {str(dtype)[6:]:8s} Sq=Sk={S:3d} bias={kind:6s} "
+                  f"max_abs_err={err:.3e} ({share:.2f} of its bound)")
+
+
 def phase_dp(args, card, dev, base, layers, served):
-    """Phase 12: the data axis, two ranks on the one card. Returns every
-    kernel's launch count over both ranks' serving and training."""
+    """Phases 12 and 13: the data axis, then the model axis, on two ranks
+    that share the one card. Returns every kernel's launch count over both
+    ranks' serving and training (phase 12) and over their tensor-parallel
+    steps and evaluation (phase 13)."""
     print(f"# phase 12: the data axis, {DP_RANKS} ranks on one card (gloo, "
           f"spawn): phase 3's requests through BucketedICKAServer(mesh=) in "
           f"fp32; ICKAConfig() with ResNet-152 trained in fp32 (TF32 off), "
@@ -2863,9 +3146,16 @@ def phase_dp(args, card, dev, base, layers, served):
         return ICKATrainer(cfg, dataclasses.replace(tcfg, **kw), spec,
                            resnet_layers=layers, device=dev)
 
-    # one rank, no process group: the reference
+    # one rank, no process group: the reference; first phase 13's
+    # evaluation on phase 3's weights (the seed's) and backbone
     t0 = time.perf_counter()
     ref = trainer()
+    check((spec.offset, spec.mask_positions)
+          == (served["spec"].offset, served["spec"].mask_positions),
+          f"the corpus's prompt layout {spec} is not phase 3's")
+    eval_batches = tp_eval_batches(served, cfg, spec)
+    ref.backbone.load_state_dict(served["backbone"])
+    ref_tags, ref_em, _ = tp_eval(ref, *eval_batches)
     calibrate_batch_stats(ref.backbone, preprocess_images(
         batches[0]["images"].reshape(-1, *batches[0]["images"].shape[2:]),
         224, dev))
@@ -2873,6 +3163,11 @@ def phase_dp(args, card, dev, base, layers, served):
     backbone = ref.backbone.state_dict()
     ref_records, ref_prints, ref_peak = dp_steps(ref, batches, dev)
     shapes = {n: tuple(p.shape) for n, p in ref.params().items()}
+    ref13 = dict(records=ref_records, peak=ref_peak, tags=ref_tags,
+                 emissions=ref_em, eval_batches=eval_batches,
+                 params=sum(math.prod(v) for v in shapes.values()),
+                 layout={k: (v.shape, str(v.dtype)) for k, v in
+                         flat_leaves(ref.state_tree()).items()})
     del ref
     torch.cuda.empty_cache()
     for r in ref_records:
@@ -2910,7 +3205,9 @@ def phase_dp(args, card, dev, base, layers, served):
 
     # two ranks on the card
     torch.save({"served": served, "batches": batches, "cfg": cfg,
-                "spec": spec, "tcfg": tcfg, "layers": layers},
+                "spec": spec, "tcfg": tcfg, "layers": layers,
+                "eval_batches": eval_batches,
+                "backbone3": served["backbone"]},
                work / "inputs.pt")
     del backbone
     torch.cuda.empty_cache()
@@ -3019,7 +3316,7 @@ def phase_dp(args, card, dev, base, layers, served):
     del single
     torch.cuda.empty_cache()
     shutil.rmtree(work)
-    return counts
+    return counts, phase_tp(seen, ref13, served, card)
 
 
 def phase_bert_times(gen, row):
@@ -3610,7 +3907,8 @@ def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
     phase 10 (gate_cl on weights from disk, fused QKV) and phase 11 (the
     dev evaluation of rematerialised training), the other paths' counts
     beside it; `main` adds phase 12's (both ranks' data-parallel
-    serving), which runs after this phase."""
+    serving) and phase 13's (both ranks' tensor-parallel evaluation, on
+    TP_HEADS heads a rank), which run after this phase."""
     B, S, N, hd, dtype = 128, 150, 16, 64, torch.bfloat16
     print(f"# phase 7: K1 at B={B} Sq=Sk={S} {N}x{hd} bf16, key-mask bias "
           f"(the tensor-core body at {K1_TILES}; the prompted encoder's "
@@ -3955,16 +4253,19 @@ def main(argv=None) -> int:
         # call's device records torch.profiler drops (none kept late in
         # it: tools/profiler_probe.py), so the phases that read the
         # profiler come first
-        dp_counts = phase_dp(args, card, dev, base, layers, served)
-        lap("phase 12")
-        runs.append(dp_counts)
+        dp_counts, tp_counts = phase_dp(args, card, dev, base, layers,
+                                        served)
+        phase_k1_local_heads(gen)
+        lap("phases 12 and 13")
+        runs += [dp_counts, tp_counts]
         total = {name: sum(c[name] for c in runs) for name in COUNTERS}
-        print(f"#   kernel launches over the eleven main paths: {total}")
-        # K1's row counts phase 12's launches too; it launched no other
-        # kernel (checked below), so the other rows' counts stand
+        print(f"#   kernel launches over the twelve main paths: {total}")
+        # K1's row counts phase 12's and 13's launches too; they launched
+        # no other kernel (checked below), so the other rows' counts stand
         k1 = kernels[0]
         k1["dp_launches"] = dp_counts["fused_attention"]
-        k1["launches"] += k1["dp_launches"]
+        k1["tp_launches"] = tp_counts["fused_attention"]
+        k1["launches"] += k1["dp_launches"] + k1["tp_launches"]
         for name in NO_CALLER:
             check(total[name] == 0, f"{name} has no caller in the model, yet "
                                     f"the main paths launched it "
@@ -3975,7 +4276,9 @@ def main(argv=None) -> int:
                             ("gate_cl serving", gc_serve_counts),
                             ("gate_cl training", gc_train_counts),
                             ("rematerialised training", remat_counts),
-                            ("data-parallel serving", dp_counts)):
+                            ("data-parallel serving", dp_counts),
+                            ("tensor-parallel training and evaluation",
+                             tp_counts)):
                 check(c[name] == 0, f"{what} runs the float backbone, yet "
                                     f"launched {name}")
     except SmokeFailure as e:

@@ -6,6 +6,7 @@ gate_cl family.
     python -m icka_tpu_torch.cli.train --synthetic DIR --tiny --device cpu
     python -m icka_tpu_torch.cli.train --synthetic DIR --tiny --model gate_cl
     torchrun --nproc_per_node 2 -m icka_tpu_torch.cli.train ... --data_axis -1
+    torchrun --nproc_per_node 2 -m icka_tpu_torch.cli.train ... --model_axis 2
 
 The flags are the JAX CLI's, with `--device {cuda,cpu}` (default cuda) in
 place of `--platform`/`--cpu_devices`/`--multihost`. Under torchrun (its
@@ -15,9 +16,11 @@ gloo otherwise): every rank loads the global batch of
 `--train_batch_size` rows and trains on its share of it, as the JAX
 package's single-host data axis does; rank 0 writes the corpus of
 `--synthetic`, the checkpoints and the lines. A caller that started the
-process group itself has its ranks used the same way. `--model_axis`
-takes 1.
-`--model
+process group itself has its ranks used the same way. `--model_axis M`
+makes the ranks a (data, model) grid, rank = d * M + m: the M ranks of
+one data index split every layer between them (tensor parallelism) and
+train on the rows of that index; `--data_axis -1` is then the ranks over
+M. `--model
 gate_cl|cl|ip` trains that variant of the my_bert family
 (`GateCLTrainer`) on BERT-base, or with `--tiny` on
 `GateCLConfig.tiny(variant)` with `region_dim` 2048 and the tiny ICKA
@@ -82,7 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mesh size along the data axis (-1: every rank "
                         "torchrun started, one without torchrun)")
     p.add_argument("--model_axis", type=int, default=1,
-                   help="tensor-parallel mesh size (1)")
+                   help="mesh size along the model axis: the ranks that "
+                        "split each layer (tensor parallelism)")
     p.add_argument("--synthetic", default=None,
                    help="generate a synthetic dataset at this path and "
                         "train on it")

@@ -178,9 +178,10 @@ class TrainConfig:
     the JAX package's `TrainConfig` with its name and default. The mesh
     (`icka_tpu_torch.core.mesh.MeshSpec`): `data_axis` is the number of
     data-parallel ranks (-1 or any value below 1: every rank of the
-    process group, one without a group) and `zero1` splits Adam's moments
-    over them (`train.optimizer.Zero1`); a `model_axis` above 1 raises
-    `NotImplementedError`, as tensor parallelism is not ported."""
+    process group over the model axis, one without a group), `model_axis`
+    the number of tensor-parallel ranks that split each layer
+    (`icka_tpu_torch.parallel.tensor`), and `zero1` splits Adam's moments
+    over the data axis (`train.optimizer.Zero1`)."""
 
     learning_rate: float = 3e-5
     weight_decay: float = 0.01
@@ -200,13 +201,6 @@ class TrainConfig:
     # dtype of the Adam first moment (mu); bf16 halves its memory. The
     # second moment stays fp32 (sqrt(nu) precision gates the update).
     mu_dtype: str = "float32"
-
-    def __post_init__(self):
-        if self.model_axis > 1:
-            raise NotImplementedError(
-                f"TrainConfig.model_axis={self.model_axis}: tensor "
-                f"parallelism (the model axis) is not ported; this package "
-                f"splits the data axis only")
 
 
 @dataclass(frozen=True)

@@ -1,10 +1,14 @@
-"""The data axis over `torch.distributed` (port of `icka_tpu.core.mesh`).
+"""The (data, model) mesh over `torch.distributed` (port of
+`icka_tpu.core.mesh`).
 
 One process per rank; a rank is the counterpart of a device on the JAX
-mesh's data axis. Every rank gets the same global batch (or the same
-requests), takes its own rows, and ends holding the same answer, as the
-JAX SPMD program does. The model axis (tensor parallelism) is not ported:
-`make_mesh` refuses a model axis above 1.
+mesh, whose row-major (data, model) grid it keeps: rank = d * model + m.
+Every rank gets the same global batch (or the same requests), takes the
+rows of its data index d, and ends holding the same answer, as the JAX SPMD
+program does. The ranks of one data index split the model's layers between
+them (tensor parallelism, `icka_tpu_torch.parallel.tensor`) over their
+model group; the ranks of one model index average their gradients over
+their data group.
 
 `init_distributed` starts the process group from torchrun's environment
 (or from explicit arguments): NCCL when every rank of the host owns a GPU
@@ -48,18 +52,36 @@ class MeshSpec:
 @dataclass(frozen=True)
 class Mesh:
     """The port's mesh: its data and model sizes, this rank's index on the
-    data axis, the process group (None without one: a mesh of one rank)
-    and the device this rank computes on."""
+    data axis (`rank`) and its data group (the ranks of its model index;
+    None without a process group: a mesh of one rank), the device this
+    rank computes on, and, where the model axis has more than one rank,
+    its index on that axis (`model_rank`), its model group (the ranks of
+    its data index) and the group of every rank (`world`; without it the
+    data group is every rank)."""
 
     data: int
     model: int
     rank: int
     group: Any
     device: torch.device
+    model_rank: int = 0
+    model_group: Any = None
+    world: Any = None
 
     @property
     def shape(self) -> dict:
         return {DATA_AXIS: self.data, MODEL_AXIS: self.model}
+
+    @property
+    def world_group(self):
+        """The group of every rank of the mesh (None without one)."""
+        return self.world if self.world is not None else self.group
+
+    @property
+    def leader(self) -> bool:
+        """Whether this is rank 0 of the grid, the one that logs and
+        writes."""
+        return self.rank == 0 and self.model_rank == 0
 
     def rows(self, n: int) -> tuple[int, int]:
         """This rank's rows [start, stop) of a dimension of `n` split over
@@ -71,35 +93,42 @@ class Mesh:
         return self.rank * share, (self.rank + 1) * share
 
     def barrier(self) -> None:
-        if self.group is not None:
-            dist.barrier(group=self.group)
+        if self.world_group is not None:
+            dist.barrier(group=self.world_group)
 
 
 def make_mesh(spec: MeshSpec | None = None, device="cuda") -> Mesh:
     """The mesh of `spec` over the default process group's ranks (a
     world of one without a group), on `device` (the card unless the caller
     asks for the CPU; with a group, the rank's own card as
-    `init_distributed` set it). Raises `ValueError` when the mesh needs
+    `init_distributed` set it). Ranks form the JAX package's row-major
+    grid: rank = d * model + m. Raises `ValueError` when the mesh needs
     more ranks than there are, as the JAX package does, or covers fewer
-    (the port runs one rank per device of the mesh), and
-    `NotImplementedError` for a model axis above 1."""
+    (the port runs one rank per device of the mesh). With a model axis
+    every rank calls it: it creates every data and model group."""
     spec = spec or MeshSpec()
     world = world_size()
     data, model = spec.resolve(world)
     if data * model > world:
         raise ValueError(f"mesh {data}x{model} needs {data * model} "
                          f"devices, have {world}")
-    if model > 1:
-        raise NotImplementedError(
-            f"mesh {data}x{model}: tensor parallelism (the model axis) is "
-            f"not ported")
     if data * model < world:
         raise ValueError(f"mesh {data}x{model} covers {data * model} of "
                          f"{world} ranks; run one rank per device of the "
                          f"mesh")
-    group = dist.group.WORLD if dist.is_initialized() else None
-    rank = dist.get_rank() if group is not None else 0
-    return Mesh(data, model, rank, group, resolve_device(device))
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        return Mesh(data, model, 0, None, dev)
+    d, m = divmod(dist.get_rank(), model)
+    if model == 1:
+        return Mesh(data, model, d, dist.group.WORLD, dev)
+    # every rank creates every group, in the same order
+    data_groups = [dist.new_group([i * model + j for i in range(data)])
+                   for j in range(model)]
+    model_groups = [dist.new_group([i * model + j for j in range(model)])
+                    for i in range(data)]
+    return Mesh(data, model, d, data_groups[m], dev, model_rank=m,
+                model_group=model_groups[d], world=dist.group.WORLD)
 
 
 def init_distributed(device="cuda", init_method: Optional[str] = None,
@@ -222,14 +251,27 @@ class RowSplit:
         return _GatherRows.apply(x, self.start, self.total, self.group)
 
 
-def draw(sample: Callable, shape, generator):
+def draw(sample: Callable, shape, generator, cut=None):
     """`sample(shape, generator)`, a torch sampling call; for `RowDraws`
-    the same call at the whole batch's shape, cut to this rank's rows."""
-    shape = tuple(shape)
-    if not isinstance(generator, RowDraws):
-        return sample(shape, generator)
-    if shape[0] != generator.stop - generator.start:
-        raise ValueError(f"a draw of {shape[0]} rows from RowDraws of rows "
-                         f"[{generator.start}, {generator.stop})")
-    full = sample((generator.total,) + shape[1:], generator.generator)
-    return full[generator.start:generator.stop]
+    the same call at the whole batch's shape, cut to this rank's rows.
+    `cut` (dim, start, total) says that dimension `dim` of `shape` is this
+    rank's slice [start, start + shape[dim]) of a dimension of `total`
+    that the model axis splits (attention heads, a column-parallel
+    layer's columns): the draw is made at `total` there too and cut, so
+    every model rank draws what one rank draws."""
+    shape = list(shape)
+    full, index = list(shape), [slice(None)] * len(shape)
+    if cut is not None:
+        dim, start, total = cut
+        dim %= len(shape)
+        full[dim], index[dim] = total, slice(start, start + shape[dim])
+    if isinstance(generator, RowDraws):
+        if shape[0] != generator.stop - generator.start:
+            raise ValueError(f"a draw of {shape[0]} rows from RowDraws of "
+                             f"rows [{generator.start}, {generator.stop})")
+        full[0] = generator.total
+        index[0] = slice(generator.start, generator.stop)
+        generator = generator.generator
+    if full == shape:
+        return sample(tuple(shape), generator)
+    return sample(tuple(full), generator)[tuple(index)]

@@ -9,6 +9,13 @@ three modes: "test" (tags), "dev" (tags and the loss) and "train" (the
 loss, with dropout drawn from the caller's generator).
 `forward_packed` is the sequence-packed inference path of
 `icka_tpu_torch.serving.packing`.
+
+On a model axis (`icka_tpu_torch.parallel.tensor`) the encoders and
+cross-attention stacks split their heads and FFN columns, the mapping
+networks their `wi`/`wo` pair, and `vismap2text`, `vismapping` and
+`gate.proj` (the generic rule: output width >= 1024) compute their columns
+and gather the rest; the BiLSTM, the classifier and the CRF stay
+replicated.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from icka_tpu_torch.nn.bert import PromptSpliceEncoder, TextEncoder
 from icka_tpu_torch.nn.crf import CRF
 from icka_tpu_torch.nn.layers import Dense, additive_mask, dropout
 from icka_tpu_torch.nn.lstm import BiLSTM
+from icka_tpu_torch.parallel.tensor import column_row_pair, copy_to_model
 
 
 class MappingNetwork(nn.Module):
@@ -42,10 +50,19 @@ class MappingNetwork(nn.Module):
                         generator=gen)
         self.wo = Dense(width * prompt_len, hidden * prompt_len, dtype=dtype,
                         device=dev, generator=gen)
+        self.shard = None
+
+    def shard_model_axis(self, shard, specs) -> tuple:
+        """`wi`/`wo` a column/row pair where the specs split them; the
+        dropout between them then draws every column and keeps its own."""
+        self.shard = column_row_pair(self.wi, self.wo)
+        return ()
 
     def forward(self, x, dropout_gen=None):
-        x = torch.tanh(self.wi(dropout(x, self.dropout, dropout_gen)))
-        x = self.wo(dropout(x, self.dropout, dropout_gen))
+        x = dropout(x, self.dropout, dropout_gen)
+        x = torch.tanh(self.wi(copy_to_model(x, self.shard)))
+        cut = None if self.shard is None else self.shard.cut(-1, x.shape[-1])
+        x = self.wo(dropout(x, self.dropout, dropout_gen, cut))
         return x.reshape(x.shape[0], self.prompt_len, self.hidden)
 
 

@@ -21,6 +21,10 @@ both FFN layers), in self- and cross-attention alike; the pooler stays
 float, as in the JAX package. `EncoderConfig.fuse_qkv` gives every
 self-attention one `qkv` projection (H, 3H) in place of query, key and
 value (cross-attention keeps the three).
+
+On a model axis (`icka_tpu_torch.parallel.tensor`) a layer's heads and
+FFN columns are split: q/k/v and `wi` are column-parallel, the attention
+output and `wo` row-parallel, in self- and cross-attention alike.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from icka_tpu_torch.core.mesh import draw
 from icka_tpu_torch.kernels.attention import fused_attention
 from icka_tpu_torch.nn.layers import ACT2FN, Dense, LayerNorm, dropout
 from icka_tpu_torch.nn.remat import rematerialised, remat_call
+from icka_tpu_torch.parallel.tensor import column_row_pair, copy_to_model
 
 
 def _split_heads(x, num_heads):
@@ -48,13 +53,16 @@ def _merge_heads(x):
 
 def dot_product_attention(q, k, v, bias=None, dtype=torch.float32,
                           softmax_dtype=torch.float32, dropout_rate=0.0,
-                          dropout_gen=None):
+                          dropout_gen=None, head_cut=None):
     """Plain attention core. q, k, v: (B, S, N, H); bias broadcastable to
     (B, N, Sq, Sk). Scores are summed in `softmax_dtype` (fp32 by default
     whatever the compute dtype), probabilities cast to `dtype` for P.V.
     With `dropout_gen`, each probability is kept with probability
-    1 - dropout_rate and scaled by its inverse, as the JAX core does. (The
-    JAX core's tau, neg_type and prior are not ported.)"""
+    1 - dropout_rate and scaled by its inverse, as the JAX core does; the
+    mask is drawn at every head and cut to these N where `head_cut`
+    (dim 1, first head, all heads; `core.mesh.draw`) says they are a
+    model-axis slice. (The JAX core's tau, neg_type and prior are not
+    ported.)"""
     scores = torch.einsum("bqnh,bknh->bnqk", q.to(softmax_dtype),
                           k.to(softmax_dtype)) * q.shape[-1] ** -0.5
     if bias is not None:
@@ -63,7 +71,7 @@ def dot_product_attention(q, k, v, bias=None, dtype=torch.float32,
     if dropout_rate > 0.0 and dropout_gen is not None:
         keep = draw(lambda shape, gen: torch.rand(shape, generator=gen,
                                                   device=probs.device),
-                    probs.shape, dropout_gen) < 1.0 - dropout_rate
+                    probs.shape, dropout_gen, head_cut) < 1.0 - dropout_rate
         probs = probs * keep / (1.0 - dropout_rate)
     probs = probs.to(dtype)
     return torch.einsum("bnqk,bknh->bqnh", probs, v.to(dtype))
@@ -85,7 +93,13 @@ class MultiHeadAttention(nn.Module):
     `dropout_rate` is 0: training with attention dropout takes the plain
     core. `quant` is the projections' `Dense` mode. `fuse_qkv=True` (self-
     attention only) holds one `qkv` Dense (H, 3H) whose output splits into
-    q, k and v; the kernel reads the three as views of it, in place."""
+    q, k and v; the kernel reads the three as views of it, in place.
+
+    On a model axis whose specs split q, k and v by columns, the layer
+    runs `num_heads / model` heads (`local_heads`, the kernel's too), its
+    inputs' gradients summed over the model group once each (x, and kv in
+    cross-attention). A fused `qkv` is refused there: the specs split it by
+    the generic rule, across heads."""
 
     def __init__(self, hidden: int, num_heads: int, dtype=torch.float32,
                  use_pallas: bool = False, softmax_dtype=torch.float32,
@@ -108,6 +122,28 @@ class MultiHeadAttention(nn.Module):
                 self.add_module(name, Dense(hidden, hidden, dtype=dtype,
                                             quant=quant, device=dev,
                                             generator=gen))
+        self.shard = None
+        self.local_heads = num_heads
+
+    def shard_model_axis(self, shard, specs) -> tuple:
+        """`parallel.tensor.tensor_parallel`'s hook: q, k and v made
+        "column" and the heads cut where the specs split them."""
+        if self.fuse_qkv:
+            raise NotImplementedError(
+                "fuse_qkv on a model axis: the specs split the fused qkv "
+                "kernel by the generic rule, across heads (ROADMAP Queue 1)")
+        proj = (self.query, self.key, self.value)
+        if self.query.mode is None:
+            return ()
+        if self.num_heads % shard.size:
+            raise NotImplementedError(
+                f"attention of {self.num_heads} heads on a model axis of "
+                f"{shard.size} (ROADMAP Queue 1): the axis must divide the "
+                f"heads")
+        for p in proj:
+            p.mode = "column"
+        self.shard, self.local_heads = shard, self.num_heads // shard.size
+        return ()
 
     def forward(self, x, kv=None, bias=None, dropout_gen=None):
         if self.fuse_qkv:
@@ -116,19 +152,23 @@ class MultiHeadAttention(nn.Module):
                                  "only")
             q, k, v = self.qkv(x).split(x.shape[-1], dim=-1)
         else:
-            kv = x if kv is None else kv
+            x = copy_to_model(x, self.shard)
+            kv = x if kv is None else copy_to_model(kv, self.shard)
             q, k, v = self.query(x), self.key(kv), self.value(kv)
+        heads = self.local_heads
         if self.use_pallas and (dropout_gen is None
                                 or self.dropout_rate == 0.0):
             if bias is None:
                 bias = torch.zeros(q.shape[0], 1, 1, k.shape[1],
                                    device=q.device)
-            return fused_attention(q, k, v, bias, num_heads=self.num_heads)
-        q, k, v = (_split_heads(t, self.num_heads) for t in (q, k, v))
-        ctx = dot_product_attention(q, k, v, bias=bias, dtype=self.dtype,
-                                    softmax_dtype=self.softmax_dtype,
-                                    dropout_rate=self.dropout_rate,
-                                    dropout_gen=dropout_gen)
+            return fused_attention(q, k, v, bias, num_heads=heads)
+        q, k, v = (_split_heads(t, heads) for t in (q, k, v))
+        ctx = dot_product_attention(
+            q, k, v, bias=bias, dtype=self.dtype,
+            softmax_dtype=self.softmax_dtype, dropout_rate=self.dropout_rate,
+            dropout_gen=dropout_gen,
+            head_cut=None if self.shard is None
+            else self.shard.cut(1, heads))
         return _merge_heads(ctx)
 
 
@@ -169,10 +209,15 @@ class FeedForward(nn.Module):
         self.wo = Dense(intermediate, hidden, dtype=dtype, quant=quant,
                         device=dev, generator=gen)
         self.norm = LayerNorm(hidden, eps=eps, dtype=dtype, device=dev)
+        self.shard = None
+
+    def shard_model_axis(self, shard, specs) -> tuple:
+        self.shard = column_row_pair(self.wi, self.wo)
+        return ()
 
     def forward(self, x, dropout_gen=None):
-        h = dropout(self.wo(self.act(self.wi(x))), self.dropout_rate,
-                    dropout_gen)
+        h = self.wi(copy_to_model(x, self.shard))
+        h = dropout(self.wo(self.act(h)), self.dropout_rate, dropout_gen)
         return self.norm(h + x)
 
 

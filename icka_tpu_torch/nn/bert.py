@@ -13,8 +13,10 @@ from torch import nn
 
 from icka_tpu_torch.core.config import EncoderConfig
 from icka_tpu_torch.core.device import generator_for, resolve_device
+from icka_tpu_torch.core.mesh import MODEL_AXIS
 from icka_tpu_torch.nn.attention import Encoder, Pooler
 from icka_tpu_torch.nn.layers import LayerNorm, additive_mask, dropout
+from icka_tpu_torch.parallel.tensor import vocab_parallel_embedding
 
 
 def roberta_position_ids(input_ids, pad_token_id: int):
@@ -35,7 +37,9 @@ class TextEmbeddings(nn.Module):
     """word + position + token-type embeddings -> LayerNorm -> dropout.
 
     `embed_tokens` / `finalize` split the pipeline so callers can transform
-    token embeddings (prompt splicing) before positions are assigned."""
+    token embeddings (prompt splicing) before positions are assigned. On a
+    model axis that splits `word_embeddings` the lookup is
+    vocabulary-parallel (`parallel.tensor.vocab_parallel_embedding`)."""
 
     def __init__(self, cfg: EncoderConfig, dtype=torch.float32,
                  device="cuda", generator=None):
@@ -54,8 +58,19 @@ class TextEmbeddings(nn.Module):
             self.register_parameter(name, p)
         self.norm = LayerNorm(H, eps=cfg.layer_norm_eps, dtype=dtype,
                               device=dev)
+        self.vocab_shard = None
+
+    def shard_model_axis(self, shard, specs) -> tuple:
+        """`parallel.tensor.tensor_parallel`'s hook: the lookup is
+        vocabulary-parallel where the specs split `word_embeddings`."""
+        if MODEL_AXIS in specs["word_embeddings"]:
+            self.vocab_shard = shard
+        return ()
 
     def embed_tokens(self, input_ids):
+        if self.vocab_shard is not None:
+            return vocab_parallel_embedding(input_ids, self.word_embeddings,
+                                            self.vocab_shard)
         return F.embedding(input_ids, self.word_embeddings)
 
     def finalize(self, inputs_embeds, position_ids, token_type_ids,

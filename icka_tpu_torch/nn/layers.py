@@ -19,9 +19,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from icka_tpu_torch.core.device import generator_for, resolve_device
-from icka_tpu_torch.core.mesh import draw
+from icka_tpu_torch.core.mesh import MODEL_AXIS, draw
 from icka_tpu_torch.nn.quant import (abs_max_scale, column_major,
                                      int8_matmul, quantize_activation)
+from icka_tpu_torch.parallel.tensor import (copy_to_model,
+                                            gather_from_model,
+                                            reduce_from_model)
 
 NEG_INF_MASK = -10000.0
 QUANT_MODES = ("none", "int8", "int8_static")
@@ -40,18 +43,20 @@ ACT2FN = {
 }
 
 
-def dropout(x, rate: float, dropout_gen=None):
+def dropout(x, rate: float, dropout_gen=None, cut=None):
     """flax `nn.Dropout`: each element kept with probability 1 - rate and
     scaled by 1 / (1 - rate), the mask drawn from `dropout_gen` (a
     `torch.Generator` on x's device, or `core.mesh.RowDraws` of one for a
-    rank's rows of a batch; no module touches the global RNG). The
-    identity when `dropout_gen` is None (deterministic) or rate is 0."""
+    rank's rows of a batch; no module touches the global RNG), at the
+    whole shape where `cut` says which dimension of `x` is a model-axis
+    slice (`core.mesh.draw`). The identity when `dropout_gen` is None
+    (deterministic) or rate is 0."""
     if dropout_gen is None or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
     keep = draw(lambda shape, gen: torch.rand(shape, generator=gen,
                                               device=x.device),
-                x.shape, dropout_gen) < keep_prob
+                x.shape, dropout_gen, cut) < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
 
 
@@ -114,7 +119,14 @@ class Dense(nn.Module):
     `"int8"` takes the per-row scale max(amax_row, 1e-8) / 127 and records
     the largest |x| it has seen in `calib_amax` (max-merged over calls, not
     in the state_dict): the calibration mode. `"int8_static"` takes one
-    calibrated per-tensor `act_scale` ()."""
+    calibrated per-tensor `act_scale` ().
+
+    On a model axis (`icka_tpu_torch.parallel.tensor`, float only: the
+    int8 weights are serving buffers, never trained) `mode` is "column"
+    (its output columns, from its slice of the bias), "gather" (the same,
+    its input's gradient summed over the model group and the whole output
+    gathered) or "row" (the partial product over its input slice summed
+    over the model group, then the bias); None off the axis."""
 
     def __init__(self, in_features: int, features: int, dtype=torch.float32,
                  quant: str = "none", device="cuda", generator=None):
@@ -143,6 +155,25 @@ class Dense(nn.Module):
                                      torch.zeros((), device=dev),
                                      persistent=False)
         self.bias = nn.Parameter(torch.zeros(features, device=dev))
+        self.mode = None
+        self.shard = None
+
+    def shard_model_axis(self, shard, specs) -> tuple:
+        """`parallel.tensor.tensor_parallel`'s hook: "gather" where the
+        weight's output dimension is split (a layer that consumes its
+        columns makes it "column"), "row" where its input dimension is.
+        Returns the leaves used in part: the bias of a column split."""
+        if self.quant != "none":
+            raise NotImplementedError(
+                f"a Dense in {self.quant!r} mode on a model axis: the int8 "
+                f"weights are serving buffers and are never trained")
+        out_split, in_split = (a == MODEL_AXIS for a in specs["weight"])
+        if out_split:
+            self.mode, self.shard = "gather", shard
+            return ("bias",)
+        if in_split:
+            self.mode, self.shard = "row", shard
+        return ()
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
@@ -150,9 +181,23 @@ class Dense(nn.Module):
             self.kernel_q = column_major(self.kernel_q)
 
     def forward(self, x):
-        if self.quant == "none":
+        if self.quant == "none" and self.mode is None:
             y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
             return y + self.bias.to(self.dtype)
+        if self.mode == "row":
+            y = reduce_from_model(
+                F.linear(x.to(self.dtype), self.weight.to(self.dtype)),
+                self.shard)
+            return y + self.bias.to(self.dtype)
+        if self.mode is not None:
+            n = self.weight.shape[0]
+            bias = self.bias.narrow(0, self.shard.index * n, n)
+            if self.mode == "gather":
+                x = copy_to_model(x, self.shard)
+            y = (F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+                 + bias.to(self.dtype))
+            return (y if self.mode == "column"
+                    else gather_from_model(y, self.shard))
         if self.quant == "int8_static":
             a_scale = self.act_scale
         else:

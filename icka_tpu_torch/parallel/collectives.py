@@ -1,8 +1,10 @@
 """Collectives over `torch.distributed` (port of
 `icka_tpu.parallel.collectives`), each with the JAX version's
 single-process shortcut, and the two bulk collectives of data-parallel
-training: the gradients' mean in flat buckets (`all_reduce_mean_`) and
-ZeRO-1's gather of updated slices (`all_gather_slices_`).
+training: the gradients' sum or mean in flat buckets (`all_reduce_sum_`,
+`all_reduce_mean_`) and the gather of every rank's slices
+(`all_gather_slices_`: ZeRO-1's updated slices, tensor-parallel leaves
+gathered to their whole shape).
 
 The bulk collectives use `all_reduce` and `broadcast` only, the two that
 gloo carries for CUDA tensors (through the host), so ranks that share one
@@ -66,18 +68,35 @@ def buckets(sizes: Sequence[int], limit: int = BUCKET_ELEMENTS) -> list:
     return out
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
-    """Each tensor (all of one dtype) becomes its mean over the group's
-    ranks, in place: flat buckets, one SUM all-reduce each, then a
-    division by the world size."""
+def global_rank(group, rank: int) -> int:
+    """The default group's rank of `group`'s rank `rank` (`broadcast`
+    takes the former)."""
+    if group is None or group is dist.group.WORLD:
+        return rank
+    return dist.get_global_rank(group, rank)
+
+
+def all_reduce_sum_(tensors: Sequence[torch.Tensor], group=None,
+                    mean: bool = False) -> None:
+    """Each tensor (all of one dtype) becomes its sum over the group's
+    ranks (with `mean`, that sum divided by the group's size), in place:
+    flat buckets, one SUM all-reduce each."""
     world = dist.get_world_size(group)
     for idx in buckets([t.numel() for t in tensors]):
         part = [tensors[i] for i in idx]
         flat = torch.cat([t.reshape(-1) for t in part])
         dist.all_reduce(flat, group=group)
-        flat.div_(world)
+        if mean:
+            flat.div_(world)
         for t, piece in zip(part, flat.split([t.numel() for t in part])):
             t.copy_(piece.view_as(t))
+
+
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Each tensor (all of one dtype) becomes its mean over the group's
+    ranks, in place: flat buckets, one SUM all-reduce each, then a
+    division by the group's size."""
+    all_reduce_sum_(tensors, group, mean=True)
 
 
 def all_gather_slices_(tensors: Sequence[torch.Tensor],
@@ -87,7 +106,7 @@ def all_gather_slices_(tensors: Sequence[torch.Tensor],
     is cut along dimension `cuts[i][0]` into slices of `cuts[i][1]`.
     Afterwards each holds every rank's slices. In flat buckets, each
     rank's slices packed and broadcast from that rank: a copy, no
-    arithmetic."""
+    arithmetic. `rank` and the sources are ranks of `group`."""
     world = dist.get_world_size(group)
     for idx in buckets([t.numel() for t in tensors]):
         for src in range(world):
@@ -99,7 +118,7 @@ def all_gather_slices_(tensors: Sequence[torch.Tensor],
                 flat = torch.empty(sum(v.numel() for v in views),
                                    dtype=views[0].dtype,
                                    device=views[0].device)
-            dist.broadcast(flat, src=src, group=group)
+            dist.broadcast(flat, src=global_rank(group, src), group=group)
             if src != rank:
                 for v, piece in zip(views,
                                     flat.split([v.numel() for v in views])):

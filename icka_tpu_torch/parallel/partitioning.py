@@ -18,14 +18,19 @@ the port's dimensions.
 
 `zero1_moment_specs` adds the data axis to each moment leaf's largest
 remaining divisible dimension. Both give the JAX package's answer for every
-mesh shape, model axis included; this package splits the data axis only
-(`shard_train_state`, `moment_slices`).
+mesh shape. `shard_params` and `shard_train_state` cut whole leaves to a
+rank's slices by them (the model entries; ZeRO-1's data entries too), and
+`moment_slices` gives ZeRO-1's data cuts, which hold on a model-local leaf
+as on a whole one: the data axis never takes the model axis's dimension.
+`icka_tpu_torch.parallel.tensor` runs the layers on those slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Mapping, Sequence
+
+import torch
 
 from icka_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS
 
@@ -106,8 +111,10 @@ def zero1_moment_specs(shapes: Mapping[str, Sequence[int]], data: int = 1,
 
 def moment_slices(shapes: Mapping[str, Sequence[int]],
                   mesh) -> dict[str, tuple[int, int, int]]:
-    """The moment leaves ZeRO-1 splits on `mesh`: {name: (dimension, this
-    rank's first index, slice length)}."""
+    """The moment leaves ZeRO-1 splits on `mesh`, from the parameters'
+    whole shapes: {name: (dimension, this rank's first index on the data
+    axis, slice length)}. The dimension is never one the model axis
+    splits, so the cut holds on the rank's model slice of the leaf."""
     out = {}
     for name, spec in zero1_moment_specs(shapes, mesh.data,
                                          mesh.model).items():
@@ -118,19 +125,44 @@ def moment_slices(shapes: Mapping[str, Sequence[int]],
     return out
 
 
+def cut(t, spec: Sequence, mesh):
+    """This rank's slice (a view) of a whole leaf `t` under `spec`: along
+    a "model" entry its index on the model axis, along a "data" entry its
+    index on the data axis."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            size, index = ((mesh.model, mesh.model_rank) if axis == MODEL_AXIS
+                           else (mesh.data, mesh.rank))
+            n = t.shape[dim] // size
+            t = t.narrow(dim, index * n, n)
+    return t
+
+
+def _cut_all(tensors: Mapping, specs: Mapping, mesh) -> dict:
+    """Each split leaf as a contiguous copy of this rank's slice; the
+    others as they are."""
+    return {n: cut(t, specs[n], mesh).clone(
+        memory_format=torch.contiguous_format) if any(specs[n]) else t
+        for n, t in tensors.items()}
+
+
+def shard_params(params: Mapping, mesh) -> dict:
+    """Whole parameters ({name: tensor}) cut to this rank's model slices
+    by `param_partition_specs` (replicated over the data axis)."""
+    return _cut_all(params, param_partition_specs(
+        {n: tuple(t.shape) for n, t in params.items()}, mesh.model), mesh)
+
+
 def shard_train_state(state: Any, mesh, zero1: bool = False) -> Any:
-    """The data entries of the specs applied to a train state with full
-    moments (`mu`, `nu` by name, as `train.optimizer.AdamState`):
-    parameters are replicated over the data axis, so only the moments
-    change, and only under `zero1`: each split leaf becomes a contiguous
-    copy of this rank's slice. Returns a new state."""
-    if not zero1:
+    """A train state with whole moments (`mu`, `nu` by name, as
+    `train.optimizer.AdamState`) cut as the parameters beside them: each
+    leaf the model axis splits to this rank's model slice, and under
+    `zero1` each leaf `zero1_moment_specs` splits over the data axis to
+    its data slice of that; contiguous copies. Returns a new state (the
+    state itself where nothing is cut)."""
+    if not zero1 and mesh.model == 1:
         return state
-    cuts = moment_slices({n: tuple(t.shape) for n, t in state.mu.items()},
-                         mesh)
-
-    def cut(moments):
-        return {n: t.narrow(*cuts[n]).clone() if n in cuts else t
-                for n, t in moments.items()}
-
-    return dataclasses.replace(state, mu=cut(state.mu), nu=cut(state.nu))
+    shapes = {n: tuple(t.shape) for n, t in state.mu.items()}
+    specs = zero1_moment_specs(shapes, mesh.data if zero1 else 1, mesh.model)
+    return dataclasses.replace(state, mu=_cut_all(state.mu, specs, mesh),
+                               nu=_cut_all(state.nu, specs, mesh))

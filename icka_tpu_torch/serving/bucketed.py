@@ -26,7 +26,11 @@ same requests and holds the whole model, runs its share of the rows of
 each device batch, and the tags are gathered from the ranks, so every rank
 returns the single-device server's tags. The batch must divide by the
 data size. A placement change, never a math change: no collective runs
-inside the model.
+inside the model. On a mesh with a model axis the server does as the JAX
+package's `_dp_shardings`: the weights are whole on every rank, the rows
+go by the data index (the ranks of one data index run the same rows) and
+the tags are gathered over the data group. A model cut to a rank's
+tensor-parallel slices (`parallel.tensor.tensor_parallel`) is refused.
 """
 
 from __future__ import annotations
@@ -80,6 +84,10 @@ def _server_device(model, mesh, device):
     """The device a server runs on: the mesh's when there is one; the
     model must live there."""
     dev = mesh.device if mesh is not None else resolve_device(device)
+    if getattr(model, "tp_layout", None) is not None:
+        raise ValueError("the model holds a rank's tensor-parallel slices; "
+                         "a server takes the whole model (on a mesh with a "
+                         "model axis, whole on every rank)")
     if model.device != dev:
         raise ValueError(f"model lives on {model.device}, server on {dev}")
     return dev

@@ -22,9 +22,12 @@ schedule has lr 0; the first moment may be held in bf16 (`mu_dtype`).
 ZeRO-1 (`Zero1`, the JAX package's `zero1_moment_specs` layout): each
 data-parallel rank keeps and updates only its slice of every moment leaf
 that the data axis divides, and of the parameter beside it, then the
-updated parameter slices are gathered from every rank. The gradients are
-the full all-reduced ones on every rank and the global norm is taken over
-them, so the update is the replicated one, element for element.
+updated parameter slices are gathered from the ranks of its data group.
+The gradients are the full all-reduced ones on every rank and the global
+norm is taken over them, so the update is the replicated one, element for
+element. On a model axis (`tp`) every leaf the axis splits is this rank's
+model slice, whose data slice ZeRO-1 keeps, and the global norm sums the
+split leaves' squares over the model group.
 
 Also the legacy `BertAdam` (no bias correction, per-leaf clipping) and its
 warmup schedules. A schedule maps a step to an fp32 0-d tensor.
@@ -40,7 +43,8 @@ from typing import Callable, Mapping, Optional, Sequence
 import torch
 
 from icka_tpu_torch.core.config import TrainConfig
-from icka_tpu_torch.parallel.collectives import all_gather_slices_, buckets
+from icka_tpu_torch.parallel.collectives import (all_gather_slices_,
+                                                 all_reduce_sum_, buckets)
 from icka_tpu_torch.parallel.partitioning import moment_slices
 
 Schedule = Callable[[int], torch.Tensor]
@@ -125,14 +129,24 @@ class AdamState:
     nu: dict
 
 
-def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's sum of squares (fp32)."""
-    return torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+def global_norm(grads: Mapping[str, torch.Tensor], tp=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's sum of squares (fp32).
+    With `tp` (a `parallel.tensor.TensorParallel`) the leaves it splits
+    hold this rank's slices: their squares are summed over the model
+    group, and each replicated leaf is counted once."""
+    if tp is None:
+        return torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+    dev = next(iter(grads.values())).device
+    whole = sum((torch.sum(g * g) for n, g in grads.items()
+                 if n in tp.split), torch.zeros((), device=dev)).reshape(1)
+    all_reduce_sum_([whole], tp.shard.group)
+    return torch.sqrt(sum((torch.sum(g * g) for n, g in grads.items()
+                           if n not in tp.split), whole[0]))
 
 
 class Zero1:
-    """ZeRO-1 on `mesh`'s data axis for parameters of the given shapes
-    (`{name: shape}`): `cuts` holds, for each leaf that
+    """ZeRO-1 on `mesh`'s data axis for parameters of the given whole
+    shapes (`{name: shape}`): `cuts` holds, for each leaf that
     `zero1_moment_specs` splits, (dimension, this rank's first index,
     slice length); every other leaf is updated whole on every rank.
     `seconds` sums the host-clock time of the gathers."""
@@ -199,8 +213,10 @@ class AdamW:
     def __init__(self, schedule: Schedule, max_grad_norm: float,
                  weight_decay: float, mask: Mapping[str, bool],
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 mu_dtype: str = "float32", zero1: Optional[Zero1] = None):
+                 mu_dtype: str = "float32", zero1: Optional[Zero1] = None,
+                 tp=None):
         self.schedule = schedule
+        self.tp = tp
         self.max_grad_norm = max_grad_norm
         self.weight_decay = weight_decay
         self.mask = dict(mask)
@@ -229,8 +245,8 @@ class AdamW:
                params: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """One optimizer step: params, mu, nu and count in place. Returns
         the gradients' global norm before clipping (over the full
-        gradients, also under ZeRO-1)."""
-        norm = global_norm(grads)
+        gradients, also under ZeRO-1 and on a model axis)."""
+        norm = global_norm(grads, self.tp)
         clip = not bool(norm < self.max_grad_norm)
         count = int(state.count) + 1
         b1, b2 = self.b1, self.b2
@@ -261,16 +277,18 @@ class AdamW:
 
 
 def make_optimizer(cfg: TrainConfig, total_steps: int, names,
-                   zero1: Optional[Zero1] = None) -> AdamW:
+                   zero1: Optional[Zero1] = None, tp=None) -> AdamW:
     """The JAX package's `make_optimizer`: clip by `cfg.max_grad_norm`,
     AdamW on `linear_warmup_schedule(lr, int(warmup_proportion * total),
     total)` with `cfg.mu_dtype`, decay `cfg.weight_decay` masked by
-    `decay_mask(names)`; ZeRO-1 under `zero1`."""
+    `decay_mask(names)`; ZeRO-1 under `zero1`, the model axis's layout
+    `tp` (`parallel.tensor.TensorParallel`) for the global norm."""
     schedule = linear_warmup_schedule(
         cfg.learning_rate, int(cfg.warmup_proportion * total_steps),
         total_steps)
     return AdamW(schedule, cfg.max_grad_norm, cfg.weight_decay,
-                 decay_mask(names), mu_dtype=cfg.mu_dtype, zero1=zero1)
+                 decay_mask(names), mu_dtype=cfg.mu_dtype, zero1=zero1,
+                 tp=tp)
 
 
 class BertAdam:

@@ -36,6 +36,22 @@ the tags, so every rank returns the same result; in `fit` only rank 0 logs
 and writes, with barriers around each write, and a preemption request on
 any rank stops every rank before the same step.
 
+Tensor parallelism (`TrainConfig.model_axis` above 1, a (data, model)
+mesh): the model is built whole from the seed and each rank keeps its
+slices of the leaves `param_partition_specs` splits
+(`icka_tpu_torch.parallel.tensor`); its layers run their collectives over
+the model group, and the ranks of one data index compute the one-rank
+step on their rows. Every data-axis agreement above runs over the data
+group (the ranks of one model index); the finite flag, preemption and the
+barriers over every rank. The gradients of replicated leaves a rank uses
+in part (column-parallel biases) are summed over the model group before
+the data mean, the global norm sums the split leaves' squares over the
+model group, ZeRO-1 cuts the model slices over the data axis, and
+`state_tree` gathers every leaf to the JAX layout (`state_from_checkpoint`
+cuts it again), so snapshots resume across mesh shapes in both
+directions. Dropout draws each mask at the whole batch and every head or
+column and cuts it, so every mesh draws what one rank draws.
+
 Evaluation (the reference's `test()`): images -> eval preprocessing ->
 backbone -> `ICKAModel(mode="dev", loss_reduction="none")`, the padded
 tail rows dropped, the exact token-mean loss, the reference's label
@@ -73,7 +89,9 @@ from icka_tpu_torch.models.icka import ICKAModel
 from icka_tpu_torch.models.resnet import VisualBackbone
 from icka_tpu_torch.parallel.collectives import (all_gather_objects,
                                                  all_reduce_mean_)
-from icka_tpu_torch.parallel.partitioning import shard_train_state
+from icka_tpu_torch.parallel.partitioning import (shard_params,
+                                                  shard_train_state)
+from icka_tpu_torch.parallel.tensor import CollectiveClock, tensor_parallel
 from icka_tpu_torch.train.optimizer import AdamState, Zero1, make_optimizer
 
 CROP_SIZE = 224
@@ -127,7 +145,9 @@ class StepRecord:
     (None when skipped), and host-clock seconds of the whole step, of the
     agreement across ranks (the all-reduces; 0 without a process group),
     of the optimizer update and, within it, of ZeRO-1's gather, each
-    ending in a synchronise."""
+    ending in a synchronise; and the tensor-parallel collectives the
+    layers ran in the step (`TensorParallel.clock`: their count, and
+    their seconds when it is timed, else 0)."""
 
     step: int
     loss: float
@@ -137,6 +157,8 @@ class StepRecord:
     update_seconds: float
     reduce_seconds: float = 0.0
     gather_seconds: float = 0.0
+    tp_calls: int = 0
+    tp_seconds: float = 0.0
 
 
 def _seed(*words: int) -> int:
@@ -153,12 +175,13 @@ def _sync(device: torch.device) -> None:
 class ICKATrainer:
     """The flagship model and its frozen visual backbone on `device` (the
     card unless the caller asks for the CPU), or on `mesh`'s device (by
-    default the mesh of `train_cfg.data_axis` over the process group's
-    ranks: one rank without a group). Both compute in
-    `train_cfg.compute_dtype` with fp32 parameters, as the JAX trainer;
-    the model's weights come from `train_cfg.seed`, the same on every
-    rank. `init_state` (or `fit`) builds the optimizer;
-    `step` counts the updates applied."""
+    default the mesh of `train_cfg.data_axis` and `train_cfg.model_axis`
+    over the process group's ranks: one rank without a group). Both
+    compute in `train_cfg.compute_dtype` with fp32 parameters, as the JAX
+    trainer; the model's weights come from `train_cfg.seed`, the same on
+    every rank (on a model axis each rank keeps its slices of them, laid
+    out by `tp`). `init_state` (or `fit`) builds the optimizer; `step`
+    counts the updates applied."""
 
     def __init__(self, model_cfg: ICKAConfig, train_cfg: TrainConfig,
                  spec: PromptSpec, label_list=None,
@@ -174,6 +197,8 @@ class ICKATrainer:
         self.device = self.mesh.device
         dtype = DTypePolicy.from_str(train_cfg.compute_dtype).compute_dtype
         self.model = self._build_model(dtype)
+        self.tp = (tensor_parallel(self.model, self.mesh)
+                   if self.mesh.model > 1 else None)
         self.backbone = VisualBackbone(resnet_layers, dtype=dtype,
                                        device=self.device,
                                        seed=train_cfg.seed + 1).eval()
@@ -192,6 +217,8 @@ class ICKATrainer:
     # -- state ---------------------------------------------------------------
 
     def params(self) -> dict:
+        """{name: parameter} as this rank holds them (its slices on a
+        model axis)."""
         return dict(self.model.named_parameters())
 
     def init_state(self, total_steps: int) -> None:
@@ -199,11 +226,14 @@ class ICKATrainer:
         schedule's length) and its zero state (under ZeRO-1, this rank's
         slices); the step count restarts."""
         params = self.params()
-        self.zero1 = (Zero1(self.mesh, {n: tuple(p.shape)
-                                        for n, p in params.items()})
+        # ZeRO-1 cuts by the whole shapes (a rank's model slices have
+        # the whole size along the data cut)
+        shapes = (self.tp.shapes if self.tp is not None else
+                  {n: tuple(p.shape) for n, p in params.items()})
+        self.zero1 = (Zero1(self.mesh, shapes)
                       if self.train_cfg.zero1 else None)
         self.optimizer = make_optimizer(self.train_cfg, total_steps, params,
-                                        zero1=self.zero1)
+                                        zero1=self.zero1, tp=self.tp)
         self.opt_state = self.optimizer.init(params)
         self.step = 0
 
@@ -212,19 +242,22 @@ class ICKATrainer:
         `opt_state` in optax's chain layout ((clip), (adam, masked decay,
         schedule)) and `backbone_variables`, as numpy trees with flax's
         leaf names and layouts (a bf16 first moment as bf16). Under ZeRO-1
-        the moments are gathered to the full layout first: every rank
-        calls it."""
+        the moments are gathered over the data axis first, and on a model
+        axis every split leaf over the model axis: every rank calls it."""
         count = np.asarray(int(self.opt_state.count), np.int32)
         mu, nu = self.opt_state.mu, self.opt_state.nu
+        params = self.model.state_dict()
         if self.zero1 is not None:
             shapes = {n: tuple(p.shape) for n, p in self.params().items()}
             mu, nu = (self.zero1.gathered(m, shapes) for m in (mu, nu))
+        if self.tp is not None:
+            params, mu, nu = (self.tp.gathered(t) for t in (params, mu, nu))
         mu = flax_tree_from_state_dict(mu)
         if self.optimizer.mu_dtype == torch.bfloat16:
             mu = _map_leaves(Bfloat16Array.from_float32, mu)
         return {
             "step": np.asarray(self.step, np.int32),
-            "params": flax_tree_from_state_dict(self.model.state_dict()),
+            "params": flax_tree_from_state_dict(params),
             "opt_state": {"0": {}, "1": {
                 "0": {"count": count, "mu": mu,
                       "nu": flax_tree_from_state_dict(nu)},
@@ -237,10 +270,10 @@ class ICKATrainer:
     def save_state(self, checkpointer, metric=None) -> None:
         """`checkpointer.save` of `state_tree()` at the current step, by
         rank 0 only, between barriers (every rank calls it)."""
-        tree = (self.state_tree()
-                if self.mesh.rank == 0 or self.zero1 is not None else None)
+        gathers = self.zero1 is not None or self.tp is not None
+        tree = self.state_tree() if self.mesh.leader or gathers else None
         self.mesh.barrier()
-        if self.mesh.rank == 0:
+        if self.mesh.leader:
             checkpointer.save(tree, step=self.step, metric=metric)
         self.mesh.barrier()
 
@@ -248,10 +281,11 @@ class ICKATrainer:
         """Load a JAX train state (as `Checkpointer.restore_best` or
         `resume` gives it): `params` and `backbone_variables` into the model
         and the backbone, every name checked; and, once the optimizer
-        exists, `step` and the moments and count of `opt_state` (under
-        ZeRO-1, this rank's slices)."""
-        self.model.load_state_dict(state_dict_from_flax(state["params"]),
-                                   strict=True)
+        exists, `step` and the moments and count of `opt_state` (this
+        rank's slices on a model axis and under ZeRO-1)."""
+        self.model.load_state_dict(
+            shard_params(state_dict_from_flax(state["params"]), self.mesh),
+            strict=True)
         self.backbone.load_state_dict(
             backbone_state_dict(state["backbone_variables"]), strict=True)
         if self.optimizer is None:
@@ -365,20 +399,29 @@ class ICKATrainer:
 
     def reduce_gradients(self, loss_sum, grads: Mapping, finite):
         """The ranks' agreement on a step (nothing to agree without a
-        process group): the finite flag by a MIN all-reduce, so every rank
-        applies or skips together; the loss sum and, when the step is
-        applied, the gradients (in place, flat buckets) averaged over the
-        ranks. Returns (the global loss sum, applied)."""
+        process group): the finite flag by a MIN all-reduce over every
+        rank, so every rank applies or skips together; the loss sum and,
+        when the step is applied, the gradients (in place, flat buckets)
+        averaged over the data group, after the gradients of the leaves
+        used in part are summed over the model group. A data axis of one
+        beside a model axis has nothing to average. Returns (the global
+        loss sum, applied)."""
         group = self.mesh.group
         if group is None:
             return loss_sum, bool(finite)
         flag = finite.to(torch.int32).reshape(1)
-        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN,
+                        group=self.mesh.world_group)
+        average = self.tp is None or self.mesh.data > 1
         loss = loss_sum.reshape(1).clone()
-        all_reduce_mean_([loss], group)
+        if average:
+            all_reduce_mean_([loss], group)
         applied = bool(flag.item())
         if applied:
-            all_reduce_mean_(list(grads.values()), group)
+            if self.tp is not None:
+                self.tp.sum_partial_(grads)
+            if average:
+                all_reduce_mean_(list(grads.values()), group)
         return loss[0], applied
 
     def train_step(self, batch: Mapping, key) -> StepRecord:
@@ -388,6 +431,8 @@ class ICKATrainer:
         over the microbatches (and the ranks)."""
         t0 = time.perf_counter()
         params = self.params()
+        clock = self.tp.clock if self.tp is not None else CollectiveClock()
+        tp_calls, tp_seconds = clock.calls, clock.seconds
         loss_sum, grads, finite = self.local_gradients(batch, key)
         _sync(self.device)
         t1 = time.perf_counter()
@@ -412,7 +457,9 @@ class ICKATrainer:
             update_seconds=time.perf_counter() - t2,
             reduce_seconds=t2 - t1,
             gather_seconds=(self.zero1.seconds - gathered
-                            if self.zero1 is not None else 0.0))
+                            if self.zero1 is not None else 0.0),
+            tp_calls=clock.calls - tp_calls,
+            tp_seconds=clock.seconds - tp_seconds)
         self.records.append(record)
         return record
 
@@ -448,7 +495,7 @@ class ICKATrainer:
         if self.optimizer is None:
             self.init_state(total_steps)
         start_epoch, skip_batches = 0, 0
-        if self.mesh.rank != 0:
+        if not self.mesh.leader:
             log = _silent
         if checkpointer is not None and checkpointer.manifest["steps"]:
             tree, ck_step = checkpointer.resume()
@@ -494,10 +541,11 @@ class ICKATrainer:
     def _any_rank(self, flag: bool) -> bool:
         """`flag` agreed over the ranks: True on every rank when it is
         True on any."""
-        if self.mesh.group is None:
+        if self.mesh.world_group is None:
             return flag
         t = torch.tensor([int(flag)], device=self.device)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX,
+                        group=self.mesh.world_group)
         return bool(t.item())
 
     def _dev_message(self, result: EvalResult) -> str:

@@ -86,12 +86,11 @@ def test_batches_equal_the_jax_loaders(split, prefetch, cache, batch_size):
 
 def test_train_mode_is_not_ported_and_errors_reach_the_consumer(split):
     feats, images = split
-    # training batches are ported, and so is the data axis that shards
-    # them over ranks; the model axis is not
+    # training batches are ported, and so are the data axis that shards
+    # them over ranks and the model axis
     assert len(MNERLoader(feats, images, 2)) == 3
     TrainConfig(data_axis=2, zero1=True)
-    with pytest.raises(NotImplementedError):
-        TrainConfig(model_axis=2)
+    assert TrainConfig(model_axis=2).model_axis == 2
     loader = MNERLoader(feats, images, 2, train=False, prefetch=2)
 
     def broken(rows):

@@ -142,8 +142,12 @@ def _rank_main(rank: int, out: str):
     seen["refused"] = (
         _raises(lambda: make_mesh(MeshSpec(data=3), "cpu"), ValueError),
         _raises(lambda: make_mesh(MeshSpec(data=1), "cpu"), ValueError),
-        _raises(lambda: make_mesh(MeshSpec(data=1, model=2), "cpu"),
-                NotImplementedError))
+        _raises(lambda: make_mesh(MeshSpec(data=2, model=2), "cpu"),
+                ValueError))
+    grid = make_mesh(MeshSpec(data=1, model=2), device="cpu")
+    seen["grid"] = (grid.data, grid.model, grid.rank, grid.model_rank,
+                    dist.get_world_size(grid.model_group),
+                    dist.get_world_size(grid.group))
     means = [torch.full((3,), float(rank)), torch.arange(5.0) * (rank + 1)]
     all_reduce_mean_(means)
     seen["means"] = means
@@ -299,6 +303,8 @@ def test_mesh_of_one_process():
     assert (mesh.data, mesh.model, mesh.rank, mesh.group) == (1, 1, 0, None)
     with pytest.raises(ValueError, match="needs 2"):
         make_mesh(MeshSpec(data=2), device="cpu")
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        make_mesh(MeshSpec(data=1, model=2), device="cpu")
     two = Mesh(data=2, model=1, rank=1, group=None,
                device=torch.device("cpu"))
     assert two.rows(8) == (4, 8) and two.rows(7) == (0, 7)
@@ -351,6 +357,9 @@ def test_init_distributed_and_the_mesh_of_two_ranks(ranks):
         assert (s["device"], s["backend"]) == ("cpu", "gloo")
         assert s["mesh"] == (2, 1, r, "cpu")
         assert s["refused"] == (True, True, True)
+        # the model axis: rank = d * model + m, a model group of both
+        # ranks, a data group of one
+        assert s["grid"] == (1, 2, 0, r, 2, 1)
 
 
 def test_collectives_of_one_process():

@@ -2,10 +2,9 @@
 preempted by a real signal and resumed from its snapshot ends bit-equal to
 the uninterrupted run (dropout on, so the seeded draws must line up); the
 training CLI prints the JAX CLI's line shapes and writes its checkpoint
-directory; the model axis in `TrainConfig`, which stays unported,
-raises; and
-training with rematerialisation equals training without it, the flagship's
-and the gate_cl family's."""
+directory; the model axis in `TrainConfig` is taken, and a mesh of more
+ranks than there are refused; and training with rematerialisation equals
+training without it, the flagship's and the gate_cl family's."""
 
 import dataclasses
 import os
@@ -21,6 +20,7 @@ import torch
 from icka_tpu_torch.cli import train as train_cli
 from icka_tpu_torch.core.checkpoint import Checkpointer, PreemptionGuard
 from icka_tpu_torch.core.config import GateCLConfig, ICKAConfig, TrainConfig
+from icka_tpu_torch.core.mesh import MeshSpec, make_mesh
 from icka_tpu_torch.data.clip_store import ClipFeatureStore
 from icka_tpu_torch.data.conll import read_mm_conll
 from icka_tpu_torch.data.features import convert_examples
@@ -135,8 +135,13 @@ def test_cli_prints_the_jax_clis_lines(tmp_path):
 
 @pytest.mark.parametrize("field,value", [("model_axis", 2)])
 def test_the_mesh_is_not_ported(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        TrainConfig(**{field: value})
+    """The model axis is ported: the config takes it, and without a
+    process group the mesh of more ranks than there are is refused, as the
+    JAX package does (`tests/test_torch_tp_train.py` runs it)."""
+    cfg = TrainConfig(**{field: value})
+    assert getattr(cfg, field) == value
+    with pytest.raises(ValueError, match=f"needs {value} devices"):
+        make_mesh(MeshSpec(data=-1, model=cfg.model_axis), device="cpu")
     TrainConfig(data_axis=-1)              # all devices: the one device
 
 
