@@ -179,6 +179,29 @@ Phases; any failure exits non-zero:
      `kernels` line; 0 in the steps). Then K1 against its plain version
      at a rank's 8 heads of 64 (S=150 key bias, S=172 full bias, and the
      evaluation's 128 and 172, fp32 and bf16);
+ 14. the chunker and generation at full width (after 7, before 12), fp32
+     with TF32 off, random weights from `--seed`: a CoNLL-2000 chunker
+     checkpoint (`chunker_config()`: BERT-base, a Pfeiffer adapter of 48
+     in every layer, a 23-label head) written in adapter-transformers'
+     key layout and loaded by `load_chunker` with K1 (and again on the
+     plain core), 32 sentences of 10-60 word pieces tagged in batches of 8
+     (buckets 32 and 64; K1 12 a batch; logits within 1e-4 of the plain
+     core, tags' agreement and spans printed); the Oscar captioner
+     (`CaptionConfig()`: BERT-base, 2048-d regions, 40 caption tokens, 50
+     regions, K1) on 8 images: greedy and 3-beam search by full recompute
+     (K1 12 a step with the full (B, 1, 90, 90) seq2seq bias) and on the
+     KV cache, tokens identical and scores within 1e-4, the cached step's
+     logits within 1e-4 of the full re-encode's; constrained beam search
+     on the cached step (two one-token words, 4 FSM states x 2 beams, 20
+     steps), every best beam holding both words; GPT-2 (`GPT2Config()`,
+     cross-attention over an 8 x 50 x 768 memory) greedy and 3-beam on its
+     KV cache against full teacher-forced decodes, tokens identical;
+     seeded sampling (top_k 50, top_p 0.9, a CUDA generator) on GPT-2's
+     cached step, one seed one result, every token inside its step's
+     filter; ms a token of every decode printed. Then K1 against its plain
+     version at the captioner's Sq=Sk=90 (seq2seq and random full bias)
+     and the chunker's 32 and 64 (key bias) in fp32 and bf16, and timed in
+     fp32 at the decodes' shapes; its launches go into K1's row;
   7. time each kernel at its main-path shape beside its plain version, the
      PyTorch library call for the same function where there is one, its
      bound and its recorded time before its redesign (comment lines only);
@@ -230,12 +253,24 @@ from icka_tpu_torch.core.device import strict_fp32
 from icka_tpu_torch.core.mesh import Mesh, MeshSpec, init_distributed, make_mesh
 from icka_tpu_torch.data import native, synthetic
 from icka_tpu_torch.data.clip_store import ClipFeatureStore
+from icka_tpu_torch.data.chunking import bio_spans
 from icka_tpu_torch.data.conll import MMExample, read_mm_conll
 from icka_tpu_torch.data.features import convert_examples
 from icka_tpu_torch.data.images import preprocess_images
 from icka_tpu_torch.data.labels import label_map
 from icka_tpu_torch.data.loader import MNERLoader
 from icka_tpu_torch.data.synthetic import generate_dataset, tiny_tokenizer
+from icka_tpu_torch.generation.constrained import (
+    constrained_beam_search, fsm_from_constraints,
+    select_best_beam_with_constraints)
+from icka_tpu_torch.generation.decoding import (beam_search, greedy_decode,
+                                                sample_decode,
+                                                top_k_top_p_filter)
+from icka_tpu_torch.generation.gpt2_cache import (cached_gpt2_step,
+                                                  precompute_gpt2_cache)
+from icka_tpu_torch.generation.kv_cache import (cached_caption_step,
+                                                generate_captions_cached,
+                                                precompute_image_cache)
 from icka_tpu_torch.kernels import build
 from icka_tpu_torch.kernels import conv as kconv
 from icka_tpu_torch.kernels.attention import (
@@ -243,14 +278,20 @@ from icka_tpu_torch.kernels.attention import (
     attention_reference, blockwise_tiles, column_chunk, fused_attention,
     fused_attention_blockwise, kernel_width)
 from icka_tpu_torch.models import resnet as resnet_module
+from icka_tpu_torch.models.captioning import (CaptionConfig, CaptionModel,
+                                              generate_captions,
+                                              seq2seq_mask)
+from icka_tpu_torch.models.chunker import (CONLL2000_ID2LABEL,
+                                           CONLL2000_LABELS, chunker_config)
 from icka_tpu_torch.models.convert import (calibration_amax,
                                            fuse_qkv_params,
                                            quantize_params_like,
                                            static_quantize_backbone,
                                            static_quantize_params_like)
 from icka_tpu_torch.models.gate_cl import GateCLModel
+from icka_tpu_torch.models.gpt2 import GPT2Config, GPT2Decoder
 from icka_tpu_torch.models.icka import ICKAModel
-from icka_tpu_torch.models.pretrained import (load_backbone,
+from icka_tpu_torch.models.pretrained import (load_backbone, load_chunker,
                                               load_text_encoder,
                                               load_tf_encoder,
                                               save_text_encoder)
@@ -4175,6 +4216,411 @@ def phase_conv_times(gen, launches, errs, B=128):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the chunker and generation at full width
+# ---------------------------------------------------------------------------
+
+CHUNK_SENTENCES, CHUNK_BATCH = 32, 8
+CHUNK_BUCKETS = (32, 64)
+GEN_BATCH, GEN_REGIONS, CAPTION_BEAMS = 8, 50, 3
+CBS_WORDS, CBS_BEAMS, CBS_STEPS = (2158, 3899), 2, 20
+GPT2_MAX_LEN = 20
+SAMPLE_TOP_K, SAMPLE_TOP_P = 50, 0.9
+# logits of one model on two paths in fp32 (TF32 off): K1 against the
+# plain core, the cached step against the full re-encode. PR 11's
+# TokenClassifier at BERT-base width differed by 8.9e-07 through K1.
+GEN_LOGITS_TOL = 1e-4
+BERT_CLS, BERT_SEP = 101, 102          # bert-base-uncased [CLS], [SEP]
+GPT2_EOS = 50256                       # GPT-2's <|endoftext|>
+CHUNKER_DIR = WORK_DIR / "chunker"
+
+
+def chunker_checkpoint(seed, cfg):
+    """A `BertModelWithHeads` state dict of random weights (`seed`) at
+    `cfg`'s widths, in adapter-transformers' key layout: HF BERT with its
+    pooler, each layer's Pfeiffer adapter under `conll2000`, the tagging
+    head `heads.conll2000.1`."""
+    rng = np.random.default_rng(seed)
+    sd = hf_state_dict(random_encoder_tree(cfg, rng), "bert.",
+                       legacy_norms=False)
+    H, A, n = cfg.hidden_size, cfg.adapter_size, len(CONLL2000_LABELS)
+
+    def w(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                * np.float32(0.02))
+    for i in range(cfg.num_hidden_layers):
+        base = f"bert.encoder.layer.{i}.output.adapters.conll2000"
+        sd[f"{base}.adapter_down.0.weight"] = w(A, H)
+        sd[f"{base}.adapter_down.0.bias"] = w(A)
+        sd[f"{base}.adapter_up.weight"] = w(H, A)
+        sd[f"{base}.adapter_up.bias"] = w(H)
+    sd["heads.conll2000.1.weight"] = w(n, H)
+    sd["heads.conll2000.1.bias"] = w(n)
+    return sd
+
+
+def phase_chunker(args, dev, cfg):
+    """The chunker's main path: its checkpoint written to disk, loaded by
+    `load_chunker` with K1, 32 sentences tagged in batches of 8 (sorted by
+    length: buckets 32 and 64). Returns the checks' inputs: the two
+    chunkers, the batches and their tags."""
+    sd = chunker_checkpoint(args.seed + 14, cfg)
+    CHUNKER_DIR.mkdir(parents=True, exist_ok=True)
+    _, save_s = timed(lambda: torch.save(
+        sd, CHUNKER_DIR / "pytorch_model.bin"))
+    (CHUNKER_DIR / "config.json").write_text(
+        json.dumps(hf_config(cfg, "bert")))
+    mb = size_mb(CHUNKER_DIR)
+    del sd
+    chunker, load_s = timed(lambda: load_chunker(
+        str(CHUNKER_DIR), device=dev, use_pallas=True))
+    plain = load_chunker(str(CHUNKER_DIR), device=dev)
+    shutil.rmtree(CHUNKER_DIR)
+    check(chunker.cfg.adapter_size == cfg.adapter_size
+          and chunker.cfg.use_pallas
+          and not plain.cfg.use_pallas, f"load_chunker built {chunker.cfg}")
+    print(f"#   checkpoint {mb:.1f} MB (adapter-transformers layout) "
+          f"written in {save_s:.2f} s, loaded by load_chunker in "
+          f"{load_s:.2f} s")
+    rng = np.random.default_rng(args.seed + 14)
+    lengths = np.linspace(10, 60, CHUNK_SENTENCES).round().astype(int)
+    sentences = sorted(
+        ([BERT_CLS] + rng.integers(BERT_SEP + 1, cfg.vocab_size, n).tolist()
+         + [BERT_SEP]
+         for n in rng.permutation(lengths)), key=len)
+    batches = [sentences[i:i + CHUNK_BATCH]
+               for i in range(0, CHUNK_SENTENCES, CHUNK_BATCH)]
+    tags = [chunker.tag(b) for b in batches]
+    return chunker, plain, batches, tags
+
+
+def check_chunker(card, dev, chunker, plain, batches, tags, launches):
+    buckets = [chunker.batch(b)[0].shape[1] for b in batches]
+    print(f"#   {CHUNK_SENTENCES} sentences of 10-60 word pieces in "
+          f"{len(batches)} batches of {CHUNK_BATCH}, padded to {buckets}; "
+          f"K1 launches {launches}")
+    check(set(buckets) == set(CHUNK_BUCKETS),
+          f"the chunker ran buckets {buckets}, not {CHUNK_BUCKETS}")
+    check(dev.type != "cuda"
+          or launches == chunker.cfg.num_hidden_layers * len(batches),
+          f"the chunker launched K1 {launches} times")
+    err, same, n = 0.0, 0, 0
+    with torch.no_grad():
+        for batch, rows in zip(batches, tags):
+            ids, mask = chunker.batch(batch)
+            got = chunker.model(ids, attention_mask=mask)
+            want = plain.model(ids, attention_mask=mask)
+            err = max(err, (got - want).abs().max().item())
+            classes = want.argmax(-1).cpu().numpy()
+            for seq, row, cls in zip(batch, rows, classes):
+                same += sum(CONLL2000_ID2LABEL[int(c)] == t
+                            for c, t in zip(cls[1:len(seq) - 1], row))
+                n += len(row)
+                spans = bio_spans(row)
+                covered = {t for s, e in spans for t in range(s, e)}
+                check(covered == set(range(len(seq) - 2)),
+                      "a sentence's chunk spans miss interior tokens")
+    check(err <= GEN_LOGITS_TOL, f"chunker logits K1 vs plain core differ "
+                                 f"by {err} > {GEN_LOGITS_TOL}")
+    tokens = sum(len(s) - 2 for b in batches for s in b)
+    _, secs = timed(lambda: [chunker.tag(b) for b in batches])
+    _, plain_secs = timed(lambda: [plain.tag(b) for b in batches])
+    print(f"#   logits K1 vs plain core max_abs_err {err:.3e} (tol "
+          f"{GEN_LOGITS_TOL:.0e}); tags agree {same / n:.6f}; every "
+          f"sentence's spans cover its interior tokens; tag {secs * 1e3:.1f}"
+          f" ms for the {CHUNK_SENTENCES} sentences ({tokens / secs:.0f} "
+          f"tags/s, {CHUNK_SENTENCES / secs:.1f} sentences/s; plain core "
+          f"{plain_secs * 1e3:.1f} ms) on {card}")
+
+
+def region_mask(dev, regions=GEN_REGIONS):
+    """(GEN_BATCH, regions): row b has its last 3b regions padded."""
+    valid = torch.tensor([regions - 3 * b for b in range(GEN_BATCH)])
+    return (torch.arange(regions)[None] < valid[:, None]).long().to(dev)
+
+
+def gpt2_full_step(decoder):
+    """The full-recompute step over the GPT-2 decoder: the teacher-forced
+    pass over the token buffer (positions after t masked), read at t. The
+    cache carries the buffer, the memory and its mask."""
+    def step(tok, cache, t):
+        buf = cache["tokens"].clone()
+        buf[:, t] = tok
+        pos = torch.arange(buf.shape[1], device=buf.device)[None]
+        logits = decoder(buf, (pos <= t).expand_as(buf).long(),
+                         cache["memory"], cache["memory_mask"])
+        return logits[:, t], {**cache, "tokens": buf}
+    return step
+
+
+def decode_runs(model, decoder, img, img_mask, memory):
+    """Every decode of the phase once: the captioner's greedy and beam
+    search by full recompute (K1, full seq2seq bias) and on the KV cache,
+    constrained beam search on the cached step, GPT-2's cached and full
+    greedy and beam search. Returns {name: (result, seconds, steps)}."""
+    L = model.cfg.max_caption_len
+    V = model.cfg.encoder.vocab_size
+    lm = decoder.wte.T
+    B = img.shape[0]
+    out = {}
+
+    def run(name, steps, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        sync(img.device)
+        out[name] = (result, time.perf_counter() - t0, steps)
+
+    for mode, kw in (("greedy", {}), ("beam", {"num_beams": CAPTION_BEAMS})):
+        run(f"caption {mode}", L - 1, lambda: generate_captions(
+            model, BERT_CLS, BERT_SEP, img, img_mask, L, mode, **kw))
+        run(f"caption {mode} cached", L - 1,
+            lambda: generate_captions_cached(
+                model, BERT_CLS, BERT_SEP, img, img_mask, L, mode, **kw))
+    fsm = fsm_from_constraints([[w] for w in CBS_WORDS], V)
+    run("constrained cached", CBS_STEPS, lambda: constrained_beam_search(
+        lambda tok, c, t: cached_caption_step(model, tok, t, c),
+        torch.full((B,), BERT_CLS, device=img.device),
+        precompute_image_cache(model, img, img_mask, CBS_STEPS + 1), fsm,
+        CBS_STEPS + 1, BERT_SEP, beams_per_state=CBS_BEAMS))
+    init = torch.full((B,), GPT2_EOS, device=img.device)
+    mem_mask = img_mask
+    for mode, fn, kw in (("greedy", greedy_decode, {}),
+                         ("beam", beam_search,
+                          {"num_beams": CAPTION_BEAMS})):
+        run(f"gpt2 {mode} cached", GPT2_MAX_LEN - 1, lambda: fn(
+            lambda tok, c, t: cached_gpt2_step(decoder, lm, tok, t, c),
+            init, precompute_gpt2_cache(decoder, memory, mem_mask,
+                                        GPT2_MAX_LEN),
+            GPT2_MAX_LEN, GPT2_EOS, **kw))
+        run(f"gpt2 {mode}", GPT2_MAX_LEN - 1, lambda: fn(
+            gpt2_full_step(decoder), init,
+            {"tokens": torch.zeros(B, GPT2_MAX_LEN, dtype=torch.long,
+                                   device=img.device),
+             "memory": memory, "memory_mask": mem_mask},
+            GPT2_MAX_LEN, GPT2_EOS, **kw))
+    return out, fsm
+
+
+def first_divergence(a, b):
+    diff = (a != b).nonzero()
+    return None if len(diff) == 0 else tuple(diff[0].tolist())
+
+
+def check_decodes(card, model, runs, fsm):
+    """Cached against full recompute, token for token, in both families;
+    the constrained search's best beams hold both words."""
+    for family in ("caption", "gpt2"):
+        for mode in ("greedy", "beam"):
+            full, full_s, steps = runs[f"{family} {mode}"]
+            cached, cached_s, _ = runs[f"{family} {mode} cached"]
+            where = first_divergence(full.tokens, cached.tokens)
+            score_err = (full.scores - cached.scores).abs().max().item()
+            print(f"#   {family} {mode}: full recompute "
+                  f"{full_s * 1e3 / steps:.2f} ms a token, KV cache "
+                  f"{cached_s * 1e3 / steps:.2f} ms a token ({steps} steps "
+                  f"of {full.tokens.shape[0]} rows); tokens identical: "
+                  f"{where is None} (first divergence {where}); scores "
+                  f"max_abs_err {score_err:.3e}")
+            check(where is None, f"{family} {mode}: cached tokens differ "
+                                 f"from the full recompute's at {where}")
+            check(score_err <= GEN_LOGITS_TOL,
+                  f"{family} {mode}: scores differ by {score_err}")
+    res, secs, steps = runs["constrained cached"]
+    toks, scores = select_best_beam_with_constraints(res, fsm, 2)
+    held = [all(w in row for w in CBS_WORDS) for row in toks.tolist()]
+    print(f"#   constrained beam search on the cached step ({fsm.num_states} "
+          f"FSM states x {CBS_BEAMS} beams, words {list(CBS_WORDS)}, "
+          f"{steps} steps): {secs * 1e3 / steps:.2f} ms a step; "
+          f"{sum(held)} of {len(held)} best beams hold both words, scores "
+          f"finite: {bool(np.isfinite(scores).all())}")
+    check(all(held) and np.isfinite(scores).all(),
+          "constrained search: a best beam lacks a constraint word")
+
+
+def check_step_logits(model, img, img_mask, tokens):
+    """The caption's step logits on the greedy tokens: the cached step
+    against the full re-encode through K1 at every position."""
+    L = tokens.shape[1]
+    cache = precompute_image_cache(model, img, img_mask, L)
+    err = 0.0
+    with torch.no_grad():
+        for t in range(L - 1):
+            got, cache = cached_caption_step(model, tokens[:, t], t, cache)
+            buf = torch.where(torch.arange(L, device=tokens.device)[None]
+                              <= t, tokens, 0)
+            want = model.decode_step(buf, img, img_mask, t)
+            err = max(err, (got - want).abs().max().item())
+    check(err <= GEN_LOGITS_TOL, f"caption step logits differ by {err}")
+    return err
+
+
+def check_sampling(decoder, memory, mem_mask, seed):
+    """Seeded sampling on GPT-2's cached step (top_k 50, top_p 0.9, a
+    generator on the card): one seed gives one result, and each token of a
+    row not yet finished survives the filter of its step's logits."""
+    lm = decoder.wte.T
+    dev = memory.device
+
+    def sampled(s):
+        seen = []
+
+        def step(tok, c, t):
+            logits, c = cached_gpt2_step(decoder, lm, tok, t, c)
+            seen.append(logits)
+            return logits, c
+        out = sample_decode(
+            step, torch.full((memory.shape[0],), GPT2_EOS, device=dev),
+            precompute_gpt2_cache(decoder, memory, mem_mask, GPT2_MAX_LEN),
+            GPT2_MAX_LEN, GPT2_EOS,
+            generator=torch.Generator(device=dev).manual_seed(s),
+            top_k=SAMPLE_TOP_K, top_p=SAMPLE_TOP_P)
+        return out.tokens, seen
+
+    (a, seen), (b, _), (c, _) = sampled(seed), sampled(seed), sampled(seed + 1)
+    check(torch.equal(a, b), "one seed sampled two token sequences")
+    kept = 0
+    rows = torch.arange(a.shape[0], device=dev)
+    for t, logits in enumerate(seen):
+        live = ~(a[:, 1:t + 1] == GPT2_EOS).any(dim=1)
+        ok = top_k_top_p_filter(logits, SAMPLE_TOP_K,
+                                    SAMPLE_TOP_P)[rows, a[:, t + 1]] > -1e8
+        check(bool(ok[live].all()), f"a sampled token at step {t} lies "
+                                    f"outside the filter")
+        kept += int(live.sum())
+    print(f"#   sampling on GPT-2's cached step (top_k {SAMPLE_TOP_K}, top_p "
+          f"{SAMPLE_TOP_P}, a CUDA generator): the same seed gave the same "
+          f"tokens; all {kept} live tokens inside their step's filter; "
+          f"another seed changed {int((a != c).sum())} of {a.numel()} tokens")
+
+
+def phase_k1_generation_shapes(gen, row):
+    """K1 against its plain version at the new callers' shapes (12 heads of
+    64, B=8): the captioner's full re-encode, Sq=Sk=90 under its seq2seq
+    bias (B, 1, 90, 90) and under a random full bias, and the chunker's
+    buckets 32 and 64 with key biases, fp32 and bf16 to phase 2's bounds;
+    then in fp32 (the phase's type) at the greedy and beam shapes (B=8,
+    24) and the chunker's, timed beside the plain version, SDPA (TF32 off)
+    and the bound, with the profiler's device time a launch. Adds `gen_*`
+    keys to K1's row."""
+    L, Li = 40, GEN_REGIONS
+    print("# phase 14: K1 fused_attention vs attention_reference at the "
+          "captioner's (Sq=Sk=90, full bias) and the chunker's (32, 64, key "
+          "bias) shapes, 12 heads of 64")
+
+    def seq2seq_bias(B):
+        # the full re-encode's bias at step 17: captions visible up to 17
+        cap_mask = (torch.arange(L, device="cuda")[None] <= 17).long()
+        return seq2seq_mask(L, Li, cap_mask.expand(GEN_BATCH, L),
+                            region_mask("cuda")).repeat_interleave(
+                                B // GEN_BATCH, 0)
+
+    shapes = (("caption_seq2seq", 90, "seq2seq"), ("caption_full", 90,
+                                                   "BSqSk"),
+              ("chunk32", 32, "B11Sk"), ("chunk64", 64, "B11Sk"))
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, S, kind in shapes:
+            q, k, v, bias = attention_inputs(
+                GEN_BATCH, S, S, dtype, "B11Sk" if kind == "seq2seq"
+                else kind, gen, N=12)
+            if kind == "seq2seq":
+                bias = seq2seq_bias(GEN_BATCH)
+            out = fused_attention(q, k, v, bias, 12)
+            torch.cuda.synchronize()
+            err, share = attention_close(
+                out, attention_reference(q, k, v, bias, 12),
+                f"K1 12x64 {dtype} {name}")
+            print(f"#   {str(dtype)[6:]:8s} {name:16s} max_abs_err="
+                  f"{err:.3e} ({share:.2f} of its bound)")
+    for name, B, S, kind in (("caption_greedy", GEN_BATCH, 90, "seq2seq"),
+                             ("caption_beam", GEN_BATCH * CAPTION_BEAMS, 90,
+                              "seq2seq"),
+                             ("chunk32", GEN_BATCH, 32, "B11Sk"),
+                             ("chunk64", GEN_BATCH, 64, "B11Sk")):
+        q, k, v, bias = attention_inputs(B, S, S, torch.float32, "B11Sk",
+                                         gen, N=12)
+        if kind == "seq2seq":
+            bias = seq2seq_bias(B)
+        err, _ = attention_close(fused_attention(q, k, v, bias, 12),
+                                 attention_reference(q, k, v, bias, 12),
+                                 f"K1 {name}")
+        ms = cuda_time_ms(lambda: fused_attention(q, k, v, bias, 12))
+        device_ms = kernel_device_ms(lambda: fused_attention(q, k, v, bias,
+                                                             12))
+        plain_ms = cuda_time_ms(lambda: attention_reference(q, k, v, bias,
+                                                            12))
+        library_ms = sdpa_ms(q, k, v, bias, 12, 50)
+        bound_ms, bound_by, byts, flops = attention_bound(q, k, bias, 12)
+        shape = f"B={B} Sq=Sk={S} 12x64 float32 bias={kind}"
+        row.update({f"gen_{name}_{key}": val for key, val in (
+            ("shape", shape), ("max_abs_err", err), ("ms", ms),
+            ("device_ms", device_ms), ("plain_ms", plain_ms),
+            ("bound_ms", bound_ms), ("bound_by", bound_by),
+            ("library_ms", library_ms))})
+        print(f"#   {shape}: kernel {ms:.4f} ms (device {device_ms:.4f} ms "
+              f"a launch), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by}: {byts / 1e6:.2f} "
+              f"MB, {flops / 1e9:.3f} GFLOP)")
+
+
+def phase_generation(args, card, dev, gen, row, chunk_cfg=None,
+                     caption_cfg=None, gpt2_cfg=None):
+    """Phase 14, the chunker and generation at full width (see the module
+    docstring; the configurations default to the full ones). Returns the
+    main path's launch counts."""
+    strict_fp32()
+    print("# phase 14: the CoNLL-2000 chunker (chunker_config(): BERT-base, "
+          "12 layers, adapter 48, vocabulary 30522) and the generation stack "
+          "(CaptionConfig(): BERT-base, 2048-d regions, 40 caption tokens, 50 "
+          "regions; GPT2Config(): 12 layers, 768 wide, vocabulary 50257, "
+          "cross-attention over 8 x 50 x 768) at full width, fp32 (TF32 "
+          "off), random weights from --seed")
+    ccfg = caption_cfg or CaptionConfig(encoder=dataclasses.replace(
+        EncoderConfig.bert_base(), use_pallas=True))
+    model = CaptionModel(ccfg, device=dev, seed=args.seed + 15).eval()
+    decoder = GPT2Decoder(gpt2_cfg or GPT2Config(), with_cross=True,
+                          device=dev, seed=args.seed + 16).eval()
+    img = torch.randn(GEN_BATCH, ccfg.max_regions, ccfg.img_feature_dim,
+                      device=dev, generator=gen)
+    img_mask = region_mask(dev, ccfg.max_regions)
+    memory = torch.randn(GEN_BATCH, ccfg.max_regions, decoder.cfg.n_embd,
+                         device=dev, generator=gen)
+    # the main path, driven from counts of 0
+    zero_counts()
+    chunked = phase_chunker(args, dev, chunk_cfg or chunker_config())
+    chunk_counts = read_counts()
+    runs, fsm = decode_runs(model, decoder, img, img_mask, memory)
+    counts = read_counts()
+    check_chunker(card, dev, *chunked, chunk_counts["fused_attention"])
+    del chunked
+    caption_launches = counts["fused_attention"] \
+        - chunk_counts["fused_attention"]
+    want = 2 * (ccfg.max_caption_len - 1) * ccfg.encoder.num_hidden_layers
+    print(f"#   the captioner's full re-encodes launched K1 "
+          f"{caption_launches} times (greedy and beam: "
+          f"{ccfg.encoder.num_hidden_layers} a step); the cached steps, "
+          f"the constrained search and GPT-2 run the plain core")
+    check(dev.type != "cuda" or caption_launches == want,
+          f"the decodes launched K1 {caption_launches} times, not {want}")
+    check(all(c == 0 for n, c in counts.items() if n != "fused_attention"),
+          f"phase 14 launched another kernel: {counts}")
+    # the timed runs: a second pass of every decode
+    runs, _ = decode_runs(model, decoder, img, img_mask, memory)
+    check_decodes(card, model, runs, fsm)
+    err = check_step_logits(model, img, img_mask,
+                            runs["caption greedy"][0].tokens)
+    print(f"#   caption step logits, the cached step against the full "
+          f"re-encode through K1, max_abs_err {err:.3e} over "
+          f"{ccfg.max_caption_len - 1} steps (tol {GEN_LOGITS_TOL:.0e}); "
+          f"on {card}")
+    check_sampling(decoder, memory, img_mask, args.seed)
+    del model, decoder, runs
+    torch.cuda.empty_cache()
+    phase_k1_generation_shapes(gen, row)
+    row["generation_launches"] = counts["fused_attention"]
+    row["launches"] += counts["fused_attention"]
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4249,6 +4695,9 @@ def main(argv=None) -> int:
                               remat_counts["fused_attention"])
         kernels += phase_conv_times(gen, total, conv_errs)
         lap("phase 7")
+        # K1's row (kernels[0]) takes this phase's launches and times
+        gen_counts = phase_generation(args, card, dev, gen, kernels[0])
+        lap("phase 14")
         # last: the older the process, the more of a short profiled
         # call's device records torch.profiler drops (none kept late in
         # it: tools/profiler_probe.py), so the phases that read the
@@ -4257,9 +4706,9 @@ def main(argv=None) -> int:
                                         served)
         phase_k1_local_heads(gen)
         lap("phases 12 and 13")
-        runs += [dp_counts, tp_counts]
+        runs += [gen_counts, dp_counts, tp_counts]
         total = {name: sum(c[name] for c in runs) for name in COUNTERS}
-        print(f"#   kernel launches over the twelve main paths: {total}")
+        print(f"#   kernel launches over the thirteen main paths: {total}")
         # K1's row counts phase 12's and 13's launches too; they launched
         # no other kernel (checked below), so the other rows' counts stand
         k1 = kernels[0]

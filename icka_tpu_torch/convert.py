@@ -26,8 +26,10 @@ tree (`wq` int8 (k*k*Cin, F) tap major, `w_scale`, `fused_bias`, 0-d
 layout, as buffers.
 
 The models' pairs (`icka_state_dict`, `gate_cl_state_dict`,
-`token_classifier_state_dict` and their inverses) differ only in the model
-they name: each model's parameters are one flax collection, "params".
+`token_classifier_state_dict` and their inverses) and the one-way
+`chunk_tagger_state_dict`, `caption_state_dict` and
+`gpt2_decoder_state_dict` differ only in the model they name: each
+model's parameters are one flax collection, "params".
 The inverse (`flax_tree_from_state_dict`, `icka_variables_from_state_dict`,
 `backbone_variables_from_state_dict`, ...) turns a state_dict back into the
 flax trees, `weight` back into `kernel` in (in, out) or HWIO and int8 kept,
@@ -95,6 +97,27 @@ def gate_cl_state_dict(variables: Mapping) -> dict:
 def token_classifier_state_dict(variables: Mapping) -> dict:
     """`TokenClassifier` or `SequenceClassifier` variables {"params": ...}
     -> its state_dict."""
+    return state_dict_from_flax(variables["params"])
+
+
+def chunk_tagger_state_dict(variables: Mapping) -> dict:
+    """`ChunkTagger` variables {"params": ...} (the JAX module's, or
+    {"params": chunker_params_from_torch(...)}) -> its state_dict: the
+    encoder under `bert` with each layer's `ffn.adapter_down` and
+    `ffn.adapter_up`, the tagging `head`."""
+    return state_dict_from_flax(variables["params"])
+
+
+def caption_state_dict(variables: Mapping) -> dict:
+    """`CaptionModel` variables {"params": ...} -> its state_dict, tied or
+    untied (`lm_decoder`); `lm_bias` passes through."""
+    return state_dict_from_flax(variables["params"])
+
+
+def gpt2_decoder_state_dict(variables: Mapping) -> dict:
+    """`GPT2Decoder` variables {"params": ...} -> its state_dict: the
+    tables `wte` and `wpe` pass through, `c_attn`'s (D, 3D) kernel becomes
+    a (3D, D) weight like any Dense."""
     return state_dict_from_flax(variables["params"])
 
 

@@ -69,7 +69,9 @@ class EncoderConfig:
     # softmax dtype of the plain attention core (the kernel path is always
     # fp32 softmax)
     softmax_dtype: str = "float32"
-    # >0 inserts a Pfeiffer adapter in every FFN; not ported yet
+    # >0 inserts a Pfeiffer bottleneck adapter in every self-attention
+    # layer's FFN output sublayer (`nn.attention.FeedForward`), the
+    # CoNLL-2000 chunker's (`models.chunker`: bert-base, 768 / 16 = 48)
     adapter_size: int = 0
 
     @classmethod

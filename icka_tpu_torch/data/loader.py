@@ -67,6 +67,17 @@ class MNERLoader:
             return max(1, len(self.indices) // per_step)
         return (len(self.indices) + per_step - 1) // per_step
 
+    def eval_view(self) -> "MNERLoader":
+        """An evaluation loader over the same features and images: no
+        shuffle, no augmentation, one batch a step, every row (no split
+        across processes), the image cache setting kept."""
+        return MNERLoader(
+            self.features, self.image_dir, self.batch_size, 1, train=False,
+            decode_size=self.decode_size, seed=self.seed,
+            fallback_image=self.fallback_image,
+            cache_images=self._cache is not None,
+            decode_threads=self.decode_threads)
+
     def _path(self, row: int) -> str:
         img_id = self.features.img_ids[row]
         return os.path.join(self.image_dir, img_id) if img_id else ""

@@ -24,14 +24,16 @@ Checkpoint dialects (converted by :mod:`icka_tpu_torch.models.convert`,
   - torchvision ResNet ``.pth`` state dict or a ``resnet.msgpack``
     (:func:`load_backbone`);
   - TF-1.x BERT checkpoint prefix (``model.ckpt.index`` + data shards),
-    read without tensorflow (:func:`load_tf_encoder`).
+    read without tensorflow (:func:`load_tf_encoder`);
+  - an adapter-transformers ``BertModelWithHeads`` directory (the
+    CoNLL-2000 chunker: BERT, Pfeiffer adapters, a tagging head), read by
+    :func:`load_chunker` into a ready `models.chunker.ModelChunker`.
 
 Every loader returns the JAX package's flax-layout trees of numpy arrays,
 the same leaves `icka_tpu`'s loaders return; `icka_tpu_torch.convert`
 (`state_dict_from_flax`, `backbone_state_dict`) carries them into the
-port's modules. These are host functions: they take no device. The JAX
-package's `load_chunker` (an adapter BERT behind `ModelChunker`) is not
-ported: it waits for the adapter and the chunker.
+port's modules. These are host functions: they take no device, except
+`load_chunker`, which returns a model on one.
 """
 
 from __future__ import annotations
@@ -298,6 +300,42 @@ def load_backbone(name_or_path: str,
     if isinstance(sd, dict) and "net" in sd:
         sd = sd["net"]
     return resnet_params_from_torch(sd)
+
+
+def load_chunker(name_or_path: str, cache_dir: Optional[str] = None,
+                 bucket: int = 32, device="cuda", **config_overrides):
+    """Resolve + convert a local `BertModelWithHeads` + adapter checkpoint
+    into a ready `models.chunker.ModelChunker` on `device`: the one-call
+    equivalent of the reference's ``from_pretrained`` + ``load_adapter`` +
+    ``active_adapters`` (`utils/GetChunk_v4_vcr.py:20-23`), from local
+    storage only. The config starts from `chunker_config()`, takes the
+    checkpoint's `config.json` where there is one and the adapter width
+    from the adapter weights; ``config_overrides`` (deployment knobs such
+    as ``use_pallas``) replace fields after that."""
+    from icka_tpu_torch.models.chunker import (ModelChunker, chunker_config,
+                                               chunker_params_from_torch)
+
+    directory = resolve(name_or_path, cache_dir)
+    cfg = chunker_config()
+    cfg_path = os.path.join(directory, CONFIG_NAME)
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            d = json.load(f)
+        cfg = dataclasses.replace(cfg, **{
+            k: d[k] for k in (
+                "vocab_size", "hidden_size", "num_hidden_layers",
+                "num_attention_heads", "intermediate_size",
+                "max_position_embeddings", "type_vocab_size",
+                "layer_norm_eps") if k in d})
+    sd = _load_state_dict(directory)
+    for k, v in sd.items():
+        if ".adapters." in k and "adapter_up" in k and k.endswith("weight"):
+            cfg = dataclasses.replace(cfg, adapter_size=int(v.shape[1]))
+            break
+    params = chunker_params_from_torch(sd, cfg.num_hidden_layers)
+    if config_overrides:
+        cfg = dataclasses.replace(cfg, **config_overrides)
+    return ModelChunker(params, cfg, bucket=bucket, device=device)
 
 
 def tf_encoder_layers(tfvars: dict) -> int:

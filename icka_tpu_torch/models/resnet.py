@@ -446,6 +446,12 @@ class VisualBackbone(nn.Module):
         return fc, fc, att
 
 
+def resnet152(dtype=torch.float32, device="cuda", seed=None) -> VisualBackbone:
+    """The reference's ResNet-152 backbone, stages (3, 8, 36, 3)."""
+    return VisualBackbone(layers=(3, 8, 36, 3), dtype=dtype, device=device,
+                          seed=seed)
+
+
 def resnet_params_from_torch(sd: dict, layers=None) -> dict:
     """torchvision `resnet152.pth` state dict -> the JAX package's
     `VisualBackbone` variables {"params": ..., "batch_stats": ...} (float32

@@ -77,12 +77,6 @@ def dot_product_attention(q, k, v, bias=None, dtype=torch.float32,
     return torch.einsum("bnqk,bknh->bqnh", probs, v.to(dtype))
 
 
-def _check_ported(cfg: EncoderConfig):
-    if cfg.adapter_size > 0:
-        raise NotImplementedError(
-            f"EncoderConfig.adapter_size={cfg.adapter_size!r} is not ported")
-
-
 class MultiHeadAttention(nn.Module):
     """Q/K/V projections around the attention core (self-attention when
     `kv` is None). `use_pallas=True` routes the core through the fused
@@ -193,12 +187,22 @@ class AttentionOutput(nn.Module):
 
 class FeedForward(nn.Module):
     """Intermediate + output FFN with dropout and post-LN residual
-    (BertIntermediate / BertOutput). The Pfeiffer adapter of the JAX module
-    is not ported."""
+    (BertIntermediate / BertOutput).
+
+    `adapter_size > 0` inserts the Pfeiffer bottleneck adapter of the
+    CoNLL-2000 chunker in the output sublayer (adapter-transformers'
+    Pfeiffer config; `adapter_down` and `adapter_up` are float Dense
+    layers whatever `quant` is, as in the JAX module):
+
+        pre = wo(act(wi(x))) + x
+        out = LN(up(relu(down(LN(pre)))) + pre)      # one LN, shared
+
+    A model axis refuses the adapter."""
 
     def __init__(self, hidden: int, intermediate: int, eps: float,
                  act: str = "gelu", dtype=torch.float32, quant: str = "none",
-                 dropout_rate: float = 0.1, device="cuda", generator=None):
+                 dropout_rate: float = 0.1, adapter_size: int = 0,
+                 device="cuda", generator=None):
         super().__init__()
         dev = resolve_device(device)
         gen = generator_for(dev, None, generator)
@@ -209,16 +213,30 @@ class FeedForward(nn.Module):
         self.wo = Dense(intermediate, hidden, dtype=dtype, quant=quant,
                         device=dev, generator=gen)
         self.norm = LayerNorm(hidden, eps=eps, dtype=dtype, device=dev)
+        self.adapter = adapter_size > 0
+        if self.adapter:
+            self.adapter_down = Dense(hidden, adapter_size, dtype=dtype,
+                                      device=dev, generator=gen)
+            self.adapter_up = Dense(adapter_size, hidden, dtype=dtype,
+                                    device=dev, generator=gen)
         self.shard = None
 
     def shard_model_axis(self, shard, specs) -> tuple:
+        if self.adapter:
+            raise NotImplementedError(
+                "a Pfeiffer adapter on a model axis: its layers are not "
+                "split or tested there")
         self.shard = column_row_pair(self.wi, self.wo)
         return ()
 
     def forward(self, x, dropout_gen=None):
         h = self.wi(copy_to_model(x, self.shard))
         h = dropout(self.wo(self.act(h)), self.dropout_rate, dropout_gen)
-        return self.norm(h + x)
+        if not self.adapter:
+            return self.norm(h + x)
+        pre = h + x
+        a = self.adapter_up(torch.relu(self.adapter_down(self.norm(pre))))
+        return self.norm(a + pre)
 
 
 class _AttentionLayer(nn.Module):
@@ -229,7 +247,6 @@ class _AttentionLayer(nn.Module):
     def __init__(self, cfg: EncoderConfig, self_attention: bool,
                  dtype=torch.float32, device="cuda", generator=None):
         super().__init__()
-        _check_ported(cfg)
         dev = resolve_device(device)
         gen = generator_for(dev, None, generator)
         H = cfg.hidden_size
@@ -246,6 +263,7 @@ class _AttentionLayer(nn.Module):
         self.ffn = FeedForward(
             H, cfg.intermediate_size, cfg.layer_norm_eps, dtype=dtype,
             quant=cfg.quant, dropout_rate=cfg.hidden_dropout_prob,
+            adapter_size=cfg.adapter_size if self_attention else 0,
             device=dev, generator=gen)
 
 

@@ -24,8 +24,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_no_jax_in_the_port():
     """Importing the evaluation and training entry points, the optimizer,
-    the data plane, the weight loaders, the host helpers (`utils`) and
-    rematerialisation, the package's lazy attributes,
+    the data plane, the weight loaders, the host helpers (`utils`),
+    rematerialisation, the generation stack, the captioner, GPT-2 and the
+    chunker, the package's lazy attributes,
     then every module of icka_tpu_torch, pulls in no jax, flax, optax or
     icka_tpu, and none of regex, msgpack, PIL, safetensors, transformers or
     tensorflow, which the card's machine lacks. A fresh interpreter: this
@@ -35,7 +36,10 @@ def test_no_jax_in_the_port():
         "for m in ('cli.evaluate', 'data.loader', 'data.features', "
         "'data.tokenization', 'core.checkpoint', 'train.trainer', "
         "'train.optimizer', 'cli.train', 'models.pretrained', "
-        "'models.tf_convert', 'cli.convert', 'utils', 'nn.remat'):\n"
+        "'models.tf_convert', 'cli.convert', 'utils', 'nn.remat', "
+        "'generation', 'generation.constrained', 'generation.kv_cache', "
+        "'generation.gpt2_cache', 'models.chunker', 'models.captioning', "
+        "'models.gpt2', 'data.chunking'):\n"
         "    importlib.import_module('icka_tpu_torch.' + m)\n"
         "import icka_tpu_torch\n"
         "for name in icka_tpu_torch._LAZY: getattr(icka_tpu_torch, name)\n"

@@ -244,9 +244,14 @@ def test_inputs_embeds_of_the_word_embeddings_is_the_id_path(text_encoder):
 
 
 def test_unported_options_raise():
+    """The Pfeiffer adapter builds (`tests/test_torch_chunker.py` holds it
+    to JAX) and is refused on a model axis; an unknown quant mode
+    raises."""
     tc = dataclasses.replace(TEncoderConfig.tiny(), adapter_size=8)
+    ffn = tattn.SelfAttentionLayer(tc, device=CPU).ffn
+    assert tuple(ffn.adapter_down.weight.shape) == (8, tc.hidden_size)
     with pytest.raises(NotImplementedError):
-        tattn.SelfAttentionLayer(tc, device=CPU)
+        ffn.shard_model_axis(None, {})
     with pytest.raises(ValueError):
         tattn.SelfAttentionLayer(
             dataclasses.replace(TEncoderConfig.tiny(), quant="int4"),
