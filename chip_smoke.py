@@ -179,6 +179,30 @@ Phases; any failure exits non-zero:
      `kernels` line; 0 in the steps). Then K1 against its plain version
      at a rank's 8 heads of 64 (S=150 key bias, S=172 full bias, and the
      evaluation's 128 and 172, fp32 and bf16);
+ 15. ChunkAlign and the VCR plane at full width (after 14, before 12),
+     fp32 with TF32 off, random weights from `--seed`: `ChunkAlignConfig()`
+     (BERT-base with K1, 2048-d regions, max_hypo 50, chunk /
+     cross-chunk / cross-modal layers 0-2 / 3-8 / 9-11, 4 choices) on 4
+     questions x 4 choices with 50 regions: `ChunkAlignCLS` eval and
+     train-mode forwards through K1 against the plain core on the same
+     weights (scores and losses within 1e-4, predictions equal, K1 12 a
+     call), one backward with dropout (the plain core), every gradient
+     finite; the history KV-concat on its `GlobalVLEncoder` through K1 (Sk
+     = 103 and 150: a masked zero history within 1e-5 of none, a visible
+     one moving it); `ChunkAlignRationale` with GPT-2 small: `generate`
+     against the cached greedy engine, a ragged-prompt full recompute
+     against the cached one (tokens identical), beam with a
+     `rationale_bonus_mask`, constrained search whose best beams hold both
+     words, ms a decode step; `GPT2Captioner` greedy and 3-beam through K1
+     and on the plain core (tokens identical, step logits within 1e-4);
+     one forward each of the baselines (both memory modes), the three
+     Oscar heads, `EnsembleRefiner` and `AbstractSpecificGate` through K1
+     against the plain core (1e-4); the task plane from files it writes
+     (VCR json, a region-feature pickle and TSV read back bit-equal,
+     `VCRQAProcessor`, `convert_vl_examples`, `OscarMultipleChoice`,
+     `itm_eval` on the card's scores). Then K1 against its plain version
+     at B=16, Sq=100 against Sk=100, 103 and 150 in fp32 and bf16, timed
+     in fp32; its launches go into K1's row;
  14. the chunker and generation at full width (after 7, before 12), fp32
      with TF32 off, random weights from `--seed`: a CoNLL-2000 chunker
      checkpoint (`chunker_config()`: BERT-base, a Pfeiffer adapter of 48
@@ -227,6 +251,7 @@ import json
 import math
 import multiprocessing
 import os
+import pickle
 import re
 import shutil
 import struct
@@ -260,6 +285,9 @@ from icka_tpu_torch.data.images import preprocess_images
 from icka_tpu_torch.data.labels import label_map
 from icka_tpu_torch.data.loader import MNERLoader
 from icka_tpu_torch.data.synthetic import generate_dataset, tiny_tokenizer
+from icka_tpu_torch.data.task_processors import (VCRQAProcessor, VLInstance,
+                                                 convert_vl_examples)
+from icka_tpu_torch.evaluation.retrieval import itm_eval
 from icka_tpu_torch.generation.constrained import (
     constrained_beam_search, fsm_from_constraints,
     select_best_beam_with_constraints)
@@ -289,7 +317,19 @@ from icka_tpu_torch.models.convert import (calibration_amax,
                                            static_quantize_backbone,
                                            static_quantize_params_like)
 from icka_tpu_torch.models.gate_cl import GateCLModel
-from icka_tpu_torch.models.gpt2 import GPT2Config, GPT2Decoder
+from icka_tpu_torch.models.chunkalign import (ChunkAlignConfig,
+                                              ChunkAlignRationale,
+                                              choose_row, generate_rationale,
+                                              rationale_bonus_mask)
+from icka_tpu_torch.models.chunkalign_baselines import (BaselineCLS,
+                                                        BaselineRationale,
+                                                        EnsembleRefiner)
+from icka_tpu_torch.models.ensemble import AbstractSpecificGate
+from icka_tpu_torch.models.gpt2 import (GPT2Captioner, GPT2Config,
+                                        GPT2Decoder, generate_gpt2_captions)
+from icka_tpu_torch.models.oscar import (ImageBertPreTraining,
+                                         ImageBertSequenceClassifier,
+                                         OscarMultipleChoice)
 from icka_tpu_torch.models.icka import ICKAModel
 from icka_tpu_torch.models.pretrained import (load_backbone, load_chunker,
                                               load_text_encoder,
@@ -300,6 +340,7 @@ from icka_tpu_torch.models.resnet import (Bottleneck, ConvBN, StemPoolS2D,
 from icka_tpu_torch.models.tf_convert import (encoder_params_to_tf,
                                               write_tf_checkpoint)
 from icka_tpu_torch.models.token_classifier import TokenClassifier
+from icka_tpu_torch.nn.attention import MultiHeadAttention
 from icka_tpu_torch.nn.crf import CRF
 from icka_tpu_torch.nn.quant import column_major, int8_matmul
 from icka_tpu_torch.parallel.partitioning import moment_slices
@@ -310,6 +351,7 @@ from icka_tpu_torch.serving.packing import (PackedGateCLServer,
                                             PackedICKAServer)
 from icka_tpu_torch.train.gate_cl_trainer import GateCLTrainer
 from icka_tpu_torch.train.trainer import ICKATrainer, _seed
+from icka_tpu_torch.utils.tsv_file import TSVFile, tsv_writer
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -4621,6 +4663,569 @@ def phase_generation(args, card, dev, gen, row, chunk_cfg=None,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: ChunkAlign and the VCR plane at full width
+# ---------------------------------------------------------------------------
+
+VCR_QUESTIONS, VCR_REGIONS, VCR_CHUNK_WORDS = 4, 50, 5
+VCR_PROMPT, VCR_GEN, VCR_BEAMS = 6, 20, 3
+VCR_PROMPT_LENS = (6, 4, 5, 3)          # ragged rationale prompts
+VCR_HISTORY = (3, 50)                   # history rows: Sk = 103 and 150
+CAPTION_IMAGES, CAPTION_TEXT, CAPTION_LEN = 4, 50, 20
+# K1 against the plain core on one model's weights in fp32 (TF32 off):
+# scores, losses and logits (phase 14's bound); a zero history under mask
+# 0 changes each softmax only by exp(-10000) terms and the order of sums
+VCR_TOL, HISTORY_ID_TOL = 1e-4, 1e-5
+VCR_DIR = WORK_DIR / "vcr"
+
+
+@contextlib.contextmanager
+def plain_core(model):
+    """`model`'s K1 self-attention layers on the plain core inside the
+    block, on the same weights."""
+    flipped = [m for m in model.modules()
+               if isinstance(m, MultiHeadAttention) and m.use_pallas]
+    for m in flipped:
+        m.use_pallas = False
+    try:
+        yield
+    finally:
+        for m in flipped:
+            m.use_pallas = True
+
+
+def k1_delta(fn):
+    """(fn's result, K1 launches it made)."""
+    before = fused_attention.launches
+    out = fn()
+    return out, fused_attention.launches - before
+
+
+def vcr_inputs(cfg, dev, gen, rng):
+    """VCR_QUESTIONS questions x num_choices answer rows: BERT ids of
+    ragged length (CLS first), chunks of VCR_CHUNK_WORDS tokens (padding
+    in the dead chunk), the last 3 x (row % 4) regions masked, one gold
+    choice a question and three supervised align positions a row."""
+    C, Lh, Li = cfg.num_choices, cfg.max_hypo, VCR_REGIONS
+    rows = VCR_QUESTIONS * C
+    dead = -(-Lh // VCR_CHUNK_WORDS)
+    ids = np.zeros((rows, Lh), np.int64)
+    mask = np.zeros((rows, Lh + Li), np.int64)
+    gidx = np.full((rows, Lh), dead, np.int64)
+    cm = np.zeros((rows, Lh, Lh), np.int64)
+    for r, n in enumerate(rng.integers(Lh // 2, Lh + 1, rows)):
+        ids[r, 0] = BERT_CLS
+        ids[r, 1:n] = rng.integers(BERT_SEP + 1, cfg.encoder.vocab_size,
+                                   n - 1)
+        mask[r, :n] = 1
+        mask[r, Lh:Lh + Li - 3 * (r % 4)] = 1
+        gidx[r, :n] = np.arange(n) // VCR_CHUNK_WORDS
+        cm[r, :n, :n] = gidx[r, :n, None] == gidx[r, None, :n]
+    label = np.zeros(rows, np.int64)
+    label[np.arange(VCR_QUESTIONS) * C + np.arange(VCR_QUESTIONS) % C] = 1
+    align_pos = np.zeros((rows, Lh), np.int64)
+    align_pos[:, 1:4] = 1
+    total_label = rng.integers(0, Li - 9, (rows, Lh))
+
+    def t(x):
+        return torch.from_numpy(x).to(dev)
+    enc = dict(input_ids=t(ids),
+               img_feats=torch.randn(rows, Li, cfg.img_feature_dim,
+                                     device=dev, generator=gen),
+               input_mask=t(mask), chunk_mask=t(cm), gather_index=t(gidx),
+               num_chunks=dead + 1)
+    return enc, t(label), t(align_pos), t(total_label)
+
+
+def close_all(got, want, what, tol=VCR_TOL):
+    """Max abs difference of two nests of tensors, checked against tol."""
+    if isinstance(got, torch.Tensor):
+        err = (got.float() - want.float()).abs().max().item() \
+            if got.numel() else 0.0
+    else:
+        err = max(close_all(g, w, what, tol) for g, w in zip(got, want))
+    check(err <= tol, f"{what}: K1 vs the plain core differ by {err} > {tol}")
+    return err
+
+
+def check_chunkalign_cls(card, dev, core, enc, label, align_pos,
+                         total_label):
+    """ChunkAlignCLS eval and train-mode forwards through K1 against the
+    plain core (scores, losses within VCR_TOL, predictions equal; K1 12 a
+    call), then one backward with dropout (the plain core), every gradient
+    finite."""
+    sup = (label, align_pos, total_label)
+    layers = core.cfg.encoder.num_hidden_layers
+    with torch.no_grad():
+        (pred, scores), n_eval = k1_delta(lambda: core(**enc))
+        train, n_train = k1_delta(lambda: core(**enc, label=label,
+                                               align_pos=align_pos,
+                                               total_label=total_label))
+        with plain_core(core):
+            want_pred, want_scores = core(**enc)
+            want_train = core(**enc, label=label, align_pos=align_pos,
+                              total_label=total_label)
+    check(dev.type != "cuda" or n_eval == n_train == layers,
+          f"ChunkAlignCLS launched K1 {n_eval} and {n_train} times, not "
+          f"{layers} a call")
+    check(torch.equal(pred, want_pred), "ChunkAlignCLS predictions differ")
+    err = close_all((scores, train[0], train[2]),
+                    (want_scores, want_train[0], want_train[2]),
+                    "ChunkAlignCLS")
+    check(torch.equal(train[1], want_train[1])
+          and train[3].item() == want_train[3].item(),
+          "ChunkAlignCLS matched / align hits differ")
+    ms = {}
+    for name, ctx in (("K1", contextlib.nullcontext()),
+                      ("plain", plain_core(core))):
+        with ctx, torch.no_grad():
+            core(**enc)
+            sync(dev)
+            _, secs = timed(lambda: (core(**enc), sync(dev)))
+        ms[name] = secs * 1e3
+    gen = torch.Generator(device=dev).manual_seed(15)
+    cls_loss, _, align_loss, _, _ = core(**enc, label=label,
+                                         align_pos=align_pos,
+                                         total_label=total_label,
+                                         dropout_gen=gen)
+    _, back_s = timed(lambda: ((cls_loss + align_loss).backward(),
+                               sync(dev)))
+    grads = [p.grad for p in core.parameters()]
+    finite = all(g is not None and bool(torch.isfinite(g).all())
+                 for g in grads)
+    check(finite, "ChunkAlignCLS: a gradient is missing or not finite")
+    core.zero_grad(set_to_none=True)
+    print(f"#   ChunkAlignCLS ({sum(p.numel() for p in core.parameters())}"
+          f" parameters) on {enc['input_ids'].shape[0]} rows: scores and "
+          f"losses K1 vs plain core max_abs_err {err:.3e} (tol "
+          f"{VCR_TOL:.0e}), predictions equal {pred.tolist()}, cls_loss "
+          f"{train[0].item():.6f}, align_loss {train[2].item():.6f}; K1 "
+          f"{n_eval} launches a call; eval forward {ms['K1']:.2f} ms "
+          f"(plain core {ms['plain']:.2f} ms); one backward with dropout "
+          f"(plain core) {back_s * 1e3:.1f} ms, all {len(grads)} gradients "
+          f"finite; on {card}")
+
+
+def check_history(card, dev, enc_model, enc, gen):
+    """The history KV-concat on GlobalVLEncoder through K1: a zero history
+    under mask 0 is the identity, a visible one moves the output."""
+    ids, img, mask = enc["input_ids"], enc["img_feats"], enc["input_mask"]
+    B, H = ids.shape[0], enc_model.cfg.encoder.hidden_size
+    n = enc_model.cfg.encoder.num_hidden_layers
+    with torch.no_grad():
+        base, _ = enc_model(ids, img, mask)
+        counts, errs, moved = [], [], []
+        for Sh in VCR_HISTORY:
+            zeros = [torch.zeros(B, Sh, H, device=dev)] * n
+            (seq0, _), c = k1_delta(lambda: enc_model(
+                ids, img, mask, history_states=zeros,
+                history_mask=torch.zeros(B, Sh, dtype=torch.long,
+                                         device=dev)))
+            seen = [torch.randn(B, Sh, H, device=dev, generator=gen)] * n
+            seq1, _ = enc_model(ids, img, mask, history_states=seen,
+                                history_mask=torch.ones(
+                                    B, Sh, dtype=torch.long, device=dev))
+            counts.append(c)
+            errs.append((seq0 - base).abs().max().item())
+            moved.append((seq1 - base).abs().max().item())
+    check(max(errs) <= HISTORY_ID_TOL, f"a masked zero history moved the "
+                                       f"encoder by {max(errs)}")
+    check(min(moved) > 1e-3, f"a visible history moved it only {moved}")
+    check(dev.type != "cuda" or all(c == n for c in counts),
+          f"the history forwards launched K1 {counts} times")
+    print(f"#   history KV-concat on GlobalVLEncoder through K1 (Sq = "
+          f"{ids.shape[1] + img.shape[1]}, Sk = Sq + {list(VCR_HISTORY)}): "
+          f"masked zero history max_abs_err {max(errs):.3e} against none "
+          f"(tol {HISTORY_ID_TOL:.0e}); a visible history moves it by "
+          f"{min(moved):.3f} or more; K1 {counts} launches")
+
+
+def rationale_full_step(model, memory, mem_mask):
+    """The rationale's full-recompute step: the decoder over the token
+    buffer (positions after t masked), `lm_head` at t."""
+    def step(tok, cache, t):
+        buf = cache["tokens"].clone()
+        buf[:, t] = tok
+        pos = torch.arange(buf.shape[1], device=buf.device)[None]
+        hidden = model.dec(buf, (pos <= t).expand_as(buf).long(),
+                           cache["memory"], cache["memory_mask"])
+        return model.lm_head(hidden[:, t].float()), {**cache, "tokens": buf}
+    return step, {"tokens": torch.zeros(memory.shape[0], VCR_PROMPT + VCR_GEN,
+                                        dtype=torch.long,
+                                        device=memory.device),
+                  "memory": memory, "memory_mask": mem_mask}
+
+
+def check_rationale(card, dev, model, enc, rng):
+    """ChunkAlignRationale's decodes: the full-recompute `generate` and the
+    cached greedy engine at one prompt length, the full recompute and the
+    cache with ragged prompts (identical tokens); beam with the bonus mask
+    of the predicted rows' CLS attention; constrained search over two
+    one-token words, every best beam holding both."""
+    V, Bq = model.gpt2_cfg.vocab_size, VCR_QUESTIONS
+    prompt = torch.from_numpy(rng.integers(
+        0, min(V, GPT2_EOS) - 1, (Bq, VCR_PROMPT))).to(dev)
+    plen = torch.tensor(VCR_PROMPT_LENS, device=dev)
+    kw = dict(max_gen_len=VCR_GEN, eos_id=GPT2_EOS)
+    steps = VCR_PROMPT + VCR_GEN - 1
+    secs = {}
+
+    def run(name, fn):
+        out, secs[name] = timed(lambda: (fn(), sync(dev))[0])
+        return out
+    full, pred = run("full recompute", lambda: model.generate(
+        **enc, prompt_ids=prompt, **kw))
+    cached, pred_c = run("greedy cached", lambda: generate_rationale(
+        model, enc, prompt, VCR_PROMPT, mode="greedy", **kw))
+    check(torch.equal(full, cached) and torch.equal(pred, pred_c),
+          f"rationale: the cached greedy tokens differ from generate's at "
+          f"{first_divergence(full, cached)}")
+    _, memory, mem_mask, cls_attn = model.encode_for_generation(**enc)
+    step, cache = rationale_full_step(model, memory, mem_mask)
+    ragged_full = run("ragged full recompute", lambda: greedy_decode(
+        step, prompt[:, 0], cache, VCR_PROMPT + VCR_GEN, GPT2_EOS,
+        forced=prompt, forced_len=plen).tokens)
+    ragged = run("ragged greedy cached", lambda: generate_rationale(
+        model, enc, prompt, plen, mode="greedy", **kw)[0])
+    check(torch.equal(ragged_full, ragged),
+          f"rationale: ragged cached tokens differ from the full "
+          f"recompute's at {first_divergence(ragged_full, ragged)}")
+    for b, n in enumerate(VCR_PROMPT_LENS):
+        check(torch.equal(ragged[b, :n], prompt[b, :n]),
+              "rationale: a ragged prompt was not kept")
+    hypo = choose_row(enc["input_ids"], pred, model.cfg.num_choices)
+    enc_to_dec = rng.integers(0, V, model.cfg.encoder.vocab_size)
+    bonus = rationale_bonus_mask(cls_attn.cpu().numpy(), hypo.cpu().numpy(),
+                                 V, enc_to_dec, stop_ids=(BERT_CLS, BERT_SEP))
+    beam = run("beam cached", lambda: generate_rationale(
+        model, enc, prompt, plen, mode="beam", num_beams=VCR_BEAMS,
+        bonus_mask=bonus, bonus_factor=0.5, **kw)[0])
+    check(all(torch.equal(beam[b, :n], prompt[b, :n])
+              for b, n in enumerate(VCR_PROMPT_LENS)),
+          "rationale beam: a prompt was not kept")
+    fsm = fsm_from_constraints([[w] for w in CBS_WORDS], V)
+    cons = run("constrained cached", lambda: generate_rationale(
+        model, enc, prompt, plen, mode="constrained", fsm=fsm,
+        beams_per_state=CBS_BEAMS, **kw)[0])
+    held = [all(w in row[n:] for w in CBS_WORDS)
+            for row, n in zip(cons.tolist(), VCR_PROMPT_LENS)]
+    check(all(held), f"constrained rationale: best beams hold both words "
+                     f"{held}")
+    per_step = ", ".join(f"{k} {v * 1e3 / steps:.2f}"
+                         for k, v in secs.items())
+    print(f"#   ChunkAlignRationale (GPT2Config(), memory "
+          f"{tuple(memory.shape)}), {Bq} questions, prompts "
+          f"{list(VCR_PROMPT_LENS)}, {VCR_GEN} new tokens: generate == "
+          f"cached greedy, ragged full recompute == ragged cached greedy "
+          f"(tokens identical); beam x{VCR_BEAMS} with a bonus mask of "
+          f"{int(bonus.sum())} words; constrained ({fsm.num_states} states x "
+          f"{CBS_BEAMS} beams, words {list(CBS_WORDS)}): {sum(held)} of "
+          f"{len(held)} best beams hold both; ms a decode step: {per_step}; "
+          f"on {card}")
+
+
+def check_captioner(card, dev, model, gen):
+    """GPT2Captioner: greedy and 3-beam captions with the encoder through
+    K1 and on the plain core, tokens identical; the step logits of the
+    greedy tokens within VCR_TOL."""
+    enc_cfg = model.cfg.encoder
+    L, Li = CAPTION_TEXT, VCR_REGIONS
+    ids = torch.randint(BERT_SEP + 1, enc_cfg.vocab_size,
+                        (CAPTION_IMAGES, L), device=dev, generator=gen)
+    ids[:, 0] = BERT_CLS
+    img = torch.randn(CAPTION_IMAGES, Li, model.cfg.img_feature_dim,
+                      device=dev, generator=gen)
+    mask = torch.cat([torch.ones(CAPTION_IMAGES, L, dtype=torch.long,
+                                 device=dev),
+                      region_mask(dev, Li)[:CAPTION_IMAGES]], dim=1)
+    out, secs, launches = {}, {}, 0
+    for mode, kw in (("greedy", {}), ("beam", {"num_beams": VCR_BEAMS})):
+        for core in ("K1", "plain"):
+            ctx = contextlib.nullcontext() if core == "K1" \
+                else plain_core(model)
+            with ctx:
+                (res, secs[mode, core]), n = k1_delta(lambda: timed(
+                    lambda: (generate_gpt2_captions(
+                        model, ids, img, mask, BERT_CLS, GPT2_EOS,
+                        CAPTION_LEN, mode, **kw), sync(dev))[0]))
+            out[mode, core] = res
+            launches += n
+        where = first_divergence(out[mode, "K1"].tokens,
+                                 out[mode, "plain"].tokens)
+        check(where is None, f"captioner {mode}: tokens through K1 and the "
+                             f"plain core differ at {where}")
+    tokens = out["greedy", "K1"].tokens
+    with torch.no_grad():
+        memory, _ = model.encode(ids, img, mask)
+        with plain_core(model):
+            plain_memory, _ = model.encode(ids, img, mask)
+        err = max((model.decode_step(tokens, memory, mask, t)
+                   - model.decode_step(tokens, plain_memory, mask, t))
+                  .abs().max().item() for t in range(CAPTION_LEN - 1))
+    check(err <= VCR_TOL, f"captioner step logits differ by {err}")
+    check(dev.type != "cuda" or launches == 2 * enc_cfg.num_hidden_layers,
+          f"the captions launched K1 {launches} times")
+    steps = CAPTION_LEN - 1
+    print(f"#   GPT2Captioner (BERT-base encoder through K1, GPT-2 small), "
+          f"{CAPTION_IMAGES} images of {L} tokens + {Li} regions, "
+          f"{CAPTION_LEN} tokens: greedy and {VCR_BEAMS}-beam tokens "
+          f"identical K1 vs plain core, step logits max_abs_err {err:.3e} "
+          f"(tol {VCR_TOL:.0e}); ms a decode step (full recompute) "
+          + ", ".join(f"{m} {c} {v * 1e3 / steps:.2f}"
+                      for (m, c), v in secs.items())
+          + f"; K1 {launches} launches (one encode a decode); on {card}")
+
+
+def write_vcr_files(cfg, rng):
+    """A small VCR-format json (one question per image, four choices, a
+    gold label, objects) in synthetic words, a pickle of each image's
+    region features, and the features again as TSV rows (key, shape, hex
+    of float32 bytes)."""
+    VCR_DIR.mkdir(parents=True, exist_ok=True)
+    words = synthetic.VOCAB_WORDS
+    feats, rows = {}, []
+    for q in range(VCR_QUESTIONS):
+        def sentence(n):
+            return " ".join(rng.choice(words, n))
+        rows.append({"q": sentence(8), "label": int(q % cfg.num_choices),
+                     "choices": [sentence(int(rng.integers(4, 9)))
+                                 for _ in range(cfg.num_choices)],
+                     "img_id": f"vcr{q}", "annot_id": f"train-{q}",
+                     "objects": ["person", "dog"]})
+        feats[f"vcr{q}"] = rng.standard_normal(
+            (VCR_REGIONS - 2 * q, cfg.img_feature_dim)).astype(np.float32)
+    (VCR_DIR / VCRQAProcessor.train_file).write_text(json.dumps(rows))
+    with open(VCR_DIR / "features.pkl", "wb") as f:
+        pickle.dump(feats, f)
+    tsv_writer(([k, ",".join(map(str, v.shape)), v.tobytes().hex()]
+                for k, v in feats.items()), str(VCR_DIR / "features.tsv"))
+
+
+def vcr_task_plane(cfg, dev):
+    """The files through `VCRQAProcessor`, the pickle, `TSVFile` (read
+    back bit-equal) and `convert_vl_examples` into (B, C, ...) tensors on
+    `dev`, a row per (question, choice)."""
+    examples = VCRQAProcessor().get_train_examples(str(VCR_DIR))
+    with open(VCR_DIR / "features.pkl", "rb") as f:
+        feats = pickle.load(f)
+    tsv = TSVFile(str(VCR_DIR / "features.tsv"))
+    for i in range(len(tsv)):
+        key, shape, data = tsv[i]
+        back = np.frombuffer(bytes.fromhex(data), np.float32).reshape(
+            tuple(int(x) for x in shape.split(",")))
+        check(back.tobytes() == feats[key].tobytes(),
+              f"TSV features of {key} read back differently")
+    tsv.close()
+    pairs = [VLInstance(guid=f"{ex.guid}-{c}", text_a=ex.text_a,
+                        text_b=choice, label=int(c == ex.label),
+                        img_key=ex.img_key, q_id=ex.q_id)
+             for ex in examples for c, choice in enumerate(ex.text_b)]
+    tok = tiny_tokenizer(str(VCR_DIR / "tokenizer"))
+    f = convert_vl_examples(pairs, feats, [0, 1], VCR_REGIONS,
+                            cfg.max_hypo, tok)
+    C = cfg.num_choices
+
+    def t(x):
+        x = torch.from_numpy(x).to(dev)
+        return x.reshape((-1, C) + tuple(x.shape[1:]))
+    return (t(f.input_ids).long(), t(f.img_feats), t(f.input_mask).long(),
+            t(f.segment_ids).long(), t(f.label).long()), len(tsv)
+
+
+def check_heads(card, dev, cfg, gpt2_cfg, enc, label, align_pos,
+                total_label, rng, seed):
+    """One forward each through K1 against the plain core (VCR_TOL): the
+    baselines (both memory modes), the Oscar heads (the multiple-choice
+    head on the task plane's files), the ensemble refiner and the
+    abstract/specific gate; then `itm_eval` on a score matrix made on the
+    card. Returns the K1 launches of the K1 forwards."""
+    write_vcr_files(cfg, rng)
+    (mc_ids, mc_img, mc_mask, mc_types, mc_label), n_tsv = \
+        vcr_task_plane(cfg, dev)
+    shutil.rmtree(VCR_DIR)
+    ids, img, mask = enc["input_ids"], enc["img_feats"], enc["input_mask"]
+    expl = torch.from_numpy(rng.integers(
+        0, min(gpt2_cfg.vocab_size, GPT2_EOS), (ids.shape[0], 24))).to(dev)
+    attn = torch.ones_like(expl)
+    mlm = torch.full(ids.shape, -1, dtype=torch.long, device=dev)
+    mlm[:, 2:5] = ids[:, 2:5]
+    nsp = label.clone()
+    errs, launches = {}, 0
+
+    def both(name, model, fn):
+        nonlocal launches
+        with torch.no_grad():
+            got, n = k1_delta(lambda: fn(model))
+            with plain_core(model):
+                want = fn(model)
+        launches += n
+        check(dev.type != "cuda" or n == cfg.encoder.num_hidden_layers,
+              f"{name} launched K1 {n} times")
+        errs[name] = close_all(got, want, name)
+        return got
+    base_cls = BaselineCLS(cfg, device=dev, seed=seed).eval()
+    pred, scores = both("BaselineCLS", base_cls,
+                        lambda m: m(ids, img, mask))
+    both("BaselineCLS train", base_cls, lambda m: m(ids, img, mask, label))
+    with torch.no_grad():
+        pooled = base_cls.oscar(ids, img, mask)[1]
+    del base_cls
+    rat = BaselineRationale(cfg, gpt2_cfg=gpt2_cfg, device=dev,
+                            seed=seed + 1).eval()
+    for hypo_only in (False, True):
+        rat.hypo_only_memory = rat.freeze_encoder = hypo_only
+        both(f"BaselineRationale hypo_only={hypo_only}", rat,
+             lambda m: m(ids, img, mask, expl, attn, label)[:2])
+    del rat
+    seq_cls = ImageBertSequenceClassifier(cfg, num_labels=3,
+                                          classifier="mlp", device=dev,
+                                          seed=seed + 2).eval()
+    both("ImageBertSequenceClassifier", seq_cls,
+         lambda m: m(ids, img, mask, labels=label))
+    del seq_cls
+    mc = OscarMultipleChoice(cfg, device=dev, seed=seed + 3).eval()
+    mc_loss, mc_scores = both(
+        "OscarMultipleChoice (task plane)", mc,
+        lambda m: m(mc_ids, mc_img, mc_mask, mc_types, labels=mc_label))
+    del mc
+    pre = ImageBertPreTraining(cfg, device=dev, seed=seed + 4).eval()
+    both("ImageBertPreTraining", pre,
+         lambda m: m(ids, img, mask, masked_lm_labels=mlm,
+                     next_sentence_label=nsp)[:3])
+    del pre
+    refiner = EnsembleRefiner(cfg, device=dev, seed=seed + 5).eval()
+    gate = AbstractSpecificGate(cfg.encoder.hidden_size, device=dev,
+                                seed=seed + 6)
+    C = cfg.num_choices
+
+    def refine(m):
+        # each question's first row: the refined CLS as the abstract
+        # scorer's feature, the baseline's pooled CLS as the specific one
+        cls, align = m(**enc, align_pos=align_pos, total_label=total_label)
+        return cls, align, gate(cls[::C], pooled[::C], scores,
+                                scores.flip(-1))
+    both("EnsembleRefiner + AbstractSpecificGate", refiner, refine)
+    del refiner
+    probs = torch.softmax(mc_scores.float(), dim=-1)[..., 1]
+    sim = probs.cpu().numpy()
+    gold = mc_label.argmax(-1).cpu().numpy()
+    metrics = itm_eval(sim, txt2img_gold=gold)
+    check(all(0.0 <= metrics[k] <= 1.0 for k in ("txt_r1", "img_r1",
+                                                 "r_mean"))
+          and torch.isfinite(mc_loss).item(),
+          f"itm_eval on the card's scores gave {metrics}")
+    print(f"#   heads through K1 vs the plain core, max_abs_err: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol {VCR_TOL:.0e}); K1 {cfg.encoder.num_hidden_layers} a "
+          f"forward")
+    print(f"#   task plane: {VCR_QUESTIONS} VCR questions from json and "
+          f"{n_tsv} region-feature rows from pickle and TSV (bit-equal) "
+          f"through VCRQAProcessor and convert_vl_examples into "
+          f"OscarMultipleChoice {tuple(mc_ids.shape)}: loss "
+          f"{mc_loss.item():.6f}; itm_eval on its (question x choice) "
+          f"scores: txt_r1 {metrics['txt_r1']:.3f}, r_mean "
+          f"{metrics['r_mean']:.3f}; on {card}")
+    return launches
+
+
+def phase_k1_vcr_shapes(gen, row):
+    """K1 against its plain version at the VCR plane's shapes (12 heads of
+    64, B=16): Sq=Sk=100 with the joint key bias, and Sq=100 against
+    Sk=103 and 150 (the history KV-concat), fp32 and bf16 to phase 2's
+    bounds; timed in fp32 beside its plain version, SDPA (TF32 off) and
+    its bound, with the profiler's device time a launch. Adds `vcr_*` keys
+    to K1's row."""
+    B = VCR_QUESTIONS * 4
+    print("# phase 15: K1 fused_attention vs attention_reference at the VCR "
+          "plane's shapes, 12 heads of 64, B=16")
+    shapes = (("joint", 100, 100), ("history3", 100, 103),
+              ("history50", 100, 150))
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, Sq, Sk in shapes:
+            q, k, v, bias = attention_inputs(B, Sq, Sk, dtype, "B11Sk", gen,
+                                             N=12)
+            err, share = attention_close(
+                fused_attention(q, k, v, bias, 12),
+                attention_reference(q, k, v, bias, 12),
+                f"K1 12x64 {dtype} {name}")
+            print(f"#   {str(dtype)[6:]:8s} {name:10s} Sq={Sq} Sk={Sk} "
+                  f"max_abs_err={err:.3e} ({share:.2f} of its bound)")
+    for name, Sq, Sk in shapes:
+        q, k, v, bias = attention_inputs(B, Sq, Sk, torch.float32, "B11Sk",
+                                         gen, N=12)
+        err, _ = attention_close(fused_attention(q, k, v, bias, 12),
+                                 attention_reference(q, k, v, bias, 12),
+                                 f"K1 {name}")
+        ms = cuda_time_ms(lambda: fused_attention(q, k, v, bias, 12))
+        device_ms = kernel_device_ms(lambda: fused_attention(q, k, v, bias,
+                                                             12))
+        plain_ms = cuda_time_ms(lambda: attention_reference(q, k, v, bias,
+                                                            12))
+        library_ms = sdpa_ms(q, k, v, bias, 12, 50)
+        bound_ms, bound_by, byts, flops = attention_bound(q, k, bias, 12)
+        shape = f"B={B} Sq={Sq} Sk={Sk} 12x64 float32 key bias"
+        row.update({f"vcr_{name}_{key}": val for key, val in (
+            ("shape", shape), ("max_abs_err", err), ("ms", ms),
+            ("device_ms", device_ms), ("plain_ms", plain_ms),
+            ("bound_ms", bound_ms), ("bound_by", bound_by),
+            ("library_ms", library_ms))})
+        print(f"#   {shape}: kernel {ms:.4f} ms (device {device_ms:.4f} ms "
+              f"a launch), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by}: {byts / 1e6:.2f} "
+              f"MB, {flops / 1e9:.3f} GFLOP)")
+
+
+def phase_vcr(args, card, dev, gen, row, ca_cfg=None, gpt2_cfg=None):
+    """Phase 15, ChunkAlign and the VCR plane at full width (see the module
+    docstring; the configurations default to the full ones). Returns the
+    main path's launch counts."""
+    strict_fp32()
+    cfg = ca_cfg or ChunkAlignConfig(encoder=dataclasses.replace(
+        EncoderConfig.bert_base(), use_pallas=True))
+    gcfg = gpt2_cfg or GPT2Config()
+    print(f"# phase 15: ChunkAlign and the VCR plane (ChunkAlignConfig(): "
+          f"BERT-base with K1, {cfg.img_feature_dim}-d regions, max_hypo "
+          f"{cfg.max_hypo}, chunk / cross-chunk / cross-modal layers "
+          f"{cfg.chunk_layers} / {cfg.cross_chunk_layers} / "
+          f"{cfg.cross_modal_layers}, {cfg.num_choices} choices; "
+          f"GPT2Config(): {gcfg.n_layer} layers, {gcfg.n_embd} wide) at "
+          f"full width, fp32 (TF32 off), random weights from --seed; "
+          f"{VCR_QUESTIONS} questions x {cfg.num_choices} choices, "
+          f"{VCR_REGIONS} regions")
+    rng = np.random.default_rng(args.seed + 17)
+    model = ChunkAlignRationale(cfg, gpt2_cfg=gcfg, device=dev,
+                                seed=args.seed + 17).eval()
+    enc, label, align_pos, total_label = vcr_inputs(cfg, dev, gen, rng)
+    # the main path, driven from counts of 0
+    zero_counts()
+    check_chunkalign_cls(card, dev, model.core, enc, label, align_pos,
+                         total_label)
+    check_history(card, dev, model.core.global_enc, enc, gen)
+    check_rationale(card, dev, model, enc, rng)
+    del model
+    captioner = GPT2Captioner(dataclasses.replace(
+        gcfg, encoder=cfg.encoder, img_feature_dim=cfg.img_feature_dim),
+        device=dev, seed=args.seed + 18).eval()
+    check_captioner(card, dev, captioner, gen)
+    del captioner
+    check_heads(card, dev, cfg, gcfg, enc, label, align_pos, total_label,
+                rng, args.seed + 19)
+    counts = read_counts()
+    print(f"#   phase 15's main path launched K1 "
+          f"{counts['fused_attention']} times (12 a VL-encoder forward "
+          f"through it); staged layers, CLS layers and the GPT-2 decoders "
+          f"run the plain core, as in the JAX package")
+    check(dev.type != "cuda" or counts["fused_attention"] > 0,
+          "phase 15 launched K1 no time")
+    check(all(c == 0 for n, c in counts.items() if n != "fused_attention"),
+          f"phase 15 launched another kernel: {counts}")
+    torch.cuda.empty_cache()
+    phase_k1_vcr_shapes(gen, row)
+    row["vcr_launches"] = counts["fused_attention"]
+    row["launches"] += counts["fused_attention"]
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4698,6 +5303,8 @@ def main(argv=None) -> int:
         # K1's row (kernels[0]) takes this phase's launches and times
         gen_counts = phase_generation(args, card, dev, gen, kernels[0])
         lap("phase 14")
+        vcr_counts = phase_vcr(args, card, dev, gen, kernels[0])
+        lap("phase 15")
         # last: the older the process, the more of a short profiled
         # call's device records torch.profiler drops (none kept late in
         # it: tools/profiler_probe.py), so the phases that read the
@@ -4706,9 +5313,9 @@ def main(argv=None) -> int:
                                         served)
         phase_k1_local_heads(gen)
         lap("phases 12 and 13")
-        runs += [gen_counts, dp_counts, tp_counts]
+        runs += [gen_counts, vcr_counts, dp_counts, tp_counts]
         total = {name: sum(c[name] for c in runs) for name in COUNTERS}
-        print(f"#   kernel launches over the thirteen main paths: {total}")
+        print(f"#   kernel launches over the fourteen main paths: {total}")
         # K1's row counts phase 12's and 13's launches too; they launched
         # no other kernel (checked below), so the other rows' counts stand
         k1 = kernels[0]

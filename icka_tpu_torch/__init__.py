@@ -25,7 +25,14 @@ nothing of `icka_tpu` or JAX. It covers:
   - weights from files on disk (`models.pretrained`: HF directories with
     `pytorch_model.bin` or `model.safetensors`, native msgpack
     directories, TF-1.x BERT bundles, torchvision ResNet `.pth`;
-    `cli.convert`).
+    `cli.convert`);
+  - the chunker and the generation stack (`models.chunker`,
+    `generation`, `models.captioning`, `models.gpt2`), and the VCR task
+    plane: ChunkAlign's classifiers and rationale decoders
+    (`models.chunkalign`, `models.chunkalign_baselines`), the Oscar heads
+    (`models.oscar`), ensembles (`models.ensemble`), the GPT-2 captioner,
+    the task processors (`data.task_processors`), retrieval metrics
+    (`evaluation.retrieval`) and TSV files (`utils.tsv_file`).
 
 Public surface, imported lazily (no kernel is built on import; a kernel is
 built at its first launch):
@@ -38,6 +45,8 @@ built at its first launch):
     icka_tpu_torch.BucketedGateCLServer / BucketedICKAServer
         / PackedGateCLServer
     icka_tpu_torch.load_text_encoder / load_backbone
+    icka_tpu_torch.ChunkAlignConfig / ChunkAlignCLS / ChunkAlignRationale
+        / GPT2Captioner / OscarMultipleChoice
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 ``device="cpu"``; on the CPU every kernel wrapper takes its plain PyTorch
@@ -61,6 +70,11 @@ _LAZY = {
     "PackedGateCLServer": "icka_tpu_torch.serving.packing",
     "load_text_encoder": "icka_tpu_torch.models.pretrained",
     "load_backbone": "icka_tpu_torch.models.pretrained",
+    "ChunkAlignConfig": "icka_tpu_torch.models.chunkalign",
+    "ChunkAlignCLS": "icka_tpu_torch.models.chunkalign",
+    "ChunkAlignRationale": "icka_tpu_torch.models.chunkalign",
+    "GPT2Captioner": "icka_tpu_torch.models.gpt2",
+    "OscarMultipleChoice": "icka_tpu_torch.models.oscar",
 }
 
 

@@ -26,7 +26,8 @@ tree (`wq` int8 (k*k*Cin, F) tap major, `w_scale`, `fused_bias`, 0-d
 layout, as buffers.
 
 The models' pairs (`icka_state_dict`, `gate_cl_state_dict`,
-`token_classifier_state_dict` and their inverses) and the one-way
+`token_classifier_state_dict` and their inverses, the VCR families'
+functions and `vcr_variables_from_state_dict`) and the one-way
 `chunk_tagger_state_dict`, `caption_state_dict` and
 `gpt2_decoder_state_dict` differ only in the model they name: each
 model's parameters are one flax collection, "params".
@@ -121,6 +122,41 @@ def gpt2_decoder_state_dict(variables: Mapping) -> dict:
     return state_dict_from_flax(variables["params"])
 
 
+def chunkalign_state_dict(variables: Mapping) -> dict:
+    """`ChunkAlignCLS` or `ChunkAlignRationale` variables {"params": ...}
+    -> its state_dict, in either variant (no `seq_enc`/`cls_ensemble`
+    without chunk alignment, no `cls_layer_*` without reasoning); the
+    rationale's bias-free `lm_head` has a `weight` only."""
+    return state_dict_from_flax(variables["params"])
+
+
+def chunkalign_baseline_state_dict(variables: Mapping) -> dict:
+    """`BaselineCLS`, `BaselineRationale` or `EnsembleRefiner` variables
+    {"params": ...} -> its state_dict (`LyxClsLayer`'s `q_proj`, `k_proj`,
+    `v_proj` and `out_proj` as Dense)."""
+    return state_dict_from_flax(variables["params"])
+
+
+def oscar_state_dict(variables: Mapping) -> dict:
+    """`ImageBertSequenceClassifier`, `OscarMultipleChoice` or
+    `ImageBertPreTraining` variables {"params": ...} -> its state_dict.
+    The pretraining head's tied decoder is the encoder's
+    `encoder.embeddings.word_embeddings`, one entry, beside its own
+    `decoder_bias`."""
+    return state_dict_from_flax(variables["params"])
+
+
+def gpt2_captioner_state_dict(variables: Mapping) -> dict:
+    """`GPT2Captioner` variables {"params": ...} -> its state_dict:
+    `encoder` (a `GlobalVLEncoder`), `decoder`, `cls_head` if any."""
+    return state_dict_from_flax(variables["params"])
+
+
+def ensemble_gate_state_dict(variables: Mapping) -> dict:
+    """`AbstractSpecificGate` variables {"params": ...} -> its state_dict."""
+    return state_dict_from_flax(variables["params"])
+
+
 def backbone_state_dict(variables: Mapping) -> dict:
     """`VisualBackbone` variables {"params", "batch_stats"} ->
     `VisualBackbone` state_dict (BN running mean/var become buffers)."""
@@ -196,6 +232,14 @@ def gate_cl_variables_from_state_dict(sd: Mapping) -> dict:
 def token_classifier_variables_from_state_dict(sd: Mapping) -> dict:
     """`TokenClassifier` or `SequenceClassifier` state_dict -> {"params":
     ...}: the inverse of `token_classifier_state_dict`."""
+    return {"params": flax_tree_from_state_dict(sd)}
+
+
+def vcr_variables_from_state_dict(sd: Mapping) -> dict:
+    """The state_dict of any VCR-plane model (`ChunkAlignCLS`,
+    `ChunkAlignRationale`, the baselines, `EnsembleRefiner`, the Oscar
+    heads, `GPT2Captioner`, `AbstractSpecificGate`) -> {"params": ...}: the
+    inverse of their `*_state_dict` functions."""
     return {"params": flax_tree_from_state_dict(sd)}
 
 

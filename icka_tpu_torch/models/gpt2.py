@@ -1,4 +1,5 @@
-"""GPT-2 decoder (port of the decoder half of `icka_tpu.models.gpt2`).
+"""GPT-2 decoder and the encoder-decoder captioner (port of
+`icka_tpu.models.gpt2`).
 
 The reference's vestigial GPT-2 caption/cls hybrid
 (`modeling/modeling_transfomres.py`, component #23): a pre-LN GPT-2 stack
@@ -8,8 +9,11 @@ causal mask and fp32 softmax, on the port's plain attention core (the JAX
 decoder does not route through the kernel either). `generation.gpt2_cache`
 decodes the same weights incrementally.
 
-Not ported yet: `GPT2Captioner` and `generate_gpt2_captions`, which build
-ChunkAlign's `GlobalVLEncoder` (`icka_tpu/models/gpt2.py:144-150`).
+`GPT2Captioner` (`BertForImageCaptioningAndCls`, :729) puts the decoder
+over ChunkAlign's `GlobalVLEncoder`, whose self-attention runs through K1
+with `cfg.encoder.use_pallas`, and a CLS head on its pooled output;
+`generate_gpt2_captions` decodes it by full recompute (each step re-runs
+the decoder over the token buffer) through `generation`.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from torch import nn
 
 from icka_tpu_torch.core.config import EncoderConfig
 from icka_tpu_torch.core.device import generator_for, resolve_device
+from icka_tpu_torch.generation.decoding import beam_search, greedy_decode
 from icka_tpu_torch.nn.attention import (_merge_heads, _split_heads,
                                          dot_product_attention)
 from icka_tpu_torch.nn.layers import Dense, LayerNorm, additive_mask
@@ -155,3 +160,98 @@ class GPT2Decoder(nn.Module):
         if self.return_hidden:
             return x
         return torch.einsum("bld,vd->blv", x.float(), self.wte.float())
+
+
+class GPT2Captioner(nn.Module):
+    """VL encoder (`encoder`, ChunkAlign's `GlobalVLEncoder` on
+    `cfg.encoder` and `cfg.img_feature_dim`) -> GPT-2 decoder (`decoder`,
+    cross-attending over the encoder's sequence) with a `cls_head` on the
+    pooled output when `num_cls_labels` > 0."""
+
+    def __init__(self, cfg: GPT2Config, num_cls_labels: int = 0,
+                 dtype=torch.float32, device="cuda", seed: int | None = None,
+                 generator=None):
+        super().__init__()
+        from icka_tpu_torch.models.chunkalign import (ChunkAlignConfig,
+                                                      GlobalVLEncoder)
+
+        dev = resolve_device(device)
+        gen = generator_for(dev, seed, generator)
+        self.cfg = cfg
+        self.num_cls_labels = num_cls_labels
+        ca = ChunkAlignConfig(encoder=cfg.encoder,
+                              img_feature_dim=cfg.img_feature_dim)
+        self.encoder = GlobalVLEncoder(ca, dtype=dtype, device=dev,
+                                       generator=gen)
+        self.decoder = GPT2Decoder(cfg, with_cross=True, dtype=dtype,
+                                   device=dev, generator=gen)
+        if num_cls_labels:
+            self.cls_head = Dense(cfg.encoder.hidden_size, num_cls_labels,
+                                  dtype=dtype, device=dev, generator=gen)
+
+    def encode(self, input_ids, img_feats, input_mask, dropout_gen=None):
+        """(memory (B, Le + Li, H), pooled (B, H))."""
+        return self.encoder(input_ids, img_feats, input_mask,
+                            dropout_gen=dropout_gen)
+
+    def forward(self, enc_ids, img_feats, enc_mask, caption_ids, cap_mask,
+                labels=None, cls_labels=None, dropout_gen=None):
+        """{"logits"} (B, Lc, V), "cls_logits" with the CLS head, and with
+        `labels` the "loss": next-token cross-entropy over the valid caption
+        positions, plus the CLS cross-entropy where `cls_labels` are
+        given."""
+        memory, pooled = self.encode(enc_ids, img_feats, enc_mask,
+                                     dropout_gen)
+        logits = self.decoder(caption_ids, cap_mask, memory, enc_mask)
+        out = {"logits": logits}
+        if self.num_cls_labels:
+            out["cls_logits"] = self.cls_head(pooled)
+        if labels is not None:
+            logp = torch.log_softmax(logits[:, :-1], dim=-1)
+            ll = logp.gather(-1, labels[:, 1:].long()[..., None])[..., 0]
+            m = cap_mask[:, 1:].float()
+            out["loss"] = -(ll * m).sum() / torch.clamp(m.sum(), min=1.0)
+            if cls_labels is not None and self.num_cls_labels:
+                clogp = torch.log_softmax(out["cls_logits"], dim=-1)
+                out["loss"] = out["loss"] - clogp.gather(
+                    1, cls_labels.long()[:, None]).mean()
+        return out
+
+    def decode_step(self, tokens_buf, memory, enc_mask, t: int):
+        """Logits (B, V) at position t of the buffered prefix, positions
+        after t masked: the decoder over the whole buffer."""
+        B, L = tokens_buf.shape
+        pos = torch.arange(L, device=tokens_buf.device)[None, :]
+        logits = self.decoder(tokens_buf, (pos <= t).expand(B, L).long(),
+                              memory, enc_mask)
+        return logits[:, t]
+
+
+@torch.no_grad()
+def generate_gpt2_captions(model: GPT2Captioner, enc_ids, img_feats,
+                           enc_mask, bos_id: int, eos_id: int, max_len: int,
+                           mode: str = "greedy", num_beams: int = 3, **kw):
+    """Greedy (a `DecodeState`) or beam (a `BeamResult`) decoding from
+    `bos_id`, the encoder run once; the cache carries the token buffer,
+    the memory and its mask (re-gathered with the beams)."""
+    memory, _ = model.encode(enc_ids, img_feats, enc_mask)
+    B = memory.shape[0]
+    dev = memory.device
+    cache = {"tokens": torch.zeros(B, max_len, dtype=torch.long, device=dev),
+             "memory": memory,
+             "enc_mask": torch.as_tensor(enc_mask, device=dev)}
+
+    def step(tokens_t, cache, t):
+        buf = cache["tokens"].clone()
+        buf[:, t] = tokens_t
+        logits = model.decode_step(buf, cache["memory"], cache["enc_mask"],
+                                   t)
+        return logits, {**cache, "tokens": buf}
+
+    init = torch.full((B,), bos_id, dtype=torch.long, device=dev)
+    if mode == "greedy":
+        return greedy_decode(step, init, cache, max_len, eos_id, **kw)
+    if mode == "beam":
+        return beam_search(step, init, cache, max_len, eos_id,
+                           num_beams=num_beams, **kw)
+    raise ValueError(f"unknown mode {mode!r}")

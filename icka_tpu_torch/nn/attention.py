@@ -7,6 +7,9 @@
   - `Encoder` / `CrossEncoder` ≙ BertEncoder / BertCrossEncoder (only
     `Encoder` takes `EncoderConfig.remat`, as in the JAX package)
   - `Pooler` ≙ BertPooler
+  - `GatedCrossAttention` ≙ cross_attention_Y: Bart-style MHA with
+    pre-scaled queries, temperature `tau`, `neg_type` (1 - softmax) and an
+    additive `prior`, the knowledge-alignment CLS layers' attention
 
 Dropout follows the JAX package's sites (attention probabilities of the
 plain core, the attention output and the FFN output, before each residual):
@@ -36,7 +39,8 @@ from icka_tpu_torch.core.config import EncoderConfig
 from icka_tpu_torch.core.device import generator_for, resolve_device
 from icka_tpu_torch.core.mesh import draw
 from icka_tpu_torch.kernels.attention import fused_attention
-from icka_tpu_torch.nn.layers import ACT2FN, Dense, LayerNorm, dropout
+from icka_tpu_torch.nn.layers import (ACT2FN, Dense, LayerNorm, additive_mask,
+                                      dropout)
 from icka_tpu_torch.nn.remat import rematerialised, remat_call
 from icka_tpu_torch.parallel.tensor import column_row_pair, copy_to_model
 
@@ -53,21 +57,29 @@ def _merge_heads(x):
 
 def dot_product_attention(q, k, v, bias=None, dtype=torch.float32,
                           softmax_dtype=torch.float32, dropout_rate=0.0,
-                          dropout_gen=None, head_cut=None):
+                          dropout_gen=None, head_cut=None, scale=None,
+                          tau=1.0, neg_type=False, prior=None):
     """Plain attention core. q, k, v: (B, S, N, H); bias broadcastable to
     (B, N, Sq, Sk). Scores are summed in `softmax_dtype` (fp32 by default
     whatever the compute dtype), probabilities cast to `dtype` for P.V.
+    In the JAX core's order: scores times `scale` (H^-0.5 when None) plus
+    bias; softmax(scores / tau); 1 - p where `neg_type`; plus `prior`
+    (broadcastable to the probabilities); dropout; the cast.
     With `dropout_gen`, each probability is kept with probability
     1 - dropout_rate and scaled by its inverse, as the JAX core does; the
     mask is drawn at every head and cut to these N where `head_cut`
     (dim 1, first head, all heads; `core.mesh.draw`) says they are a
-    model-axis slice. (The JAX core's tau, neg_type and prior are not
-    ported.)"""
+    model-axis slice."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     scores = torch.einsum("bqnh,bknh->bnqk", q.to(softmax_dtype),
-                          k.to(softmax_dtype)) * q.shape[-1] ** -0.5
+                          k.to(softmax_dtype)) * scale
     if bias is not None:
         scores = scores + bias.to(softmax_dtype)
-    probs = torch.softmax(scores, dim=-1)
+    probs = torch.softmax(scores / tau if tau != 1.0 else scores, dim=-1)
+    if neg_type:
+        probs = 1.0 - probs
+    if prior is not None:
+        probs = probs + prior.to(probs.dtype)
     if dropout_rate > 0.0 and dropout_gen is not None:
         keep = draw(lambda shape, gen: torch.rand(shape, generator=gen,
                                                   device=probs.device),
@@ -267,16 +279,45 @@ class _AttentionLayer(nn.Module):
             device=dev, generator=gen)
 
 
+def history_kv(x, bias, history, history_bias):
+    """The history KV-concat's keys/values and bias: [history; x] and the
+    history's additive bias broadcast and put in front of the layer's own
+    (a missing one of either is zeros)."""
+    B, S, Sh = x.shape[0], x.shape[1], history.shape[1]
+    kv = torch.cat([history.to(x.dtype), x], dim=1)
+    if bias is None:
+        bias = torch.zeros(B, 1, 1, S, device=x.device)
+    if history_bias is None:
+        history_bias = torch.zeros(B, 1, 1, Sh, device=x.device)
+    history_bias = history_bias.to(bias.dtype).expand(*bias.shape[:-1], Sh)
+    return kv, torch.cat([history_bias, bias], dim=-1)
+
+
 class SelfAttentionLayer(_AttentionLayer):
     """Self-attention + FFN; `cfg.use_pallas` routes attention through the
-    fused kernel. (The JAX layer's history KV-concat is not ported.)"""
+    fused kernel.
+
+    `history` (B, Sh, H) and `history_bias` (additive, broadcastable to
+    (B, 1, 1, Sh)) are the reference's `history_state` KV-concat (the
+    ChunkAlign decoder variants): queries come from `x`, keys and values
+    from [history; x] (`history_kv`), so with `use_pallas` the kernel runs
+    at Sq < Sk. A fused `qkv` projection cannot take it: its one matrix
+    projects x alone."""
 
     def __init__(self, cfg: EncoderConfig, dtype=torch.float32,
                  device="cuda", generator=None):
         super().__init__(cfg, True, dtype, device, generator)
 
-    def forward(self, x, bias=None, dropout_gen=None):
-        a = self.attn(x, bias=bias, dropout_gen=dropout_gen)
+    def forward(self, x, bias=None, dropout_gen=None, history=None,
+                history_bias=None):
+        kv = None
+        if history is not None:
+            if self.attn.fuse_qkv:
+                raise ValueError(
+                    "history KV-concat needs separate query/key/value "
+                    "projections; this layer has a fused qkv (fuse_qkv)")
+            kv, bias = history_kv(x, bias, history, history_bias)
+        a = self.attn(x, kv=kv, bias=bias, dropout_gen=dropout_gen)
         return self.ffn(self.attn_out(a, x, dropout_gen), dropout_gen)
 
 
@@ -315,7 +356,12 @@ class Encoder(_Stack):
     """Self-attention stack of `cfg.num_hidden_layers` layers. With
     `cfg.remat`, a forward under grad rematerialises its layers under
     `cfg.remat_policy` (`icka_tpu_torch.nn.remat`); without grad
-    (inference, K1) the layers run plain."""
+    (inference, K1) the layers run plain.
+
+    `history_states` (one (B, Sh, H) entry per layer, an entry may be None)
+    injects each layer's history KV-concat (`encoder_history_states` of the
+    reference's ChunkAlign decoders); `history_mask` (B, Sh) masks the
+    history keys (default: all visible)."""
 
     def __init__(self, cfg: EncoderConfig, dtype=torch.float32,
                  device="cuda", generator=None):
@@ -323,13 +369,18 @@ class Encoder(_Stack):
                          dtype, device, generator)
         self.remat_policy = cfg.remat_policy if cfg.remat else None
 
-    def forward(self, x, bias=None, dropout_gen=None):
+    def forward(self, x, bias=None, dropout_gen=None, history_states=None,
+                history_mask=None):
         policy = self.remat_policy
+        hbias = (None if history_mask is None
+                 else additive_mask(history_mask).to(x.device))
         for i, layer in enumerate(self.layers()):
+            hist = None if history_states is None else history_states[i]
             if policy is not None and rematerialised(policy, i):
-                x = remat_call(layer, policy, x, bias, dropout_gen)
+                x = remat_call(layer, policy, x, bias, dropout_gen, hist,
+                               hbias)
             else:
-                x = layer(x, bias, dropout_gen)
+                x = layer(x, bias, dropout_gen, hist, hbias)
         return x
 
 
@@ -357,3 +408,37 @@ class Pooler(nn.Module):
 
     def forward(self, x):
         return torch.tanh(self.dense(x[:, 0]))
+
+
+class GatedCrossAttention(nn.Module):
+    """Bart-style MHA with pre-scaled queries, temperature and optional
+    negated attention (`cross_attention_Y`): projections `q_proj`, `k_proj`,
+    `v_proj` and `out_proj`, head_dim^-0.5 and `tau` folded into the plain
+    core, as in the JAX module. The reference masks with `masked_fill`
+    before dividing by tau, which the additive -10000 bias reproduces."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dtype=torch.float32,
+                 dropout_rate: float = 0.0, device="cuda", generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = generator_for(dev, None, generator)
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.dropout_rate = dropout_rate
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            self.add_module(name, Dense(embed_dim, embed_dim, dtype=dtype,
+                                        device=dev, generator=gen))
+
+    def forward(self, x, kv=None, bias=None, tau=1.0, neg_type=False,
+                prior=None, dropout_gen=None):
+        kv = x if kv is None else kv
+        N = self.num_heads
+        q = _split_heads(self.q_proj(x), N)
+        k = _split_heads(self.k_proj(kv), N)
+        v = _split_heads(self.v_proj(kv), N)
+        ctx = dot_product_attention(
+            q, k, v, bias=bias, dtype=self.dtype,
+            dropout_rate=self.dropout_rate, dropout_gen=dropout_gen,
+            scale=q.shape[-1] ** -0.5, tau=tau, neg_type=neg_type,
+            prior=prior)
+        return self.out_proj(_merge_heads(ctx))

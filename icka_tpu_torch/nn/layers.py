@@ -126,10 +126,14 @@ class Dense(nn.Module):
     (its output columns, from its slice of the bias), "gather" (the same,
     its input's gradient summed over the model group and the whole output
     gathered) or "row" (the partial product over its input slice summed
-    over the model group, then the bias); None off the axis."""
+    over the model group, then the bias); None off the axis.
+
+    `use_bias=False` holds no bias (the JAX layer's option; the ChunkAlign
+    decoders' `lm_head`), float and off the model axis only."""
 
     def __init__(self, in_features: int, features: int, dtype=torch.float32,
-                 quant: str = "none", device="cuda", generator=None):
+                 quant: str = "none", device="cuda", generator=None,
+                 use_bias: bool = True):
         super().__init__()
         if quant not in QUANT_MODES:
             raise ValueError(f"quant must be one of {QUANT_MODES}, got "
@@ -154,7 +158,12 @@ class Dense(nn.Module):
                 self.register_buffer("calib_amax",
                                      torch.zeros((), device=dev),
                                      persistent=False)
-        self.bias = nn.Parameter(torch.zeros(features, device=dev))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(features, device=dev))
+        elif quant != "none":
+            raise ValueError("an int8 Dense holds a bias")
+        else:
+            self.register_parameter("bias", None)
         self.mode = None
         self.shard = None
 
@@ -163,6 +172,8 @@ class Dense(nn.Module):
         weight's output dimension is split (a layer that consumes its
         columns makes it "column"), "row" where its input dimension is.
         Returns the leaves used in part: the bias of a column split."""
+        if self.bias is None:
+            raise NotImplementedError("a Dense without bias on a model axis")
         if self.quant != "none":
             raise NotImplementedError(
                 f"a Dense in {self.quant!r} mode on a model axis: the int8 "
@@ -183,7 +194,7 @@ class Dense(nn.Module):
     def forward(self, x):
         if self.quant == "none" and self.mode is None:
             y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
-            return y + self.bias.to(self.dtype)
+            return y if self.bias is None else y + self.bias.to(self.dtype)
         if self.mode == "row":
             y = reduce_from_model(
                 F.linear(x.to(self.dtype), self.weight.to(self.dtype)),

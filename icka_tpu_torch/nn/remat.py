@@ -53,26 +53,28 @@ def rematerialised(policy: str, index: int) -> bool:
     return not (policy == "alternate" and index % 2 == 1)
 
 
-def remat_call(layer, policy: str, x, bias=None, dropout_gen=None):
-    """`layer(x, bias, dropout_gen)` rematerialised under `policy` (see the
-    module docstring): checkpointed when grad is enabled, a plain call
-    otherwise."""
+def remat_call(layer, policy: str, x, bias=None, dropout_gen=None,
+               history=None, history_bias=None):
+    """`layer(x, bias, dropout_gen, history, history_bias)` (a
+    self-attention layer and its history KV-concat) rematerialised under
+    `policy` (see the module docstring): checkpointed when grad is
+    enabled, a plain call otherwise."""
     if not torch.is_grad_enabled():
-        return layer(x, bias, dropout_gen)
+        return layer(x, bias, dropout_gen, history, history_bias)
     saved = SAVED_PRODUCTS.get(policy)
     start = None if dropout_gen is None else dropout_gen.get_state()
     calls = 0
 
-    def run(x, bias):
+    def run(*inputs):
         nonlocal calls
         calls += 1
         if calls == 1 or dropout_gen is None:
-            return layer(x, bias, dropout_gen)
+            return layer(*inputs[:2], dropout_gen, *inputs[2:])
         # the recompute: the forward's draws, then the generator as found
         found = dropout_gen.get_state()
         dropout_gen.set_state(start)
         try:
-            return layer(x, bias, dropout_gen)
+            return layer(*inputs[:2], dropout_gen, *inputs[2:])
         finally:
             dropout_gen.set_state(found)
 
@@ -82,5 +84,6 @@ def remat_call(layer, policy: str, x, bias=None, dropout_gen=None):
                                    partial(_policy_fn, saved))
     # the port draws no random number from the global generators, so there
     # is no global state to preserve
-    return checkpoint(run, x, bias, use_reentrant=False,
+    return checkpoint(run, x, bias, history, history_bias,
+                      use_reentrant=False,
                       preserve_rng_state=False, **kw)

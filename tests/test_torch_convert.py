@@ -26,7 +26,9 @@ def test_no_jax_in_the_port():
     """Importing the evaluation and training entry points, the optimizer,
     the data plane, the weight loaders, the host helpers (`utils`),
     rematerialisation, the generation stack, the captioner, GPT-2 and the
-    chunker, the package's lazy attributes,
+    chunker, the VCR task plane (ChunkAlign, its baselines, the Oscar
+    heads, the ensembles, the task processors, retrieval and TSV files),
+    the package's lazy attributes,
     then every module of icka_tpu_torch, pulls in no jax, flax, optax or
     icka_tpu, and none of regex, msgpack, PIL, safetensors, transformers or
     tensorflow, which the card's machine lacks. A fresh interpreter: this
@@ -39,7 +41,10 @@ def test_no_jax_in_the_port():
         "'models.tf_convert', 'cli.convert', 'utils', 'nn.remat', "
         "'generation', 'generation.constrained', 'generation.kv_cache', "
         "'generation.gpt2_cache', 'models.chunker', 'models.captioning', "
-        "'models.gpt2', 'data.chunking'):\n"
+        "'models.gpt2', 'data.chunking', 'models.chunkalign', "
+        "'models.chunkalign_baselines', 'models.oscar', 'models.ensemble', "
+        "'data.task_processors', 'evaluation.retrieval', 'utils.tsv_file', "
+        "'evaluation'):\n"
         "    importlib.import_module('icka_tpu_torch.' + m)\n"
         "import icka_tpu_torch\n"
         "for name in icka_tpu_torch._LAZY: getattr(icka_tpu_torch, name)\n"
@@ -95,3 +100,66 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     with pytest.raises(RuntimeError):
         ICKAModel(tconfig.ICKAConfig.tiny())
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _vcr_models():
+    from icka_tpu_torch.models import (chunkalign, chunkalign_baselines,
+                                       ensemble, gpt2, oscar)
+    from icka_tpu_torch import convert
+
+    cfg = chunkalign.ChunkAlignConfig.tiny()
+    g = gpt2.GPT2Config.tiny()
+    return {
+        "cls": (chunkalign.ChunkAlignCLS(cfg, device="cpu"),
+                convert.chunkalign_state_dict),
+        "rationale": (chunkalign.ChunkAlignRationale(cfg, gpt2_cfg=g,
+                                                     device="cpu"),
+                      convert.chunkalign_state_dict),
+        "baseline": (chunkalign_baselines.BaselineRationale(
+            cfg, gpt2_cfg=g, device="cpu"),
+            convert.chunkalign_baseline_state_dict),
+        "refiner": (chunkalign_baselines.EnsembleRefiner(cfg, device="cpu"),
+                    convert.chunkalign_baseline_state_dict),
+        "pretraining": (oscar.ImageBertPreTraining(cfg, device="cpu"),
+                        convert.oscar_state_dict),
+        "captioner": (gpt2.GPT2Captioner(g, num_cls_labels=3,
+                                         device="cpu"),
+                      convert.gpt2_captioner_state_dict),
+        "gate": (ensemble.AbstractSpecificGate(8, device="cpu"),
+                 convert.ensemble_gate_state_dict),
+    }
+
+
+@pytest.mark.parametrize("family", ["cls", "rationale", "baseline",
+                                    "refiner", "pretraining", "captioner",
+                                    "gate"])
+def test_vcr_state_dicts_round_trip(family):
+    """state_dict -> flax variables -> state_dict is the identity, bit for
+    bit, and loads strictly; kernels come out (in, out)."""
+    from icka_tpu_torch.convert import vcr_variables_from_state_dict
+
+    model, to_sd = _vcr_models()[family]
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=gen))
+    sd = model.state_dict()
+    variables = vcr_variables_from_state_dict(sd)
+    back = to_sd(variables)
+    assert back.keys() == sd.keys()
+    for k, v in sd.items():
+        assert torch.equal(back[k], v), k
+    model.load_state_dict(back, strict=True)
+    flat = {}
+    stack = [("", variables["params"])]
+    while stack:
+        prefix, node = stack.pop()
+        for k, v in node.items():
+            if isinstance(v, dict):
+                stack.append((prefix + k + ".", v))
+            else:
+                flat[prefix + k] = v
+    for k, v in flat.items():
+        if k.endswith("kernel"):
+            w = sd[k[:-len("kernel")] + "weight"]
+            assert v.shape == tuple(w.shape[::-1]), k
