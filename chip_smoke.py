@@ -60,6 +60,20 @@ Phases; any failure exits non-zero:
      with batches of 8 (K1 48 times a batch, the loss finite, every row
      evaluated), then hold the first batch's fp32 emissions through K1 to
      the plain core's on the same checkpoint;
+ 16. image files (after 6): a seeded JPEG corpus written with PIL (Twitter-
+     like sizes 600x400 to 2048x1536, portrait, 200x150, each chroma
+     subsampling, a grayscale, a progressive, a CMYK and a truncated file,
+     one missing); the decoder in use printed (`native.decoder()`: on a
+     machine without libjpeg.so, PIL's libjpeg at the native library's
+     DCT scale and box filter, the same pixels) and PIL's JPEG support
+     required; the loader's threaded batch path equal to its per-file
+     path, the CMYK row to `decode_image`'s and the missing row to the
+     fallback's, images/s on 4 threads and on one; phase 6's weights in a
+     checkpoint with the backbone calibrated on these images, evaluated by
+     `icka_tpu_torch.cli.evaluate.main` in bf16 (every row, loss finite,
+     K1 48 a batch; eval pairs/s beside phase 6's), the first batch's fp32
+     tags through K1 against the plain core (>= 0.99); two steps of `fit`
+     from the train split's files (losses finite, K1 0);
   9. the gate_cl family (run before 8 and 7): K1 at BERT-base's 12 heads
      of 64 against its plain version (bucketed 16, 24 and 128 with key
      biases, packed 48 block-diagonal, fp32 and bf16); `GateCLConfig()`
@@ -142,7 +156,8 @@ Phases; any failure exits non-zero:
  12. the data axis (last, after 7), two ranks on the one card: NCCL
      refuses two ranks on one GPU, so they run over gloo, which carries
      CUDA tensors through the host, started with `spawn`. `ICKAConfig()`
-     with ResNet-152 in fp32 (TF32 off) on a global batch of 2 x 8 from
+     with ResNet-152 in fp32 (TF32 off), 12 layers a RoBERTa stack (the
+     script's time limit), on a global batch of 2 x 8 from
      phase 8's corpus with random images (crop and flip) and dropout on:
      two steps on one rank without a process group (the reference), the
      same two steps on a NCCL world of one through the same code
@@ -164,8 +179,9 @@ Phases; any failure exits non-zero:
      profiled call that records none fails the run (`recorded`);
  13. the model axis (in phase 12's ranks, after their phase 12 work): the
      two ranks as a mesh (1, 2), tensor-parallel: phase 12's weights,
-     seed and global batch (`ICKAConfig()` at full width and depth, fp32,
-     TF32 off, dropout, crop and flip on), two steps against phase 12's
+     seed and global batch (`ICKAConfig()` at full width, phase 12's
+     depth, fp32, TF32 off, dropout, crop and flip on), two steps against
+     phase 12's
      one rank (losses within 2e-5 relative, gradient norms 1e-4, each
      rank's replicated leaves bit-equal to the other's after each step,
      the state gathered to the JAX layout with the one-rank tree's names,
@@ -176,9 +192,15 @@ Phases; any failure exits non-zero:
      trainer's evaluation step, K1 on 8 heads a rank (emissions within
      1e-3 of one rank's evaluation on the same batch, tags >= 0.99 against
      phase 3's fp32 tags, K1 48 times a batch a rank, added into the
-     `kernels` line; 0 in the steps). Then K1 against its plain version
-     at a rank's 8 heads of 64 (S=150 key bias, S=172 full bias, and the
-     evaluation's 128 and 172, fp32 and bf16);
+     `kernels` line; 0 in the steps); the same with `fuse_qkv=True` on
+     the same weights (`fuse_qkv_params`): K1 48 times a batch on the
+     rank's heads read as strided views of the gathered (B, S, 3072)
+     projection, tags >= 0.999 of the unfused TP tags, and one fused train
+     step, its loss within 2e-5 of the unfused first step's. Then K1
+     against its plain version at a rank's 8 heads of 64 (S=150 key bias,
+     S=172 full bias, and the evaluation's 128 and 172, fp32 and bf16),
+     and timed at S=150 in fp32 on contiguous q/k/v and on the fused
+     layout's views;
  15. ChunkAlign and the VCR plane at full width (after 14, before 12),
      fp32 with TF32 off, random weights from `--seed`: `ChunkAlignConfig()`
      (BERT-base with K1, 2048-d regions, max_hypo 50, chunk /
@@ -343,7 +365,7 @@ from icka_tpu_torch.models.token_classifier import TokenClassifier
 from icka_tpu_torch.nn.attention import MultiHeadAttention
 from icka_tpu_torch.nn.crf import CRF
 from icka_tpu_torch.nn.quant import column_major, int8_matmul
-from icka_tpu_torch.parallel.partitioning import moment_slices
+from icka_tpu_torch.parallel.partitioning import moment_slices, shard_params
 from icka_tpu_torch.serving.bucketed import (BucketedGateCLServer,
                                              BucketedICKAServer, pick_bucket,
                                              sample_tweet_lengths)
@@ -1442,6 +1464,7 @@ def phase_evaluate(args, card, dev, ctx):
           f"{result.seconds:.3f} s wall, {result.rows / result.seconds:.2f} "
           f"pairs/s (CLI {cli_s:.2f} s in all: corpus, features, models, "
           f"checkpoint, loop) on {card}; K1 launches {k1}")
+    ctx["eval_pairs_s"] = result.rows / result.seconds
     check(result.rows == EVAL_ROWS, f"evaluated {result.rows} rows of "
                                     f"{EVAL_ROWS}")
     check(result.batches == math.ceil(EVAL_ROWS / EVAL_BATCH),
@@ -1507,6 +1530,332 @@ def phase_evaluate(args, card, dev, ctx):
         print(f"#   eval loop device profile not measured ({e!r})")
     shutil.rmtree(root)
     return counts
+
+
+# phase 16, image files at full width: the corpus's images are JPEG files
+# the phase writes with PIL from `--seed` (photo-like: smooth colour fields
+# and grain), at Twitter-like sizes cycling through 4:4:4, 4:2:2 and 4:2:0,
+# and in the test split's first batch a 200x150 one, a grayscale, a
+# progressive, a CMYK (the decoder refuses it: PIL's bicubic resize, as the
+# JAX loader falls back) and a truncated file and a row whose file is
+# missing. FILE_TEST_ROWS rows are evaluated by the CLI, FILE_TRAIN_ROWS
+# trained for FILE_TRAIN_ROWS // TRAIN_BATCH steps of `fit`.
+FILE_SIZES = ((1024, 768), (600, 400), (1200, 675), (2048, 1536),
+              (768, 1024))
+FILE_SPECIAL = ("small", "gray", "progressive", "cmyk", "truncated",
+                "missing")
+FILE_TEST_ROWS, FILE_TRAIN_ROWS = 48, 16
+FILE_TAGS_MIN = 0.99
+
+
+def photo(rng, w, h):
+    """A seeded photo-like RGB image: smooth colour fields plus grain."""
+    from PIL import Image
+    base = rng.integers(0, 256, (h // 16 + 2, w // 16 + 2, 3), np.uint8)
+    smooth = np.asarray(Image.fromarray(base).resize((w, h),
+                                                     Image.BILINEAR))
+    grain = rng.integers(-20, 21, (h, w, 3))
+    return np.clip(smooth.astype(np.int16) + grain, 0, 255).astype(np.uint8)
+
+
+def write_jpeg(path, pixels, kind=None, subsampling=2):
+    """`pixels` as a JPEG of quality 90: grayscale, progressive or CMYK
+    by `kind`, else at `subsampling`, cut to its first 3/5 where `kind` is
+    "truncated"."""
+    from PIL import Image
+    im = Image.fromarray(pixels)
+    if kind == "gray":
+        im.convert("L").save(path, quality=90)
+    elif kind == "progressive":
+        im.save(path, quality=90, progressive=True)
+    elif kind == "cmyk":
+        im.convert("CMYK").save(path, quality=90)
+    else:
+        im.save(path, quality=90, subsampling=subsampling)
+    if kind == "truncated":
+        with open(path, "rb") as f:
+            data = f.read()
+        with open(path, "wb") as f:
+            f.write(data[:len(data) * 3 // 5])
+
+
+def write_image_files(feats, images, rng, special=()) -> dict:
+    """A JPEG file at each row's path: the `special` kinds first, then
+    FILE_SIZES in turn at subsampling 0, 1, 2. Returns {kind: path} of the
+    special rows."""
+    os.makedirs(images, exist_ok=True)
+    out = {}
+    for row, img_id in enumerate(feats.img_ids):
+        path = os.path.join(images, img_id)
+        kind = special[row] if row < len(special) else None
+        if kind is not None:
+            out[kind] = path
+        if kind == "missing":
+            continue
+        w, h = ((200, 150) if kind == "small"
+                else FILE_SIZES[row % len(FILE_SIZES)])
+        write_jpeg(path, photo(rng, w, h), kind, row % 3)
+    return out
+
+
+# the reference's pixels, held across machines: the files `digest_files`
+# writes (seed DIGEST_SEED), their bytes' sha256 as PIL 12.1.0 (libjpeg-
+# turbo 3.1.3) encodes them, and the crc32 of each one's 256^2 decode by
+# native/libicka_native.so (libjpeg-turbo 2.1.5), the JAX loader's
+# decoder; recomputed by `print(digest_files(DIR))` where the library
+# loads. Where a machine's PIL writes the same bytes, its decode must
+# give the same crc32; where it writes others the file is not compared.
+DIGEST_SEED = 19
+DIGEST_KINDS = (("1024x768_420", 1024, 768, 2), ("2048x1536_444", 2048, 1536, 0),
+                ("600x400_422", 600, 400, 1), ("768x1024_420", 768, 1024, 2),
+                ("200x150_420", 200, 150, 2), ("gray", 1200, 675, None),
+                ("progressive", 1200, 675, None),
+                ("truncated", 1024, 768, 2))
+REFERENCE_DIGESTS = {
+    "1024x768_420": ("c6192a51d4ba51d754d2703873c2c5fb02b38244954760dea906"
+                     "aaf1bcfdce53", 300094988),
+    "2048x1536_444": ("03af6ada9bedf8cbd644ea5ec81c9f1ed16b78c44a007e1bb39"
+                      "3b6f2bd31680a", 699865340),
+    "600x400_422": ("516a6587220fe4ce486272e8c2b416276d679d2f89b5184388f126"
+                    "28dd218a1e", 98767668),
+    "768x1024_420": ("beef6c5bf65fa7812ccf8bab9b8e30fb7f54413846212b10eb58d"
+                     "4126943386e", 736323967),
+    "200x150_420": ("0faf4a3c00df4a5ecc6b6f2857981722ab6fe59b1e6687905432256"
+                    "c3386540a", 3573888156),
+    "gray": ("2016e1b8af1bdafb173fe830031bb1ca42d81f690613b689afd55d2eea9f69"
+             "aa", 2248452145),
+    "progressive": ("3541be190f4b181ff936db205ce941d1f69aa1f07a08f78ddbfb1722"
+                    "3388faa1", 1596369707),
+    "truncated": ("614b2326bc9a37ab1ca2addf775c9f5c89ee5c5e4bcd879f605aa7bc6"
+                  "770f46a", 3868316246),
+}
+
+
+def digest_files(root) -> dict:
+    """Write DIGEST_KINDS's files under `root`; {name: (path, sha256 of
+    the file, crc32 of its 256^2 decode by `native.decode_jpeg`)}."""
+    import hashlib
+    import zlib
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(DIGEST_SEED)
+    out = {}
+    for name, w, h, sub in DIGEST_KINDS:
+        path = os.path.join(root, f"{name}.jpg")
+        write_jpeg(path, photo(rng, w, h), name, sub)
+        with open(path, "rb") as f:
+            sha = hashlib.sha256(f.read()).hexdigest()
+        out[name] = (path, sha, zlib.crc32(native.decode_jpeg(path, 256)))
+    return out
+
+
+def phase_image_files(args, card, dev, ctx):
+    """Phase 16: evaluation and training from JPEG files at full width (the
+    configuration of phase 6: `ICKAConfig()`, ResNet-152, bf16, K1). The
+    decoder (`native.decoder()`: the library, or PIL's libjpeg at its scale
+    and box filter where libjpeg.so is missing, as on the H100's machine);
+    the loader's threaded batch path against its per-file path; the CMYK
+    and missing rows against `decode_image` and the fallback; images/s on
+    the loader's threads. Phase 6's weights in a checkpoint written by
+    phase 6's writer, the backbone's BatchNorm statistics calibrated on
+    these images (phase 6's are calibrated on zero images); the CLI's
+    loss finite and every row evaluated (K1 48 a batch), the first batch's
+    fp32 tags through K1 against the plain core (>= FILE_TAGS_MIN); then
+    `fit` for FILE_TRAIN_ROWS // TRAIN_BATCH steps from the train split's
+    files, losses finite. Returns every kernel's launch count over the
+    CLI's evaluation and `fit`."""
+    from icka_tpu_torch.data import jpeg
+    from icka_tpu_torch.data.images import decode_image
+    cfg = ctx["cfgs"][True]
+    tiny = "--tiny" in EVAL_CLI_FLAGS
+    layers, decode = ((1, 1, 1, 1), 64) if tiny else ((3, 8, 36, 3), 256)
+    print(f"# phase 16: image files: {FILE_TEST_ROWS} test and "
+          f"{FILE_TRAIN_ROWS} train rows of JPEG files written with PIL "
+          f"(sizes {FILE_SIZES}, 200x150, grayscale, progressive, CMYK, "
+          f"truncated, one missing), evaluated by "
+          f"icka_tpu_torch.cli.evaluate (bf16, ResNet-152, use_pallas) and "
+          f"trained by fit")
+    jpeg.pil_image()           # raises where PIL cannot decode JPEGs
+    which = native.decoder()
+    from PIL import features
+    print(f"#   decoder {which}; native/libicka_native.so "
+          f"{native_status()}; PIL's libjpeg-turbo "
+          f"{features.version('libjpeg_turbo')}")
+    root = WORK_DIR / "files"
+    shutil.rmtree(root, ignore_errors=True)
+    digests = digest_files(root / "digest")
+    same_bytes = [n for n, (_, sha, _) in digests.items()
+                  if sha == REFERENCE_DIGESTS[n][0]]
+    same_pixels = [n for n in same_bytes
+                   if digests[n][2] == REFERENCE_DIGESTS[n][1]]
+    print(f"#   the reference's pixels: {len(same_bytes)} of {len(digests)} "
+          f"seeded files byte-equal to the ones the native library decoded "
+          f"(REFERENCE_DIGESTS); their 256^2 decodes here equal the "
+          f"library's (crc32) for {len(same_pixels)} of them"
+          + ("" if len(same_bytes) == len(digests) else
+             f" (other bytes, not compared: "
+             f"{sorted(set(digests) - set(same_bytes))})"))
+    check(same_pixels == same_bytes,
+          f"decoded other pixels than the native library's: "
+          f"{sorted(set(same_bytes) - set(same_pixels))}")
+    ds, out = root / "ds", root / "out"
+    generate_dataset(str(ds), n_train=FILE_TRAIN_ROWS, n_valid=0,
+                     n_test=FILE_TEST_ROWS, clip_dim=cfg.clip_dim,
+                     seed=args.seed, write_images=False)
+    tokenizer = tiny_tokenizer(str(ds / "tokenizer"))
+    feats = {split: convert_examples(
+        read_mm_conll(str(ds / f"{split}.txt")), tokenizer,
+        cfg.max_seq_length, ClipFeatureStore.from_split(str(ds), split),
+        cfg.clip_dim) for split in ("train", "test")}
+    images = str(ds / "images")
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    kinds = write_image_files(feats["test"], images, rng, FILE_SPECIAL)
+    write_image_files(feats["train"], images, rng)
+    paths = sorted(str(p) for p in Path(images).iterdir())
+    mb = sum(os.path.getsize(p) for p in paths) / 1e6
+    print(f"#   {len(paths)} files, {mb:.1f} MB, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # the loader: its threaded batch path against its per-file path, the
+    # refused and missing rows, images/s
+    fallback = os.path.join(images, feats["train"].img_ids[0])
+    kw = dict(train=False, decode_size=decode, prefetch=0,
+              cache_images=False, fallback_image=fallback)
+    n = FILE_TEST_ROWS
+    t0 = time.perf_counter()
+    batched = np.concatenate([b["images"][:int(b["row_valid"].sum())]
+                              for b in MNERLoader(feats["test"], images,
+                                                  EVAL_BATCH, **kw)])
+    batch_s = time.perf_counter() - t0
+    single_loader = MNERLoader(feats["test"], images, EVAL_BATCH, **kw)
+    t0 = time.perf_counter()
+    single = np.stack([single_loader._image(r) for r in range(n)])
+    single_s = time.perf_counter() - t0
+    rows = {kind: feats["test"].img_ids.index(os.path.basename(p))
+            for kind, p in kinds.items()}
+    same = np.array_equal(batched, single)
+    cmyk_ok = np.array_equal(batched[rows["cmyk"]], decode_image(
+        kinds["cmyk"], decode))
+    missing_ok = np.array_equal(batched[rows["missing"]],
+                                decode_image(fallback, decode))
+    t0 = time.perf_counter()
+    decoded = [p for p in paths if native.decode_jpeg(p, decode) is not None]
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, failures = native.decode_jpeg_batch(decoded, decode, num_threads=4)
+    threads_s = time.perf_counter() - t0
+    print(f"#   loader: batch path (decode_jpeg_batch, 4 threads) equals the "
+          f"per-file path row for row: {same}; CMYK row equals "
+          f"decode_image's: {cmyk_ok}; missing row equals the fallback's: "
+          f"{missing_ok}; {n} rows through the eval loader in "
+          f"{batch_s:.2f} s ({n / batch_s:.1f} rows/s), one at a time "
+          f"{single_s:.2f} s ({n / single_s:.1f} rows/s); "
+          f"{len(decoded)} decodable files on 4 threads in "
+          f"{threads_s:.3f} s: {len(decoded) / threads_s:.1f} images/s "
+          f"({failures} failures), on one {len(paths) / one_s:.1f} "
+          f"images/s; on {card}")
+    check(same, "the loader's batch path differs from its per-file path")
+    check(cmyk_ok and missing_ok, "the CMYK or the missing row is not what "
+                                  "the JAX loader gives")
+    check(failures == 0 and len(decoded) == len(paths) - 1,
+          f"{len(paths) - len(decoded)} files refused, {failures} failed")
+    check(batched[rows["truncated"]].any() and batched[rows["gray"]].any(),
+          "the truncated or grayscale row decoded to zeros")
+
+    # phase 6's weights, the backbone calibrated on these images
+    first = next(iter(MNERLoader(feats["test"], images, EVAL_BATCH,
+                                 train=False, prefetch=0,
+                                 decode_size=decode)))
+    backbone = VisualBackbone(layers, device=dev).eval()
+    backbone.load_state_dict(ctx["backbone"].state_dict())
+    calibrate_batch_stats(backbone, preprocess_images(
+        first["images"], min(224, decode), dev))
+    write_s, size = write_checkpoint(out, cfg, ctx["weights"], backbone)
+    del backbone
+    print(f"#   checkpoint: {size / 1e9:.3f} GB written in {write_s:.2f} s")
+
+    zero_counts()
+    report = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(report):
+        result = evaluate_cli.main([
+            "--synthetic", str(ds), "--output_dir", str(out), "--split",
+            "test", "--eval_batch_size", str(EVAL_BATCH), "--device",
+            dev.type, *EVAL_CLI_FLAGS])
+    sync(dev)
+    cli_s = time.perf_counter() - t0
+    counts = read_counts()
+    k1 = counts["fused_attention"]
+    print(f"#   CLI from files: {result.rows} rows in {result.batches} "
+          f"batches, loss {result.loss:.6f}, f1 {result.f1:.4f}: eval loop "
+          f"{result.seconds:.3f} s wall, {result.rows / result.seconds:.2f} "
+          f"pairs/s with the decode (phase 6, no files: "
+          f"{ctx['eval_pairs_s']:.2f}); CLI {cli_s:.2f} s in all; K1 "
+          f"launches {k1}; on {card}")
+    check(result.rows == FILE_TEST_ROWS, f"evaluated {result.rows} rows")
+    check(math.isfinite(result.loss), f"loss {result.loss}")
+    if LAYERS_PER_BATCH:
+        check(k1 == LAYERS_PER_BATCH * result.batches,
+              f"K1 launched {k1} times for {result.batches} batches")
+
+    # the first batch at fp32: K1 against the plain core
+    strict_fp32()
+    state = Checkpointer(str(out)).restore_best()
+    spec = feats["test"].spec
+    trainer = ICKATrainer(cfg, TrainConfig(compute_dtype="float32"), spec,
+                          resnet_layers=layers, device=dev)
+    trainer.state_from_checkpoint(state)
+    plain = ICKAModel(ctx["cfgs"][False], device=dev).eval()
+    plain.load_state_dict(trainer.model.state_dict(), assign=True)
+    with torch.inference_mode():
+        inputs = trainer.model_inputs(first)
+        em_k, em_p = (m.batch_emissions(inputs, spec.mask_positions,
+                                        spec.offset)
+                      for m in (trainer.model, plain))
+        mask = inputs["output_mask"]
+        tags_k, tags_p = (trainer.model.crf.decode(e, mask)
+                          for e in (em_k, em_p))
+    sync(dev)
+    valid = mask.bool()
+    err = (em_k - em_p).abs().max().item()
+    agree = (tags_k == tags_p)[valid].float().mean().item()
+    print(f"#   first batch at fp32 (the special rows): visual_mean max |x| "
+          f"{inputs['visual_mean'].abs().max().item():.3e}; emissions K1 vs "
+          f"plain core max_abs_err {err:.3e}; tags {agree:.6f} (floor "
+          f"{FILE_TAGS_MIN})")
+    check(bool(torch.isfinite(em_k).all()), "non-finite emissions")
+    check(agree >= FILE_TAGS_MIN, f"files: K1 tags agree {agree}")
+    del trainer, plain, inputs, em_k, em_p
+    torch.cuda.empty_cache()
+
+    # fit from the train split's files
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, train_batch_size=TRAIN_BATCH,
+                       eval_batch_size=TRAIN_BATCH, seed=args.seed,
+                       compute_dtype="bfloat16")
+    tr = ICKATrainer(cfg, tcfg, spec, resnet_layers=layers, device=dev)
+    tr.state_from_checkpoint(state)
+    del state
+    loader = MNERLoader(feats["train"], images, TRAIN_BATCH, train=True,
+                        decode_size=TRAIN_DECODE if not tiny else decode,
+                        seed=args.seed)
+    zero_counts()
+    t0 = time.perf_counter()
+    history = tr.fit(loader, epochs=1, log=lambda *a: None)
+    sync(dev)
+    fit_s = time.perf_counter() - t0
+    fit_counts = read_counts()
+    losses = [r.loss for r in tr.records]
+    print(f"#   fit from files: {len(losses)} steps of {TRAIN_BATCH} rows, "
+          f"losses {[round(x, 6) for x in losses]} (epoch mean "
+          f"{history[0]:.6f}) in {fit_s:.1f} s; K1 launches "
+          f"{fit_counts['fused_attention']} (dropout on: the plain core)")
+    check(len(losses) == FILE_TRAIN_ROWS // TRAIN_BATCH
+          and all(math.isfinite(x) for x in losses), f"fit losses {losses}")
+    check(fit_counts["fused_attention"] == 0, "K1 launched in train steps")
+    del tr
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    return add_counts(counts, fit_counts)
 
 
 def train_corpus(args, cfg, root):
@@ -2823,6 +3172,11 @@ def phase_remat(args, card, dev, base, gc_base, layers, lengths):
 # world of one against the trainer without a process group are the same
 # arithmetic, held bit for bit (exact checksums of the bits, `fingerprint`).
 DP_RANKS, DP_BATCH, DP_ACCUM, DP_STEPS = 2, 8, 2, 2
+# the depth of each RoBERTa stack in phases 12 and 13's training (24 in
+# `ICKAConfig()`; cut to keep the script inside its time limit: gloo's
+# all-reduces through the host set these steps); serving and evaluation
+# stay at full depth
+DP_TRAIN_LAYERS = 12
 DP_LOSS_RTOL = 2e-5
 DP_JOIN_S = 900
 
@@ -2941,16 +3295,22 @@ def dp_rank(rank: int, work: str, seed: int, device: str):
 
 # phase 13, the model axis: the same two ranks at mesh (1, 2) train
 # phase 12's DP_STEPS steps on its weights, seed and global batch
-# (`ICKAConfig()` at full width and depth, fp32, TF32 off, dropout, crop
-# and flip on) against phase 12's one rank: losses within DP_LOSS_RTOL,
-# gradient norms within STEP_NORM_RTOL (the order of sums differs: the
-# row-parallel products are summed over the ranks); each rank's replicated
-# leaves bit-equal to the other's; the state gathered to the JAX layout.
-# Then phase 3's requests on phase 3's fp32 weights and backbone through
-# the trainer's evaluation step, K1 on TP_HEADS heads a rank: emissions
-# within EMISSIONS_TOL of one rank's on the same batch, tags against
-# phase 3's at >= 0.99 (PERF.md section 2).
+# (`ICKAConfig()` at full width, DP_TRAIN_LAYERS deep, fp32, TF32 off,
+# dropout, crop and flip on) against phase 12's one rank: losses within
+# DP_LOSS_RTOL, gradient norms within STEP_NORM_RTOL (the order of sums
+# differs: the row-parallel products are summed over the ranks); each
+# rank's replicated leaves bit-equal to the other's; the state gathered to
+# the JAX layout. Then phase 3's requests on phase 3's fp32 weights and
+# backbone through the trainer's evaluation step, K1 on TP_HEADS heads a
+# rank: emissions within EMISSIONS_TOL of one rank's on the same batch,
+# tags against phase 3's at >= 0.99 (PERF.md section 2). Then the fused
+# layout (`fuse_qkv=True`, the same weights through `fuse_qkv_params`):
+# the evaluation with K1 on the rank's heads read out of the gathered
+# (B, S, 3H) projection, tags against the unfused TP tags at >=
+# FUSED_TP_TAGS_MIN, and one train step, its loss within DP_LOSS_RTOL of
+# the unfused first step's.
 TP_HEADS = 16 // DP_RANKS
+FUSED_TP_TAGS_MIN = 0.999
 SERVER_BUCKETS = (16, 24, 32, 48, 64, 128)     # BucketedICKAServer's
 
 
@@ -3008,7 +3368,8 @@ def tp_eval(trainer, batches, index):
     """The trainer's evaluation step on each batch (`eval_step`: images ->
     backbone -> the model in "dev" mode): each request's tags cut to its
     length (`index`: `tp_eval_batches`'s request of each row), the kernel
-    launches of those steps, and then the first batch's emissions."""
+    launches of those steps (K1's on strided q/k/v views under
+    "strided"), and then the first batch's emissions."""
     tags = [None] * sum(len(rows) for rows in index)
     zero_counts()
     for b, rows in zip(batches, index):
@@ -3017,6 +3378,7 @@ def tp_eval(trainer, batches, index):
             tags[i] = pred[r, :int(b["ori_input_mask"][r].sum())].cpu(
                 ).numpy()
     counts = read_counts()
+    counts["strided"] = fused_attention.strided_launches
     with torch.inference_mode():
         inputs = trainer.model_inputs(batches[0])
         inputs.pop("label_ids")
@@ -3082,16 +3444,54 @@ def tp_rank(work: Path, inputs: dict, dev) -> dict:
         for sd in [state_dict_from_flax(whole[key])] for n in held[key])
     del tr, tree, flat, whole, held, adam
     torch.cuda.empty_cache()
-    ev = trainer()
-    ev.backbone.load_state_dict(inputs["backbone3"])
-    t0 = time.perf_counter()
-    tags, em, counts = tp_eval(ev, *inputs["eval_batches"])
-    sync(dev)
-    seen["eval"] = dict(tags=tags, emissions=em, counts=counts,
-                        seconds=time.perf_counter() - t0)
-    del ev
-    torch.cuda.empty_cache()
+    seen["fused_step"] = fused_tp_step(inputs, tcfg, mesh, dev, work)
+    for fused in (False, True):
+        ev = (fused_tp_trainer(inputs["eval_cfg"], tcfg, inputs, mesh, dev)
+              if fused else ICKATrainer(inputs["eval_cfg"], tcfg,
+                                        inputs["spec"],
+                                        resnet_layers=inputs["layers"],
+                                        mesh=mesh))
+        ev.backbone.load_state_dict(inputs["backbone3"])
+        t0 = time.perf_counter()
+        tags, em, counts = tp_eval(ev, *inputs["eval_batches"])
+        sync(dev)
+        seen["fused_eval" if fused else "eval"] = dict(
+            tags=tags, emissions=em, counts=counts,
+            seconds=time.perf_counter() - t0)
+        del ev
+        torch.cuda.empty_cache()
     return seen
+
+
+def fused_tp_trainer(cfg, tcfg, inputs, mesh, dev):
+    """A trainer of `cfg` with `fuse_qkv=True` on `mesh`, its weights the
+    unfused model's of the seed (as every rank builds it) through
+    `fuse_qkv_params`, cut to this rank's slices."""
+    fcfg = dataclasses.replace(
+        cfg, embedding=dataclasses.replace(cfg.embedding, fuse_qkv=True),
+        last_encoder=dataclasses.replace(cfg.last_encoder, fuse_qkv=True))
+    tr = ICKATrainer(fcfg, tcfg, inputs["spec"],
+                     resnet_layers=inputs["layers"], mesh=mesh)
+    whole = ICKAModel(cfg, device=dev, seed=tcfg.seed).state_dict()
+    tr.model.load_state_dict(shard_params(fuse_qkv_params(
+        tr.model.state_dict().keys(), whole), mesh))
+    return tr
+
+
+def fused_tp_step(inputs, tcfg, mesh, dev, work):
+    """One train step of the fused layout on phase 12's first batch and
+    backbone: its record."""
+    tr = fused_tp_trainer(inputs["cfg"], tcfg, inputs, mesh, dev)
+    tr.backbone.load_state_dict(torch.load(work / "backbone.pt",
+                                           weights_only=True))
+    tr.init_state(2 * DP_STEPS)
+    tr.tp.clock.timed = True
+    zero_counts()
+    record = tr.train_step(inputs["batches"][0], (0, 0))
+    counts = read_counts()
+    del tr
+    torch.cuda.empty_cache()
+    return dict(record=record, counts=counts)
 
 
 def phase_tp(seen, ref, served, card) -> dict:
@@ -3100,17 +3500,19 @@ def phase_tp(seen, ref, served, card) -> dict:
     layout). Returns every kernel's launch count over both ranks' steps
     and evaluation."""
     print(f"# phase 13: the model axis, mesh (1, {DP_RANKS}) on phase 12's "
-          f"ranks: ICKAConfig() trained in fp32 (TF32 off) on phase 12's "
+          f"ranks: ICKAConfig() at phase 12's depth trained in fp32 (TF32 "
+          f"off) on phase 12's "
           f"global batch, seed and weights with dropout, crop and flip, "
           f"{DP_STEPS} steps against one rank; phase 3's requests through "
-          f"the trainer's evaluation step, K1 on {TP_HEADS} heads a rank")
+          f"the trainer's evaluation step, K1 on {TP_HEADS} heads a rank; "
+          f"the same with a fused qkv, and one fused train step")
     counts = {name: 0 for name in COUNTERS}
     for r, s in enumerate(seen):
         t = s["tp"]
         check(t["coords"] == (0, r), f"rank {r} sits at {t['coords']}")
         train, ev = t["train"], t["eval"]
         add_counts(counts, train["counts"])
-        add_counts(counts, ev["counts"])
+        add_counts(counts, {n: ev["counts"][n] for n in COUNTERS})
         check(train["counts"]["fused_attention"] == 0,
               f"rank {r}: K1 launched in the TP train steps (dropout on: "
               f"the plain core)")
@@ -3162,6 +3564,37 @@ def phase_tp(seen, ref, served, card) -> dict:
             check(k1 == LAYERS_PER_BATCH * n_batches,
                   f"rank {r}: K1 launched {k1} times for {n_batches} "
                   f"evaluation batches")
+        fused, step = t["fused_eval"], t["fused_step"]
+        add_counts(counts, {n: fused["counts"][n] for n in COUNTERS})
+        add_counts(counts, step["counts"])
+        fk1, strided = fused["counts"]["fused_attention"], \
+            fused["counts"]["strided"]
+        ferr = (fused["emissions"] - ev["emissions"]).abs().max().item()
+        fagree = agreement(fused["tags"], ev["tags"])
+        got, want = step["record"], train["records"][0]
+        loss_rel = abs(got.loss - want.loss) / abs(want.loss)
+        norm_rel = abs(got.grad_norm - want.grad_norm) / abs(want.grad_norm)
+        print(f"#   rank {r} fused qkv (fuse_qkv_params of the same "
+              f"weights): evaluation in {fused['seconds']:.2f} s, K1 "
+              f"launches {fk1}, {strided} of them on strided q/k/v views "
+              f"of the gathered projection ({TP_HEADS} heads); first-batch "
+              f"emissions vs the unfused TP's max_abs_err {ferr:.3e}; tags "
+              f"vs the unfused TP's {fagree:.6f} (floor "
+              f"{FUSED_TP_TAGS_MIN}); one train step: loss "
+              f"{got.loss:.7f} vs unfused {want.loss:.7f} (relative "
+              f"{loss_rel:.2e}, tol {DP_LOSS_RTOL:.0e}), grad norm relative "
+              f"{norm_rel:.2e}, {got.seconds * 1e3:.1f} ms ({got.tp_calls} "
+              f"TP all-reduces, {got.tp_seconds * 1e3:.1f} ms)")
+        check(fagree >= FUSED_TP_TAGS_MIN,
+              f"rank {r}: fused TP tags agree {fagree}")
+        check(got.applied and loss_rel <= DP_LOSS_RTOL,
+              f"rank {r}: fused TP step loss {got.loss} vs {want.loss}")
+        check(step["counts"]["fused_attention"] == 0,
+              f"rank {r}: K1 launched in the fused TP train step")
+        if CHECK_CONV_LAUNCHES:
+            check(fk1 == strided == LAYERS_PER_BATCH * n_batches,
+                  f"rank {r}: fused K1 launched {fk1} times ({strided} "
+                  f"strided) for {n_batches} evaluation batches")
     check(all(s["tp"]["train"]["prints"][i]["replicated"]
               == seen[0]["tp"]["train"]["prints"][i]["replicated"]
               for s in seen for i in range(DP_STEPS)),
@@ -3172,11 +3605,15 @@ def phase_tp(seen, ref, served, card) -> dict:
     return counts
 
 
-def phase_k1_local_heads(gen):
+def phase_k1_local_heads(gen, row):
     """K1 against its plain version at a tensor-parallel rank's shape:
     TP_HEADS heads of 64, B=8, S=150 with a key bias and S=172 with a full
     bias, and the evaluation's lengths (128 bare, 172 prompted) with key
-    biases, in fp32 and bf16, to phase 2's tolerances."""
+    biases, in fp32 and bf16, to phase 2's tolerances. Then timed in fp32
+    at S=150 on contiguous q/k/v and on the fused layout's views (the
+    rank's columns of a gathered (B, S, 3 x 1024) projection; bit-equal to
+    the contiguous call) beside its plain version, SDPA and its bound, with
+    the profiler's device time a launch. Adds `tp_*` keys to K1's row."""
     print(f"# phase 13: K1 fused_attention vs attention_reference at a TP "
           f"rank's {TP_HEADS} heads of 64 (B=8)")
     for dtype in (torch.float32, torch.bfloat16):
@@ -3193,6 +3630,43 @@ def phase_k1_local_heads(gen):
                 f"K1 {TP_HEADS}x64 {dtype} S={S} {kind}")
             print(f"#   {str(dtype)[6:]:8s} Sq=Sk={S:3d} bias={kind:6s} "
                   f"max_abs_err={err:.3e} ({share:.2f} of its bound)")
+    B, S, H, n = MAX_BATCH, 150, 16 * 64, TP_HEADS * 64
+    q, k, v, bias = attention_inputs(B, S, S, torch.float32, "B11Sk", gen,
+                                     N=TP_HEADS)
+    qkv = torch.zeros(B, S, 3 * H, device=q.device)
+    views = []
+    for j, t in enumerate((q, k, v)):       # rank 1's columns of each
+        qkv[..., j * H + n:j * H + 2 * n] = t
+        views.append(qkv[..., j * H + n:j * H + 2 * n])
+    out = fused_attention(q, k, v, bias, TP_HEADS)
+    check(torch.equal(fused_attention(*views, bias, TP_HEADS), out),
+          "K1 on the fused layout's views differs from K1 on copies")
+    err, _ = attention_close(out, attention_reference(q, k, v, bias,
+                                                      TP_HEADS),
+                             f"K1 {TP_HEADS}x64 at the timed shape")
+    times = {}
+    for name, args in (("contiguous", (q, k, v)), ("strided", views)):
+        times[name] = (cuda_time_ms(lambda: fused_attention(
+            *args, bias, TP_HEADS)), kernel_device_ms(
+                lambda: fused_attention(*args, bias, TP_HEADS)))
+    plain_ms = cuda_time_ms(lambda: attention_reference(q, k, v, bias,
+                                                        TP_HEADS))
+    library_ms = sdpa_ms(q, k, v, bias, TP_HEADS, 50)
+    bound_ms, bound_by, byts, flops = attention_bound(q, k, bias, TP_HEADS)
+    shape = f"B={B} Sq=Sk={S} {TP_HEADS}x64 float32 key bias"
+    row.update({"tp_shape": shape, "tp_max_abs_err": err,
+                "tp_ms": times["contiguous"][0],
+                "tp_device_ms": times["contiguous"][1],
+                "tp_strided_ms": times["strided"][0],
+                "tp_strided_device_ms": times["strided"][1],
+                "tp_plain_ms": plain_ms, "tp_bound_ms": bound_ms,
+                "tp_bound_by": bound_by, "tp_library_ms": library_ms})
+    print(f"#   {shape}: kernel {times['contiguous'][0]:.4f} ms (device "
+          f"{times['contiguous'][1]:.4f} ms a launch), on the fused views "
+          f"{times['strided'][0]:.4f} ms (device {times['strided'][1]:.4f} "
+          f"ms), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {byts / 1e6:.2f} MB, "
+          f"{flops / 1e9:.3f} GFLOP)")
 
 
 def phase_dp(args, card, dev, base, layers, served):
@@ -3202,7 +3676,8 @@ def phase_dp(args, card, dev, base, layers, served):
     steps and evaluation (phase 13)."""
     print(f"# phase 12: the data axis, {DP_RANKS} ranks on one card (gloo, "
           f"spawn): phase 3's requests through BucketedICKAServer(mesh=) in "
-          f"fp32; ICKAConfig() with ResNet-152 trained in fp32 (TF32 off), "
+          f"fp32; ICKAConfig() at {DP_TRAIN_LAYERS} layers a stack with "
+          f"ResNet-152 trained in fp32 (TF32 off), "
           f"global batch {DP_ACCUM} x {DP_BATCH}, dropout, crop and flip on, "
           f"{DP_STEPS} steps replicated and {DP_STEPS} under ZeRO-1, against "
           f"one rank; the same steps on a NCCL world of one")
@@ -3210,7 +3685,10 @@ def phase_dp(args, card, dev, base, layers, served):
     work = WORK_DIR / "dp"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    cfg = served["cfg"]
+    eval_cfg = served["cfg"]
+    cfg = dataclasses.replace(eval_cfg, **{k: dataclasses.replace(
+        getattr(eval_cfg, k), num_hidden_layers=DP_TRAIN_LAYERS)
+        for k in ("embedding", "last_encoder")})
     feats = train_corpus(args, cfg, work / "ds")
     spec = feats["train"].spec
     tcfg = TrainConfig(learning_rate=TRAIN_LR, train_batch_size=DP_BATCH,
@@ -3225,18 +3703,19 @@ def phase_dp(args, card, dev, base, layers, served):
         b["images"] = rng.integers(0, 256, b["images"].shape,
                                    dtype=np.uint8)
 
-    def trainer(**kw):
+    def trainer(cfg=cfg, **kw):
         return ICKATrainer(cfg, dataclasses.replace(tcfg, **kw), spec,
                            resnet_layers=layers, device=dev)
 
-    # one rank, no process group: the reference; first phase 13's
-    # evaluation on phase 3's weights (the seed's) and backbone
+    # one rank, no process group: first phase 13's evaluation on phase 3's
+    # weights (the seed's, full depth) and backbone, then the reference
+    # steps
     t0 = time.perf_counter()
-    ref = trainer()
+    ref = trainer(eval_cfg)
     check((spec.offset, spec.mask_positions)
           == (served["spec"].offset, served["spec"].mask_positions),
           f"the corpus's prompt layout {spec} is not phase 3's")
-    eval_batches = tp_eval_batches(served, cfg, spec)
+    eval_batches = tp_eval_batches(served, eval_cfg, spec)
     ref.backbone.load_state_dict(served["backbone"])
     ref_tags, ref_em, _ = tp_eval(ref, *eval_batches)
     calibrate_batch_stats(ref.backbone, preprocess_images(
@@ -3244,6 +3723,10 @@ def phase_dp(args, card, dev, base, layers, served):
         224, dev))
     torch.save(ref.backbone.state_dict(), work / "backbone.pt")
     backbone = ref.backbone.state_dict()
+    del ref
+    torch.cuda.empty_cache()
+    ref = trainer()
+    ref.backbone.load_state_dict(backbone)
     ref_records, ref_prints, ref_peak = dp_steps(ref, batches, dev)
     shapes = {n: tuple(p.shape) for n, p in ref.params().items()}
     ref13 = dict(records=ref_records, peak=ref_peak, tags=ref_tags,
@@ -3288,7 +3771,8 @@ def phase_dp(args, card, dev, base, layers, served):
 
     # two ranks on the card
     torch.save({"served": served, "batches": batches, "cfg": cfg,
-                "spec": spec, "tcfg": tcfg, "layers": layers,
+                "eval_cfg": eval_cfg, "spec": spec, "tcfg": tcfg,
+                "layers": layers,
                 "eval_batches": eval_batches,
                 "backbone3": served["backbone"]},
                work / "inputs.pt")
@@ -5263,6 +5747,8 @@ def main(argv=None) -> int:
         lap("phase 5")
         eval_counts = phase_evaluate(args, card, dev, ctx)
         lap("phase 6")
+        file_counts = phase_image_files(args, card, dev, ctx)
+        lap("phase 16")
         phase_k1_bert_heads(gen)
         gc_base = GateCLConfig()
         gc_serve_counts = phase_gate_cl_serving(args, card, dev, gc_base,
@@ -5282,11 +5768,11 @@ def main(argv=None) -> int:
         remat_counts, _, _ = phase_remat(args, card, dev, base, gc_base,
                                          layers, lengths)
         lap("phase 11")
-        # over the ten main paths before phase 12, each driven from counts
-        # of 0
+        # over the eleven main paths before phase 12, each driven from
+        # counts of 0
         runs = [counts, conv_counts, int8_text_counts, packed_counts,
-                eval_counts, train_counts, gc_serve_counts, gc_train_counts,
-                weights_counts, remat_counts]
+                eval_counts, file_counts, train_counts, gc_serve_counts,
+                gc_train_counts, weights_counts, remat_counts]
         total = {name: sum(c[name] for c in runs) for name in COUNTERS}
         kernels = phase_times(gen, counts["fused_attention"],
                               packed_counts["fused_attention"],
@@ -5311,23 +5797,28 @@ def main(argv=None) -> int:
         # profiler come first
         dp_counts, tp_counts = phase_dp(args, card, dev, base, layers,
                                         served)
-        phase_k1_local_heads(gen)
+        phase_k1_local_heads(gen, kernels[0])
         lap("phases 12 and 13")
         runs += [gen_counts, vcr_counts, dp_counts, tp_counts]
         total = {name: sum(c[name] for c in runs) for name in COUNTERS}
-        print(f"#   kernel launches over the fourteen main paths: {total}")
-        # K1's row counts phase 12's and 13's launches too; they launched
-        # no other kernel (checked below), so the other rows' counts stand
+        print(f"#   kernel launches over the fifteen main paths: {total}")
+        # K1's row counts phase 12's, 13's and 16's launches too; they
+        # launched no other kernel (checked below), so the other rows'
+        # counts stand
         k1 = kernels[0]
         k1["dp_launches"] = dp_counts["fused_attention"]
         k1["tp_launches"] = tp_counts["fused_attention"]
-        k1["launches"] += k1["dp_launches"] + k1["tp_launches"]
+        k1["files_launches"] = file_counts["fused_attention"]
+        k1["launches"] += (k1["dp_launches"] + k1["tp_launches"]
+                           + k1["files_launches"])
         for name in NO_CALLER:
             check(total[name] == 0, f"{name} has no caller in the model, yet "
                                     f"the main paths launched it "
                                     f"{total[name]} times")
         for name in ("int8_bottleneck_v2", "int8_stem_pool"):
             for what, c in (("evaluation", eval_counts),
+                            ("evaluation and training from files",
+                             file_counts),
                             ("training", train_counts),
                             ("gate_cl serving", gc_serve_counts),
                             ("gate_cl training", gc_train_counts),

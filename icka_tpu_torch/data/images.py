@@ -1,8 +1,10 @@
 """Image pipeline: host-side decode, device-side preprocessing (port of
 `icka_tpu.data.images`).
 
-  host   : decode (PIL, or the native library through the loader) -> uint8
-           RGB resized to `decode_size`^2 (256);
+  host   : decode -> uint8 RGB resized to `decode_size`^2 (256): JPEGs
+           through the loader's `native` module (the native library's
+           box filter, from the library or PIL's libjpeg), what it
+           refuses through `decode_image` (PIL's bicubic resize);
   device : crop (random at train, center at eval) + horizontal flip at
            train + ImageNet normalisation.
 

@@ -15,10 +15,11 @@ bit. Eval batches cover the split in order; the tail batch is padded by
 repeating its last row, and `row_valid` flags the real rows so
 evaluators drop the duplicates.
 
-JPEG paths go through the native threaded decoder
-(`icka_tpu_torch.data.native`) when it loads, else through
-`icka_tpu_torch.data.images.decode_image`, in the same order as the JAX
-loader, so both give the same pixels.
+JPEG paths go through the native library's contract
+(`icka_tpu_torch.data.native`: the library where it loads, else the same
+pixels through PIL's libjpeg, threaded either way); what it refuses goes
+through `icka_tpu_torch.data.images.decode_image`, then the fallback
+image, in the same order as the JAX loader, so both give the same pixels.
 """
 
 from __future__ import annotations
@@ -98,9 +99,9 @@ class MNERLoader:
         return arr
 
     def _decode_uncached(self, rows) -> None:
-        """Decode `rows` not yet in the cache with the native threaded
-        batch decoder when available (single-image path otherwise). Cached
-        mode fills `self._cache`; uncached mode fills the transient
+        """Decode `rows` not yet in the cache with the threaded batch
+        decoder where every path is a JPEG (single-image path otherwise).
+        Cached mode fills `self._cache`; uncached mode fills the transient
         per-batch `self._tmp`."""
         sink = self._cache if self._cache is not None else self._tmp
         if self._cache is None:
@@ -110,19 +111,17 @@ class MNERLoader:
             return
         paths = [self._path(r) for r in todo]
         if all(p.endswith((".jpg", ".jpeg")) for p in paths):
-            res = native.decode_jpeg_batch(paths, self.decode_size,
-                                           num_threads=self.decode_threads)
-            if res is not None:
-                arrs, failures = res
-                for i, r in enumerate(todo):
-                    arr = arrs[i]
-                    if arr.any() or failures == 0:
-                        sink[r] = arr
-                        continue
-                    # zeroed row = native failure -> PIL/fallback path
-                    sink[r] = decode_image(
-                        paths[i], self.decode_size, self.fallback_image)
-                return
+            arrs, failures = native.decode_jpeg_batch(
+                paths, self.decode_size, num_threads=self.decode_threads)
+            for i, r in enumerate(todo):
+                arr = arrs[i]
+                if arr.any() or failures == 0:
+                    sink[r] = arr
+                    continue
+                # zeroed row = decode failure -> PIL/fallback path
+                sink[r] = decode_image(
+                    paths[i], self.decode_size, self.fallback_image)
+            return
         # otherwise _image() decodes one image at a time
 
     def _assemble(self, rows: np.ndarray) -> Dict[str, np.ndarray]:

@@ -27,7 +27,11 @@ value (cross-attention keeps the three).
 
 On a model axis (`icka_tpu_torch.parallel.tensor`) a layer's heads and
 FFN columns are split: q/k/v and `wi` are column-parallel, the attention
-output and `wo` row-parallel, in self- and cross-attention alike.
+output and `wo` row-parallel, in self- and cross-attention alike. A fused
+`qkv` (which the specs split by the generic rule, or not at all) is read
+at the rank's heads' columns; where the axis does not divide the heads,
+every rank runs every head and keeps its columns of the context. The
+adapter runs whole after `wo`'s sum.
 """
 
 from __future__ import annotations
@@ -101,11 +105,21 @@ class MultiHeadAttention(nn.Module):
     attention only) holds one `qkv` Dense (H, 3H) whose output splits into
     q, k and v; the kernel reads the three as views of it, in place.
 
-    On a model axis whose specs split q, k and v by columns, the layer
-    runs `num_heads / model` heads (`local_heads`, the kernel's too), its
-    inputs' gradients summed over the model group once each (x, and kv in
-    cross-attention). A fused `qkv` is refused there: the specs split it by
-    the generic rule, across heads."""
+    On a model axis whose attention output is row-parallel (`shard_heads`,
+    from the layer that holds both), the layer emits this rank's columns
+    of the context, the output's input rows:
+      - where the axis divides the heads, it runs its `num_heads / model`
+        heads (`local_heads`, the kernel's too): unfused, q, k and v
+        column-parallel, its inputs' gradients summed over the model group
+        once each (x, and kv in cross-attention); fused, the heads'
+        columns of q, k and v read as views of the whole (B, S, 3H)
+        projection (gathered where the specs split `qkv`, replicated
+        where they do not), whose gradient is summed over the group;
+      - otherwise every rank runs every head on whole q, k and v (each
+        projection gathered, or fused and whole) and cuts its columns out
+        of the context, whose gradient is summed over the group.
+    Elsewhere the layer computes as on one rank (a `qkv` the specs split
+    gathered whole)."""
 
     def __init__(self, hidden: int, num_heads: int, dtype=torch.float32,
                  use_pallas: bool = False, softmax_dtype=torch.float32,
@@ -131,51 +145,60 @@ class MultiHeadAttention(nn.Module):
         self.shard = None
         self.local_heads = num_heads
 
-    def shard_model_axis(self, shard, specs) -> tuple:
-        """`parallel.tensor.tensor_parallel`'s hook: q, k and v made
-        "column" and the heads cut where the specs split them."""
-        if self.fuse_qkv:
-            raise NotImplementedError(
-                "fuse_qkv on a model axis: the specs split the fused qkv "
-                "kernel by the generic rule, across heads (ROADMAP Queue 1)")
-        proj = (self.query, self.key, self.value)
-        if self.query.mode is None:
-            return ()
-        if self.num_heads % shard.size:
-            raise NotImplementedError(
-                f"attention of {self.num_heads} heads on a model axis of "
-                f"{shard.size} (ROADMAP Queue 1): the axis must divide the "
-                f"heads")
-        for p in proj:
-            p.mode = "column"
-        self.shard, self.local_heads = shard, self.num_heads // shard.size
-        return ()
+    def shard_heads(self, shard) -> None:
+        """Lay the heads out on the model axis `shard` for a row-parallel
+        attention output: this rank's heads where the axis divides them,
+        else every head (the class docstring)."""
+        self.shard = shard
+        if self.num_heads % shard.size == 0:
+            self.local_heads = self.num_heads // shard.size
+            if not self.fuse_qkv:
+                for p in (self.query, self.key, self.value):
+                    p.mode = "column"
 
     def forward(self, x, kv=None, bias=None, dropout_gen=None):
+        heads = self.local_heads
+        per_rank = heads < self.num_heads        # this rank's heads only
         if self.fuse_qkv:
             if kv is not None:
                 raise ValueError("a fused qkv projection is self-attention "
                                  "only")
-            q, k, v = self.qkv(x).split(x.shape[-1], dim=-1)
+            H = x.shape[-1]
+            y = self.qkv(x)
+            if per_rank:
+                # the rank's heads' columns, read in place; the ranks'
+                # gradients of their columns summed into the whole one
+                y = copy_to_model(y, self.shard)
+                n = H // self.shard.size
+                q, k, v = (y.narrow(-1, j * H + self.shard.index * n, n)
+                           for j in range(3))
+            else:
+                q, k, v = y.split(H, dim=-1)
         else:
-            x = copy_to_model(x, self.shard)
-            kv = x if kv is None else copy_to_model(kv, self.shard)
+            shard = self.shard if per_rank else None
+            x = copy_to_model(x, shard)
+            kv = x if kv is None else copy_to_model(kv, shard)
             q, k, v = self.query(x), self.key(kv), self.value(kv)
-        heads = self.local_heads
         if self.use_pallas and (dropout_gen is None
                                 or self.dropout_rate == 0.0):
             if bias is None:
                 bias = torch.zeros(q.shape[0], 1, 1, k.shape[1],
                                    device=q.device)
-            return fused_attention(q, k, v, bias, num_heads=heads)
-        q, k, v = (_split_heads(t, heads) for t in (q, k, v))
-        ctx = dot_product_attention(
-            q, k, v, bias=bias, dtype=self.dtype,
-            softmax_dtype=self.softmax_dtype, dropout_rate=self.dropout_rate,
-            dropout_gen=dropout_gen,
-            head_cut=None if self.shard is None
-            else self.shard.cut(1, heads))
-        return _merge_heads(ctx)
+            ctx = fused_attention(q, k, v, bias, num_heads=heads)
+        else:
+            q, k, v = (_split_heads(t, heads) for t in (q, k, v))
+            ctx = _merge_heads(dot_product_attention(
+                q, k, v, bias=bias, dtype=self.dtype,
+                softmax_dtype=self.softmax_dtype,
+                dropout_rate=self.dropout_rate, dropout_gen=dropout_gen,
+                head_cut=self.shard.cut(1, heads) if per_rank else None))
+        if self.shard is None or per_rank:
+            return ctx
+        # every head ran on every rank: the rank's columns are the
+        # row-parallel output's input rows
+        ctx = copy_to_model(ctx, self.shard)
+        n = ctx.shape[-1] // self.shard.size
+        return ctx.narrow(-1, self.shard.index * n, n)
 
 
 class AttentionOutput(nn.Module):
@@ -209,7 +232,11 @@ class FeedForward(nn.Module):
         pre = wo(act(wi(x))) + x
         out = LN(up(relu(down(LN(pre)))) + pre)      # one LN, shared
 
-    A model axis refuses the adapter."""
+    On a model axis `wi` and `wo` are the column/row pair; `pre` is whole
+    after `wo`'s sum, so the adapter runs as on one rank: `adapter_down`
+    replicated, `adapter_up` gathered where the specs split it (output
+    width >= 1024; its bias is then a partial leaf) and replicated
+    elsewhere."""
 
     def __init__(self, hidden: int, intermediate: int, eps: float,
                  act: str = "gelu", dtype=torch.float32, quant: str = "none",
@@ -234,10 +261,6 @@ class FeedForward(nn.Module):
         self.shard = None
 
     def shard_model_axis(self, shard, specs) -> tuple:
-        if self.adapter:
-            raise NotImplementedError(
-                "a Pfeiffer adapter on a model axis: its layers are not "
-                "split or tested there")
         self.shard = column_row_pair(self.wi, self.wo)
         return ()
 
@@ -277,6 +300,13 @@ class _AttentionLayer(nn.Module):
             quant=cfg.quant, dropout_rate=cfg.hidden_dropout_prob,
             adapter_size=cfg.adapter_size if self_attention else 0,
             device=dev, generator=gen)
+
+    def shard_model_axis(self, shard, specs) -> tuple:
+        """`parallel.tensor.tensor_parallel`'s hook, after its children's:
+        the heads laid out for a row-parallel attention output."""
+        if self.attn_out.dense.mode == "row":
+            self.attn.shard_heads(shard)
+        return ()
 
 
 def history_kv(x, bias, history, history_bias):

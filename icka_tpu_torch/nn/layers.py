@@ -171,7 +171,11 @@ class Dense(nn.Module):
         """`parallel.tensor.tensor_parallel`'s hook: "gather" where the
         weight's output dimension is split (a layer that consumes its
         columns makes it "column"), "row" where its input dimension is.
-        Returns the leaves used in part: the bias of a column split."""
+        Returns the leaves used in part: the bias of a column split.
+
+        Refused, and neither is a gap: a Dense without bias (only
+        ChunkAlign's `lm_head`, which no entry point puts on a mesh), and
+        an int8 Dense (serving buffers, never trained)."""
         if self.bias is None:
             raise NotImplementedError("a Dense without bias on a model axis")
         if self.quant != "none":

@@ -15,9 +15,14 @@ part it computes:
   - row: the attention output and a `wo` split on their input dimension
     compute their partial product, sum it over the model group, then add
     the bias once;
-  - gathered: a Dense split on its output dimension by the generic rule
-    (output width >= 1024), whose consumer needs the whole output,
-    computes its columns and gathers the others;
+  - gathered: a Dense split on its output dimension whose consumer needs
+    the whole output computes its columns and gathers the others: a
+    kernel the generic rule splits (output width >= 1024: a fused `qkv`,
+    an adapter's `adapter_up`), and q/k/v where the axis does not divide
+    the heads. A layer that then uses only its part of a whole activation
+    (a rank's heads' columns of a fused q/k/v, its columns of a context
+    every rank computed) takes it after `copy_to_model`, which sums the
+    ranks' gradients of their parts into the whole one;
   - vocabulary-parallel: `word_embeddings` split over the vocabulary
     looks up the ids in the rank's range (zero elsewhere), summed over
     the model group.

@@ -127,12 +127,6 @@ def test_feed_forward_adapter_equals_jax(adapter):
                                atol=1e-5)
 
 
-def test_adapter_refuses_a_model_axis():
-    ffn = FeedForward(16, 24, 1e-12, adapter_size=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="adapter"):
-        ffn.shard_model_axis(object(), {})
-
-
 def test_converter_reads_the_adapter_layout_back(ckpt):
     """`chunker_params_from_torch` on the adapter-transformers state dict
     gives back the tree it was written from, as JAX's converter does."""

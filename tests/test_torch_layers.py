@@ -245,13 +245,19 @@ def test_inputs_embeds_of_the_word_embeddings_is_the_id_path(text_encoder):
 
 def test_unported_options_raise():
     """The Pfeiffer adapter builds (`tests/test_torch_chunker.py` holds it
-    to JAX) and is refused on a model axis; an unknown quant mode
-    raises."""
+    to JAX) and goes on a model axis (`tests/test_torch_tp_train.py`
+    holds it to one rank): at this width its layers stay replicated
+    beside the column/row pair; an unknown quant mode raises."""
+    from icka_tpu_torch.core.mesh import Mesh
+    from icka_tpu_torch.parallel.tensor import tensor_parallel
     tc = dataclasses.replace(TEncoderConfig.tiny(), adapter_size=8)
-    ffn = tattn.SelfAttentionLayer(tc, device=CPU).ffn
+    layer = tattn.SelfAttentionLayer(tc, device=CPU)
+    ffn = layer.ffn
     assert tuple(ffn.adapter_down.weight.shape) == (8, tc.hidden_size)
-    with pytest.raises(NotImplementedError):
-        ffn.shard_model_axis(None, {})
+    tensor_parallel(layer, Mesh(1, 2, 0, None, torch.device("cpu"),
+                                model_rank=0))
+    assert (ffn.wi.mode, ffn.wo.mode, ffn.adapter_down.mode,
+            ffn.adapter_up.mode) == ("column", "row", None, None)
     with pytest.raises(ValueError):
         tattn.SelfAttentionLayer(
             dataclasses.replace(TEncoderConfig.tiny(), quant="int4"),

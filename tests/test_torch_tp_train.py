@@ -47,9 +47,10 @@ from icka_tpu_torch.core.checkpoint import Checkpointer
 from icka_tpu_torch.core.config import EncoderConfig
 from icka_tpu_torch.core.mesh import (Mesh, MeshSpec, draw, init_distributed,
                                       make_mesh)
-from icka_tpu_torch.nn.attention import FeedForward
+from icka_tpu_torch.nn.attention import (CrossAttentionLayer, FeedForward,
+                                         SelfAttentionLayer)
 from icka_tpu_torch.nn.bert import TextEmbeddings
-from icka_tpu_torch.nn.layers import Dense, dropout
+from icka_tpu_torch.nn.layers import Dense, additive_mask, dropout
 from icka_tpu_torch.parallel.partitioning import (cut, param_partition_specs,
                                                   zero1_moment_specs)
 from icka_tpu_torch.parallel.tensor import tensor_parallel
@@ -77,6 +78,28 @@ def _remat_trainer(policy, **train):
                        device="cpu")
 
 
+def _fused_cfg(dropout=True):
+    """`_cfg` with a fused qkv and a Pfeiffer adapter in both
+    self-attention stacks (the qkv's 96 outputs and the adapter stay
+    replicated at this width; `_AttnLayers` holds them split)."""
+    cfg = _cfg(dropout)
+    enc = dataclasses.replace(cfg.embedding, fuse_qkv=True, adapter_size=8)
+    return dataclasses.replace(cfg, embedding=enc, last_encoder=enc)
+
+
+def _fused_trainer(dropout=True, use_pallas=False, **train):
+    from icka_tpu_torch.train.trainer import ICKATrainer
+    cfg = _fused_cfg(dropout)
+    enc = dataclasses.replace(cfg.embedding, use_pallas=use_pallas)
+    tr = ICKATrainer(dataclasses.replace(cfg, embedding=enc,
+                                         last_encoder=enc),
+                     _train_cfg(**train), SPEC, resnet_layers=(1, 1, 1, 1),
+                     device="cpu")
+    if not dropout:
+        tr.model.map_alignment.dropout = tr.model.map_vision.dropout = 0.0
+    return tr
+
+
 def _train_cfg(**train):
     from icka_tpu_torch.core.config import TrainConfig
     return TrainConfig(**dict(TRAIN, **train))
@@ -92,6 +115,12 @@ def _eval_trainer(**train):
                                            last_encoder=enc),
                        _train_cfg(**train), SPEC, resnet_layers=(1, 1, 1, 1),
                        device="cpu")
+
+
+def _fused_eval_trainer(**train):
+    """`_eval_trainer` with `_fused_cfg`'s stacks: K1 on q, k and v read
+    as views of the fused projection."""
+    return _fused_trainer(use_pallas=True, **train)
 
 
 def _eval_batches():
@@ -165,6 +194,71 @@ def _layers_run(mesh=None):
                       layers.emb.vocab_shard is not None)}
 
 
+def _attn_cfg(hidden, heads, **kw):
+    return dataclasses.replace(EncoderConfig.tiny(256), hidden_size=hidden,
+                               num_attention_heads=heads,
+                               intermediate_size=2 * hidden, **kw)
+
+
+ATTN_LAYERS = {
+    # 3H = 1152 >= 1024: qkv split by the generic rule and gathered; the
+    # heads divide at model 2 (3 a rank) and do not at 4
+    "fused": lambda gen: SelfAttentionLayer(
+        _attn_cfg(384, 6, fuse_qkv=True, use_pallas=True), device="cpu",
+        generator=gen),
+    # 3H = 96: qkv replicated, the heads' columns cut out of it
+    "fused_tiny": lambda gen: SelfAttentionLayer(
+        _attn_cfg(32, 4, fuse_qkv=True, use_pallas=True), device="cpu",
+        generator=gen),
+    # 3 heads of 8: q, k and v split (24 divides) but not the heads
+    "uneven": lambda gen: SelfAttentionLayer(
+        _attn_cfg(24, 3, use_pallas=True), device="cpu", generator=gen),
+    "uneven_cross": lambda gen: CrossAttentionLayer(
+        _attn_cfg(24, 3), device="cpu", generator=gen),
+    # adapter_up's 1024 outputs split by the generic rule, adapter_down not
+    "adapter": lambda gen: FeedForward(WIDE, 64, 1e-12, adapter_size=8,
+                                       device="cpu", generator=gen),
+}
+
+
+def _attn_layers_run(name, mesh=None):
+    """One of `ATTN_LAYERS` whole or on `mesh`'s model axis: its output
+    with dropout (a generator of one seed on every rank) and without (K1's
+    path where the layer has it), the input gradients and this rank's
+    parameter gradients (partial leaves summed over the model group), and
+    how the layout set the layer's Dense layers."""
+    gen = torch.Generator().manual_seed(8)
+    layer = ATTN_LAYERS[name](gen)
+    for p in layer.parameters():                 # biases away from zero
+        if p.ndim == 1:
+            with torch.no_grad():
+                p.normal_(0.0, 0.1, generator=gen)
+    layout = tensor_parallel(layer, mesh) if mesh is not None else None
+    width = layer.wi.weight.shape[1] if name == "adapter" else (
+        layer.attn_out.dense.weight.shape[0])
+    x = torch.randn(2, 5, width, generator=gen, requires_grad=True)
+    kv = torch.randn(2, 7, width, generator=gen, requires_grad=True)
+    weight = torch.randn(2, 5, width, generator=gen)
+    args = {"adapter": (x,), "uneven_cross": (x, kv, additive_mask(
+        torch.tensor([[1] * 7, [1] * 4 + [0] * 3])))}.get(name, (
+            x, additive_mask(torch.tensor([[1] * 5, [1] * 3 + [0] * 2]))))
+    out = layer(*args, dropout_gen=torch.Generator().manual_seed(9))
+    (out * weight).sum().backward()
+    with torch.no_grad():
+        plain = layer(*args)
+    grads = {n: p.grad for n, p in layer.named_parameters()
+             if p.grad is not None}
+    if layout is not None:
+        layout.sum_partial_(grads)
+    modes = {n: m.mode for n, m in layer.named_modules()
+             if isinstance(m, Dense)}
+    return {"outs": [out.detach(), plain],
+            "inputs": [x.grad] + ([kv.grad] if name == "uneven_cross"
+                                  else []),
+            "grads": _numpy(grads), "modes": modes,
+            "heads": None if name == "adapter" else layer.attn.local_heads}
+
+
 def _tp_run(tr, batches, checkpoint=None):
     """`_run` plus the parameters gathered to the whole layout
     (`state_tree`) and the local shapes this rank holds."""
@@ -209,7 +303,11 @@ def _rank_main(rank: int, world: int, model: int, out: str):
             "coords": (0, rank),
             "replicated": _tp_run(_trainer(**wide), batches["train"]),
             "gate_cl": {"gate_cl": _run(_gate_cl("gate_cl", **wide),
-                                        batches["train"])}}
+                                        batches["train"])},
+            "fused": _run(_fused_trainer(**wide), batches["train"])}
+        wide_mesh = make_mesh(MeshSpec(data=1, model=world), device="cpu")
+        seen["1x4"]["attn_layers"] = {
+            name: _attn_layers_run(name, wide_mesh) for name in ATTN_LAYERS}
         _cli(out, rank, ["--model", "gate_cl", "--model_axis", str(world)])
         torch.save(seen, out / f"rank{rank}.pt")
         dist.destroy_process_group()
@@ -223,6 +321,11 @@ def _rank_main(rank: int, world: int, model: int, out: str):
                                   batches["train"][:1])
                      for policy in REMAT_POLICIES}
     seen["evaluation"] = _evaluation(_eval_trainer(**axes))
+    seen["fused"] = _run(_fused_trainer(**axes), batches["train"])
+    tr = _fused_trainer(dropout=False, gradient_accumulation_steps=1, **axes)
+    tr.init_state(total_steps=1)
+    seen["fused_jax_step_loss"] = tr.train_step(batches["jax"], (0, 0)).loss
+    seen["fused_evaluation"] = _evaluation(_fused_eval_trainer(**axes))
     # the one-rank snapshot resumed here
     again = _trainer(**axes)
     again.init_state(total_steps=2 * STEPS)
@@ -233,6 +336,8 @@ def _rank_main(rank: int, world: int, model: int, out: str):
                        "nu": _numpy(again.opt_state.nu),
                        "step": again.step}
     seen["layers"] = _layers_run(mesh)
+    seen["attn_layers"] = {name: _attn_layers_run(name, mesh)
+                           for name in ATTN_LAYERS}
     _cli(out, rank, ["--model_axis", str(model)])
     torch.save(seen, out / f"rank{rank}.pt")
     dist.destroy_process_group()
@@ -245,7 +350,11 @@ def _one_rank(root):
             "gate_cl": {v: _run(_gate_cl(v), batches["train"])
                         for v in VARIANTS},
             "evaluation": _evaluation(_eval_trainer()),
-            "layers": _layers_run()}
+            "fused": _run(_fused_trainer(), batches["train"]),
+            "fused_evaluation": _evaluation(_fused_eval_trainer()),
+            "layers": _layers_run(),
+            "attn_layers": {name: _attn_layers_run(name)
+                            for name in ATTN_LAYERS}}
 
 
 @pytest.fixture(scope="module")
@@ -272,6 +381,7 @@ def runs(tmp_path_factory):
             p.start()
     refs = _one_rank(root)
     refs["jax_loss"] = _jax_step_loss()
+    refs["fused_jax_loss"] = _jax_step_loss(_fused_cfg, _fused_trainer)
     refs["first"] = first_seen
     refs["first_state"] = {"params": _numpy(first.params()),
                            "mu": _numpy(first.opt_state.mu),
@@ -407,10 +517,11 @@ def test_gate_cl_tp_ranks_compute_the_one_rank_step(runs, mesh, variant):
                               _model_slices(want, _mesh_of(mesh, rank)))
 
 
-def _jax_step_loss():
+def _jax_step_loss(make_cfg=_cfg, make_trainer=_trainer):
     """Dropout 0, no crop or flip: the JAX `ICKATrainer` step's loss on a
-    one-device mesh, from the weights of `_trainer(dropout=False)`, on the
-    batch the ranks take their dropout-free step on."""
+    one-device mesh, from the weights of `make_trainer(dropout=False)`
+    (configuration `make_cfg(dropout=False)`), on the batch the ranks take
+    their dropout-free step on."""
     import jax
     import jax.numpy as jnp
 
@@ -424,12 +535,12 @@ def _jax_step_loss():
     from icka_tpu.train.trainer import ICKATrainState
     from tests.test_torch_dp_train import LAYERS, _batches
 
-    port = _trainer(dropout=False)
+    port = make_trainer(dropout=False)
     params = jax.tree.map(jnp.asarray, icka_variables_from_state_dict(
         port.model.state_dict())["params"])
     train = dict(TRAIN, gradient_accumulation_steps=1, data_axis=1)
     jcfg = jconfig.from_json(jconfig.ICKAConfig, json.dumps(
-        dataclasses.asdict(_cfg(dropout=False))))
+        dataclasses.asdict(make_cfg(dropout=False))))
     mesh = jax_make_mesh(JaxMeshSpec(data=1), devices=jax.devices()[:1])
     jtr = JaxTrainer(jcfg, jconfig.TrainConfig(**train),
                      JaxPromptSpec(**dataclasses.asdict(SPEC)), mesh=mesh,
@@ -569,27 +680,109 @@ def test_cli_trains_with_a_model_axis(runs, group):
     assert manifest["steps"] == [3] and manifest["best_step"] == 3
 
 
+def _assert_layer_equal(got, want, mesh, rank, atol):
+    """Outputs, input gradients and this rank's parameter gradients (a
+    slice of the whole layer's where the specs split the leaf) within
+    `atol`."""
+    assert len(got["outs"] + got["inputs"]) == len(
+        want["outs"] + want["inputs"])
+    for a, b in zip(got["outs"] + got["inputs"],
+                    want["outs"] + want["inputs"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=atol)
+    specs = param_partition_specs(
+        {n: v.shape for n, v in want["grads"].items()}, MESHES[mesh][1])
+    sliced = _sliced(want["grads"], _mesh_of(mesh, rank), specs)
+    assert got["grads"].keys() == sliced.keys()
+    for name, w in sliced.items():
+        np.testing.assert_allclose(got["grads"][name], w, rtol=0, atol=atol,
+                                   err_msg=name)
+
+
+# each attention layer's Dense modes and heads a rank runs, at model 2 and 4
+ATTN_LAYOUTS = {
+    "fused": ({"attn.qkv": "gather", "attn_out.dense": "row",
+               "ffn.wi": "column", "ffn.wo": "row"}, {2: 3, 4: 6}),
+    "fused_tiny": ({"attn.qkv": None, "attn_out.dense": "row",
+                    "ffn.wi": "column", "ffn.wo": "row"}, {2: 2, 4: 1}),
+    "uneven": ({"attn.query": "gather", "attn.key": "gather",
+                "attn.value": "gather", "attn_out.dense": "row",
+                "ffn.wi": "column", "ffn.wo": "row"}, {2: 3, 4: 3}),
+    "adapter": ({"wi": "column", "wo": "row", "adapter_down": None,
+                 "adapter_up": "gather"}, {2: None, 4: None}),
+}
+ATTN_LAYOUTS["uneven_cross"] = ATTN_LAYOUTS["uneven"]
+
+
+def _assert_attn_layer(runs, mesh, name):
+    """`ATTN_LAYERS[name]` on each rank of `mesh` against the whole layer
+    (1e-5: the layers are up to 1024 wide), with the layout it took."""
+    _, seen, refs = runs
+    modes, heads = ATTN_LAYOUTS[name]
+    for rank, s in enumerate(seen[mesh]):
+        got = s["attn_layers"][name]
+        assert got["modes"] == modes
+        assert got["heads"] == heads[MESHES[mesh][1]]
+        _assert_layer_equal(got, refs["attn_layers"][name], mesh, rank, 1e-5)
+
+
 def test_layers_tp_modes_equal_the_whole_layers(runs):
     """The column/row pair (a FeedForward), the gathered Dense of 1024
     outputs and the vocabulary-parallel lookup on two ranks: outputs,
     input gradients and each rank's parameter gradients (the partial
     biases summed over the model group) within 1e-6 of the whole
-    layers'."""
+    layers'. Then the layouts that were refused: a fused qkv split by
+    the generic rule and gathered, and replicated, each read at the
+    rank's heads; 3 heads on 2 ranks in self- and cross-attention; the
+    adapter with its `adapter_up` gathered."""
     _, seen, refs = runs
-    want = refs["layers"]
-    shapes = {n: v.shape for n, v in want["grads"].items()}
-    specs = param_partition_specs(shapes, 2)
     for rank, s in enumerate(seen["1x2"]):
         got = s["layers"]
         assert got["modes"] == ("column", "row", "gather", True)
-        for a, b in zip(got["outs"] + got["inputs"],
-                        want["outs"] + want["inputs"]):
-            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
-        sliced = _sliced(want["grads"], _mesh_of("1x2", rank), specs)
-        assert got["grads"].keys() == sliced.keys()
-        for name, w in sliced.items():
-            np.testing.assert_allclose(got["grads"][name], w, rtol=0,
-                                       atol=1e-6, err_msg=name)
+        _assert_layer_equal(got, refs["layers"], "1x2", rank, 1e-6)
+    for name in ATTN_LAYERS:
+        _assert_attn_layer(runs, "1x2", name)
+
+
+@pytest.mark.parametrize("name", list(ATTN_LAYERS))
+def test_attention_layouts_on_four_ranks(runs, name):
+    """The same layers at (1, 4): the fused qkv of 6 heads and the 3-head
+    layers every head on every rank, the tiny fused one a head a rank."""
+    _assert_attn_layer(runs, "1x4", name)
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "1x4"])
+def test_tp_fused_qkv_and_adapter_step_equals_one_rank(runs, mesh):
+    """`_fused_cfg` (a fused qkv and an adapter in both stacks, dropout
+    on): losses and each rank's gradient slices against one rank's."""
+    _, seen, refs = runs
+    for rank, s in enumerate(seen[mesh]):
+        _assert_one_rank_step(s["fused"], _model_slices(
+            refs["fused"], _mesh_of(mesh, rank)))
+
+
+def test_tp_fused_qkv_and_adapter_step_matches_jax(runs):
+    """The (1, 2) step of `_fused_cfg` without dropout within 1e-4
+    relative of the JAX step of the same configuration on one device."""
+    _, seen, refs = runs
+    for s in seen["1x2"]:
+        np.testing.assert_allclose(s["fused_jax_step_loss"],
+                                   refs["fused_jax_loss"], rtol=1e-4, atol=0)
+
+
+def test_tp_fused_evaluation_tags_equal_one_rank(runs):
+    """K1's path (its plain version here) on the rank's heads read out of
+    the fused projection: tags identical to one rank's, F1 and rows
+    equal, the loss within 1e-5 relative."""
+    _, seen, refs = runs
+    want = refs["fused_evaluation"]
+    for s in seen["1x2"]:
+        got = s["fused_evaluation"]
+        for a, b in zip(got["tags"], want["tags"]):
+            np.testing.assert_array_equal(a, b)
+        assert got["result"][0] == want["result"][0]
+        assert got["result"][2] == want["result"][2] == 16
+        np.testing.assert_allclose(got["result"][1], want["result"][1],
+                                   rtol=1e-5)
 
 
 @pytest.mark.parametrize("dim", [1, -1])
@@ -621,16 +814,7 @@ def test_cut_draws_are_the_whole_draws_sliced(dim):
 def _refused(case):
     """What a model axis refuses, on a mesh of one process (the layout
     is set without a collective)."""
-    model = 8 if case == "heads" else 2
-    mesh = Mesh(1, model, 0, None, torch.device("cpu"), model_rank=0)
-    enc = EncoderConfig.tiny(256)
-    if case == "fuse_qkv":
-        from icka_tpu_torch.nn.attention import SelfAttentionLayer
-        return tensor_parallel(SelfAttentionLayer(
-            dataclasses.replace(enc, fuse_qkv=True), device="cpu"), mesh)
-    if case == "heads":              # hidden 32 divides by 8, 4 heads do not
-        from icka_tpu_torch.nn.attention import SelfAttentionLayer
-        return tensor_parallel(SelfAttentionLayer(enc, device="cpu"), mesh)
+    mesh = Mesh(1, 2, 0, None, torch.device("cpu"), model_rank=0)
     if case == "int8":
         return tensor_parallel(FeedForward(32, 64, 1e-12, quant="int8_static",
                                            device="cpu"), mesh)
@@ -643,13 +827,10 @@ def _refused(case):
 
 
 @pytest.mark.parametrize("case,kind,match", [
-    ("fuse_qkv", NotImplementedError, "fuse_qkv"),
-    ("heads", NotImplementedError, "4 heads on a model axis of 8"),
     ("int8", NotImplementedError, "int8"),
     ("server", ValueError, "tensor-parallel")])
 def test_model_axis_refusals(case, kind, match):
-    """A fused qkv (split across heads by the generic rule), a model size
-    that does not divide the heads, an int8 Dense (serving buffers, never
-    trained), and a server given a rank's slices of a model."""
+    """An int8 Dense (serving buffers, never trained) and a server given a
+    rank's slices of a model."""
     with pytest.raises(kind, match=match):
         _refused(case)
