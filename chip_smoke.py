@@ -7,15 +7,18 @@ Phases; any failure exits non-zero:
 
   1. build every CUDA kernel from `icka_tpu_torch/kernels/csrc` (one nvcc
      per source, all started together), count the tensor-core instructions
-     in the blockwise library (bf16 HMMA and TF32 HMMA apart) and in the
-     int8 library (IMMA, and no dp4a left), check that no fp32 CUDA-core
-     attention instance is left at widths up to 128, print registers and
-     spills of every instance, and print the card's name and power limit as
-     nvidia-smi gives them;
+     in the blockwise library (bf16 HMMA and TF32 HMMA apart, and the wgmma
+     body's HGMMA and its TMA loads, UTMALDG) and in the int8 library
+     (IMMA, and no dp4a left), check that no fp32 CUDA-core attention
+     instance is left at widths up to 128 and that the four wgmma instances
+     neither spill nor have their wgmma serialised by ptxas (C7518), print
+     registers and spills of every instance, and print the card's name and
+     power limit as nvidia-smi gives them;
   2. hold every kernel against its plain PyTorch version on the card at the
      main paths' shapes: K1 `fused_attention` and K2
      `fused_attention_blockwise` (up to width 128 on the blockwise kernel's
-     tensor-core bodies, bf16 and 3xTF32) in fp32 (TF32 off for the plain
+     tensor-core bodies: bf16 at 64 on wgmma, at the other widths on
+     mma.sync, fp32 on 3xTF32) in fp32 (TF32 off for the plain
      versions) and bf16 within a tolerance, at every head width they are
      built for (up to 256), at four widths they zero-pad (8, 24, 40, 144)
      and at two above 256 (272, 512: column chunks); K2 against
@@ -156,7 +159,7 @@ Phases; any failure exits non-zero:
  12. the data axis (last, after 7), two ranks on the one card: NCCL
      refuses two ranks on one GPU, so they run over gloo, which carries
      CUDA tensors through the host, started with `spawn`. `ICKAConfig()`
-     with ResNet-152 in fp32 (TF32 off), 12 layers a RoBERTa stack (the
+     with ResNet-152 in fp32 (TF32 off), 4 layers a RoBERTa stack (the
      script's time limit), on a global batch of 2 x 8 from
      phase 8's corpus with random images (crop and flip) and dropout on:
      two steps on one rank without a process group (the reference), the
@@ -251,14 +254,22 @@ Phases; any failure exits non-zero:
   7. time each kernel at its main-path shape beside its plain version, the
      PyTorch library call for the same function where there is one, its
      bound and its recorded time before its redesign (comment lines only);
-     K1's tilings in bf16 and in fp32; K1 and K2 in fp32 at K1's two
+     the wgmma body at every bf16 head-64 shape of PERF.md's kernel table
+     (K1 at 150 and 172 with 16 heads and 128 and 48 with 12, K2 at 150,
+     172, 512 and 1024) by the profiler's device time a launch, at each of
+     its four tilings too, beside SDPA, the bound and the recorded time of
+     the mma.sync body (`MMA_SYNC_MS`); K1's fp32 tilings; K1 and K2 in
+     fp32 at K1's two
      shapes; both at the first head width above 256; K1 at the gate_cl
      family's 12 heads (S=128 key bias, S=48 full bias, both types; at 128
      also on the strided q/k/v views of one fused projection); time the
      served requests end to end.
 
-The line before the last is the `{"kernels": [...]}` JSON object; the last
-line is `{"ok": true, "device": {...}}`. Needs CUDA; imports nothing of JAX.
+After the last phase, every bf16 launch of K1 and K2 on the fifteen main
+paths must have run the wgmma body (`wgmma_launches` equal to
+`bf16_launches`, path by path). The line before the last is the
+`{"kernels": [...]}` JSON object; the last line is `{"ok": true, "device":
+{...}}`. Needs CUDA; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -324,9 +335,9 @@ from icka_tpu_torch.generation.kv_cache import (cached_caption_step,
 from icka_tpu_torch.kernels import build
 from icka_tpu_torch.kernels import conv as kconv
 from icka_tpu_torch.kernels.attention import (
-    HEAD_DIMS, K1_FP32_TILES, K1_TILES, attention_blockwise_reference,
-    attention_reference, blockwise_tiles, column_chunk, fused_attention,
-    fused_attention_blockwise, kernel_width)
+    HEAD_DIMS, K1_FP32_TILES, K1_WGMMA_TILES, WGMMA_BLOCK_SIZES,
+    attention_blockwise_reference, attention_reference, blockwise_tiles,
+    column_chunk, fused_attention, fused_attention_blockwise, kernel_width)
 from icka_tpu_torch.models import resnet as resnet_module
 from icka_tpu_torch.models.captioning import (CaptionConfig, CaptionModel,
                                               generate_captions,
@@ -411,10 +422,25 @@ K2_CUDA_CORE_MS = {150: 0.8847, 172: 1.3611, 512: 5.6154, 1024: 21.4974}
 # K1's bf16 times on its CUDA-core body, B=128, 16x64, key bias at 150,
 # full block-diagonal bias at 172 (chip_smoke.py phase 6 as of the fifth
 # slice of the port, NVIDIA H100 80GB HBM3, 700.00 W): recorded, printed on
-# comment lines for comparison only. And the tilings of its tensor-core
-# bodies timed beside K1_TILES and K1_FP32_TILES.
+# comment lines for comparison only. And the tilings of its fp32 body
+# timed beside K1_FP32_TILES.
 K1_CUDA_CORE_MS = {150: 1.0643, 172: 1.2439}
 K1_TILINGS = ((64, 64), (128, 64), (64, 32), (32, 64))
+# The bf16 shapes at head width 64 of PERF.md's kernel table, B=128: (row,
+# heads, Sq = Sk, bias), where the wgmma body is timed beside SDPA, its
+# bound and MMA_SYNC_MS: the times of the mma.sync body that ran them
+# before it (K1 at (64, 32), K2 asked for (128, 128); chip_smoke.py phase
+# 7 as of the twelfth slice of the port, CUDA events, at 12 heads the
+# profiler's device time; NVIDIA H100 80GB HBM3, 700.00 W). Recorded, not
+# measured here: printed beside the new times, never in the `kernels` line.
+BF16_TIMED_SHAPES = (("K1", 16, 150, "B11Sk"), ("K1", 16, 172, "packed"),
+                     ("K1", 12, 128, "B11Sk"), ("K1", 12, 48, "packed"),
+                     ("K2", 16, 150, "B11Sk"), ("K2", 16, 172, "packed"),
+                     ("K2", 16, 512, "B11Sk"), ("K2", 16, 1024, "B11Sk"))
+MMA_SYNC_MS = {("K1", 16, 150): 0.1209, ("K1", 16, 172): 0.1822,
+               ("K1", 12, 128): 0.0630, ("K1", 12, 48): 0.0262,
+               ("K2", 16, 150): 0.2295, ("K2", 16, 172): 0.3409,
+               ("K2", 16, 512): 0.8683, ("K2", 16, 1024): 3.1562}
 # K1's and K2's fp32 times on their CUDA-core bodies at the same shapes, K2
 # asked for (128, 128) (chip_smoke.py phase 6 as of the sixth slice of the
 # port, NVIDIA H100 80GB HBM3, 700.00 W): recorded, printed on comment
@@ -582,15 +608,27 @@ COUNTERS = {
 NO_CALLER = ("fused_attention_blockwise", "int8_conv3x3", "int8_bottleneck")
 
 
+# the attention wrappers' launches of the wgmma body and on bf16 inputs, as
+# `read_counts` keys: on the main paths (every head 64 wide) the two agree
+ATTENTION = ("fused_attention", "fused_attention_blockwise")
+BODY_COUNTS = {f"{name}.{what}": (name, f"{what}_launches")
+               for name in ATTENTION for what in ("wgmma", "bf16")}
+
+
 def zero_counts():
     for wrapper in COUNTERS.values():
         wrapper.launches = 0
         if hasattr(wrapper, "strided_launches"):
             wrapper.strided_launches = 0
+    for name, attr in BODY_COUNTS.values():
+        setattr(COUNTERS[name], attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: wrapper.launches for name, wrapper in COUNTERS.items()}
+    counts = {name: wrapper.launches for name, wrapper in COUNTERS.items()}
+    counts.update({key: getattr(COUNTERS[name], attr)
+                   for key, (name, attr) in BODY_COUNTS.items()})
+    return counts
 
 
 def attention_inputs(B, Sq, Sk, dtype, bias_kind, gen, N=16, hd=64,
@@ -649,9 +687,10 @@ def ptxas_rows(log: str):
 
 def sass_counts(name: str, opcodes) -> dict:
     """How many instructions of each opcode (HMMA.16816.F32.BF16: bf16
-    tensor cores, HMMA.1688.F32.TF32: TF32 tensor cores, IMMA: int8 tensor
-    cores, IDP: dp4a on the CUDA cores; a prefix of the SASS word) the SASS
-    of a built library holds."""
+    tensor cores, HMMA.1688.F32.TF32: TF32 tensor cores, HGMMA: wgmma,
+    UTMALDG: TMA tensor loads, IMMA: int8 tensor cores, IDP: dp4a on the
+    CUDA cores; a prefix of the SASS word) the SASS of a built library
+    holds."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass",
                            str(build.library_path(name))],
@@ -669,12 +708,18 @@ def phase_build():
     print(f"# phase 1: built {list(build.SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s")
     bf16_op, tf32_op = "HMMA.16816.F32.BF16", "HMMA.1688.F32.TF32"
-    hmma = sass_counts("blockwise_attention", ("HMMA", bf16_op, tf32_op))
+    hmma = sass_counts("blockwise_attention", ("HMMA", bf16_op, tf32_op,
+                                               "HGMMA", "UTMALDG"))
     print(f"#   blockwise_attention: {hmma['HMMA']} HMMA instructions in its "
           f"SASS: {hmma[bf16_op]} {bf16_op} (bf16 body), {hmma[tf32_op]} "
           f"{tf32_op} (3xTF32 body)")
     check(hmma[bf16_op] > 0, "the blockwise library has no bf16 HMMA")
     check(hmma[tf32_op] > 0, "the blockwise library has no TF32 HMMA")
+    print(f"#   blockwise_attention: {hmma['HGMMA']} HGMMA (wgmma) and "
+          f"{hmma['UTMALDG']} UTMALDG (TMA loads) instructions in its SASS "
+          f"(the bf16 body at head width 64)")
+    check(hmma["HGMMA"] > 0 and hmma["UTMALDG"] > 0,
+          "the blockwise library has no wgmma or no TMA load")
     conv = sass_counts("int8_conv", ("IMMA", "IDP"))
     print(f"#   int8_conv: {conv['IMMA']} IMMA instructions in its SASS, "
           f"{conv['IDP']} IDP (dp4a)")
@@ -691,6 +736,16 @@ def phase_build():
                 r[0].split("<")[1].rstrip(">")) <= 4]
             check(not narrow, f"fp32 CUDA-core instances left at widths up "
                               f"to 128: {narrow}")
+            wgmma = list({r[0]: r for r in rows if "wgmma" in r[0]}.values())
+            log = build.build_log(name)
+            print(f"#   the wgmma instances: " + ", ".join(
+                f"{r[0].split(' ', 1)[1]} {r[1]} registers, {r[3]} bytes "
+                f"spilled" for r in wgmma) + f"; ptxas serialised wgmma "
+                f"(C7518) {log.count('C7518')} times")
+            check(len(wgmma) == 4 and all(r[3] == 0 for r in wgmma)
+                  and "C7518" not in log,
+                  f"wgmma instances {wgmma}: expected 4, none spilling, "
+                  f"none serialised")
         for what, regs, smem, spill in rows:
             print(f"#     {what}: {regs} registers, {smem} bytes static "
                   f"smem, {spill} bytes spilled")
@@ -3174,9 +3229,12 @@ def phase_remat(args, card, dev, base, gc_base, layers, lengths):
 DP_RANKS, DP_BATCH, DP_ACCUM, DP_STEPS = 2, 8, 2, 2
 # the depth of each RoBERTa stack in phases 12 and 13's training (24 in
 # `ICKAConfig()`; cut to keep the script inside its time limit: gloo's
-# all-reduces through the host set these steps); serving and evaluation
-# stay at full depth
-DP_TRAIN_LAYERS = 12
+# all-reduces through the host, the ZeRO-1 snapshot and the state gather
+# set these phases, and all scale with depth); serving and evaluation stay
+# at full depth. Their steps are not cut: under the warmup schedule the
+# first step's learning rate is 0, so one step a run would leave the
+# parameters that ZeRO-1 is held bit-equal on unmoved
+DP_TRAIN_LAYERS = 4
 DP_LOSS_RTOL = 2e-5
 DP_JOIN_S = 900
 
@@ -3927,6 +3985,10 @@ def phase_bert_times(gen, row):
                 row[f"{tag}_strided_device_ms"] = kernel_device_ms(
                     lambda: fused_attention(*views, bias, N))
                 del qkv, views
+            if dtype == torch.bfloat16:
+                row.update({f"{tag}_{key}": val for key, val in wgmma_fields(
+                    "K1", N, S, kind, fused_attention, (q, k, v, bias),
+                    library_ms, (bound_ms, bound_by)).items()})
             row.update({f"{tag}_{key}": val for key, val in (
                 ("shape", f"B={B} Sq=Sk={S} {N}x64 {str(dtype)[6:]} "
                           f"bias={kind}"),
@@ -4377,10 +4439,48 @@ def sdpa_ms(q, k, v, bias, N, iters):
         q4, k4, v4, attn_mask=mask), iters=iters)
 
 
+WGMMA_TILINGS = tuple((bq, bk) for bq in WGMMA_BLOCK_SIZES
+                      for bk in WGMMA_BLOCK_SIZES)
+
+
+def wgmma_tilings_ms(q, k, v, bias, N):
+    """The wgmma body's device time per launch (profiler) at each of its
+    tilings, through K2's wrapper."""
+    return {str(blocks): kernel_device_ms(lambda: fused_attention_blockwise(
+        q, k, v, bias, N, *blocks), seconds=0.25) for blocks in WGMMA_TILINGS}
+
+
+def wgmma_fields(name, N, S, kind, fn, inputs, library_ms, bound,
+                 tilings=None):
+    """A bf16 head-64 shape of PERF.md's kernel table on the wgmma body:
+    `fn` (K1 or K2 as the main path calls it) timed by the profiler's
+    device time per launch, beside SDPA (CUDA events, this run), the bound,
+    the time of the mma.sync body that ran the shape before
+    (`MMA_SYNC_MS`, recorded) and the body at each tiling; printed, and
+    the measured numbers returned as the row's fields."""
+    q, k, v, bias = inputs
+    device_ms = kernel_device_ms(lambda: fn(q, k, v, bias, N), seconds=0.5)
+    tilings = tilings or wgmma_tilings_ms(q, k, v, bias, N)
+    recorded = MMA_SYNC_MS[name, N, S]
+    bound_ms, bound_by = bound
+    print(f"#   {name} {N}x64 Sq=Sk={S} bias={kind}, the wgmma body: "
+          f"{device_ms:.4f} ms device time a launch, {device_ms / recorded:.3f}"
+          f" of the recorded mma.sync time {recorded:.4f} ms, "
+          f"{device_ms / library_ms:.2f}x SDPA {library_ms:.4f} ms, "
+          f"{device_ms / bound_ms:.1f}x its bound {bound_ms:.4f} ms "
+          f"({bound_by}); by tiling " + ", ".join(
+              f"{b} {t:.4f}" for b, t in tilings.items()) + " ms")
+    # the recorded time is printed, never put in the `kernels` line: every
+    # number there is measured in this run
+    return {"body": "wgmma", "device_ms": device_ms,
+            "tilings_device_ms": tilings}
+
+
 def phase_blockwise_times(gen, k1_row, launches):
     """K2 beside K1, its plain version, SDPA and its bound; fills K1's
     full-bias time at the packed layout-B shape. `launches` is K2's count
-    over the serving runs. Returns K2's row."""
+    over the serving runs. At S=150 K2's row takes the wgmma tilings' times
+    K1's row took at that shape. Returns K2's row."""
     B, N, hd, dtype = 128, 16, 64, torch.bfloat16
     print(f"# phase 7: K2 at B={B}, {N} heads of {hd}, bf16, asked for "
           f"tiling (128, 128); bound = max(bytes / 3.35e12, flops / 989e12)")
@@ -4414,11 +4514,6 @@ def phase_blockwise_times(gen, k1_row, launches):
         library_ms = sdpa_ms(q, k, v, bias, N, iters)
         bound_ms, bound_by, byts, flops = attention_bound(q, k, bias, N)
         tiles = blockwise_tiles(S, S, hd, dtype)
-        others = {blockwise_tiles(S, S, hd, dtype, *blocks): cuda_time_ms(
-            lambda: fused_attention_blockwise(q, k, v, bias, N, *blocks),
-            iters=max(iters // 2, 5))
-            for blocks in ((64, 64), (64, 128), (32, 128), (128, 64))}
-        others.pop(tiles, None)
         print(f"#   Sq=Sk={S} bias={kind}: max_abs_err vs plain {err:.3e} "
               f"({share:.2f} of its bound), vs K1 {err_k1:.3e} "
               f"({share_k1:.2f}); plain output max |value| {top:.3f}, std "
@@ -4430,13 +4525,18 @@ def phase_blockwise_times(gen, k1_row, launches):
               f"TFLOP/s, K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
               f"{library_ms:.4f} ms ({ms / library_ms:.2f}x), bound "
               f"{bound_ms:.4f} ms ({ms / bound_ms:.1f}x; {bound_by}: "
-              f"{byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); other tilings "
-              + ", ".join(f"{b} {t:.4f}" for b, t in others.items()) + " ms")
+              f"{byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        inputs = (q, k, v, bias)
+        tilings = (k1_row["tilings_device_ms"] if tag == "s150" else
+                   wgmma_tilings_ms(q, k, v, bias, N))
         vals = {"shape": f"B={B} Sq=Sk={S} {N}x{hd} bf16 bias={kind}",
                 "max_abs_err": err, "share_of_bound": share, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms,
-                "k1_ms": k1_ms, "tflops": flops / ms / 1e9}
+                "k1_ms": k1_ms, "tflops": flops / ms / 1e9,
+                **wgmma_fields("K2", N, S, kind, fused_attention_blockwise,
+                               inputs, library_ms, (bound_ms, bound_by),
+                               tilings)}
         # the row proper is the longest shape, what the kernel is for
         row.update(vals if tag == "s1024" else
                    {f"{tag}_{key}": val for key, val in vals.items()})
@@ -4447,22 +4547,21 @@ def phase_blockwise_times(gen, k1_row, launches):
                     q, k, v, bias, N), iters=3, warmup=1),
                 packed_bound_ms=bound_ms, packed_bound_by=bound_by,
                 packed_library_ms=library_ms)
-            tilings = k1_tiling_ms(q, k, v, bias, N, iters)
             print(f"#   K1 at this shape: {k1_ms:.4f} ms "
                   f"({k1_ms / library_ms:.2f}x SDPA; recorded CUDA-core "
                   f"time of the fifth slice "
                   f"{K1_CUDA_CORE_MS[S]:.4f} ms, "
                   f"{K1_CUDA_CORE_MS[S] / k1_ms:.2f}x), its plain version "
-                  f"{k1_row['packed_plain_ms']:.4f} ms; tilings "
-                  + ", ".join(f"{b} {t:.4f}" for b, t in tilings.items())
-                  + " ms")
+                  f"{k1_row['packed_plain_ms']:.4f} ms")
+            k1_row.update({f"packed_{key}": val for key, val in wgmma_fields(
+                "K1", N, S, kind, fused_attention, inputs, library_ms,
+                (bound_ms, bound_by), tilings).items()})
     return row
 
 
 def k1_tiling_ms(q, k, v, bias, N, iters):
-    """The tensor-core body at each of `K1_TILINGS` on K1's inputs, through
-    K2's wrapper (the same kernel; K1 runs `K1_TILES` in bf16 and
-    `K1_FP32_TILES` in fp32)."""
+    """The 3xTF32 body at each of `K1_TILINGS` on K1's fp32 inputs,
+    through K2's wrapper (the same kernel; K1 runs `K1_FP32_TILES`)."""
     return {blocks: cuda_time_ms(lambda: fused_attention_blockwise(
         q, k, v, bias, N, *blocks), iters=iters) for blocks in K1_TILINGS}
 
@@ -4478,7 +4577,7 @@ def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
     TP_HEADS heads a rank), which run after this phase."""
     B, S, N, hd, dtype = 128, 150, 16, 64, torch.bfloat16
     print(f"# phase 7: K1 at B={B} Sq=Sk={S} {N}x{hd} bf16, key-mask bias "
-          f"(the tensor-core body at {K1_TILES}; the prompted encoder's "
+          f"(the wgmma body at {K1_WGMMA_TILES}; the prompted encoder's "
           f"longest bucket under a 14-token prompt, the shape every slice "
           f"has timed)")
     q, k, v, bias = attention_inputs(B, S, S, dtype, "B11Sk", gen)
@@ -4490,7 +4589,6 @@ def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
     plain_ms = cuda_time_ms(lambda: attention_reference(q, k, v, bias, N))
     library_ms = sdpa_ms(q, k, v, bias, N, 50)
     bound_ms, bound_by, byts, flops = attention_bound(q, k, bias, N)
-    tilings = k1_tiling_ms(q, k, v, bias, N, 50)
     row = {"name": "fused_attention", "route": "cuda", "source": K2_SOURCE,
            "replaces": "icka_tpu/kernels/attention.py:87",
            "launches": launches + gate_cl_launches + weights_launches
@@ -4512,10 +4610,13 @@ def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
           f"time of the fifth slice {K1_CUDA_CORE_MS[S]:.4f} ms, "
           f"{K1_CUDA_CORE_MS[S] / ms:.2f}x), plain {plain_ms:.4f} ms, SDPA "
           f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}: {byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
-          f"tilings " + ", ".join(f"{b} {t:.4f}" for b, t in tilings.items())
-          + " ms")
+          f"({bound_by}: {byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    row.update(wgmma_fields("K1", N, S, "B11Sk", fused_attention,
+                            (q, k, v, bias), library_ms,
+                            (bound_ms, bound_by)))
+    row["fp32_body"] = "tf32"
     rows = [row, phase_blockwise_times(gen, row, k2_launches)]
+    rows[1]["fp32_body"] = "tf32"
     phase_fp32_times(gen, *rows)
     phase_bert_times(gen, row)
     phase_wide_times(gen)
@@ -5127,7 +5228,7 @@ def phase_generation(args, card, dev, gen, row, chunk_cfg=None,
           f"the constrained search and GPT-2 run the plain core")
     check(dev.type != "cuda" or caption_launches == want,
           f"the decodes launched K1 {caption_launches} times, not {want}")
-    check(all(c == 0 for n, c in counts.items() if n != "fused_attention"),
+    check(all(counts[n] == 0 for n in COUNTERS if n != "fused_attention"),
           f"phase 14 launched another kernel: {counts}")
     # the timed runs: a second pass of every decode
     runs, _ = decode_runs(model, decoder, img, img_mask, memory)
@@ -5701,7 +5802,7 @@ def phase_vcr(args, card, dev, gen, row, ca_cfg=None, gpt2_cfg=None):
           f"run the plain core, as in the JAX package")
     check(dev.type != "cuda" or counts["fused_attention"] > 0,
           "phase 15 launched K1 no time")
-    check(all(c == 0 for n, c in counts.items() if n != "fused_attention"),
+    check(all(counts[n] == 0 for n in COUNTERS if n != "fused_attention"),
           f"phase 15 launched another kernel: {counts}")
     torch.cuda.empty_cache()
     phase_k1_vcr_shapes(gen, row)
@@ -5815,6 +5916,21 @@ def main(argv=None) -> int:
             check(total[name] == 0, f"{name} has no caller in the model, yet "
                                     f"the main paths launched it "
                                     f"{total[name]} times")
+        # every bf16 launch of K1 and K2 on the main paths (heads of 64)
+        # ran the wgmma body, path by path
+        body = {key: sum(c.get(key, 0) for c in runs) for key in BODY_COUNTS}
+        print(f"#   K1 and K2 launches of the wgmma body over the fifteen "
+              f"main paths: {body}")
+        for name in ATTENTION:
+            for i, c in enumerate(runs):
+                check(c.get(f"{name}.wgmma", 0) == c.get(f"{name}.bf16", 0),
+                      f"main path {i}: {name} launched {c.get(name + '.bf16')}"
+                      f" times in bf16, {c.get(name + '.wgmma')} of them on "
+                      f"the wgmma body")
+        check(body["fused_attention.wgmma"] > 0,
+              "no main path launched K1 on the wgmma body")
+        for k in kernels[:2]:
+            k["wgmma_launches"] = body[f"{k['name']}.wgmma"]
         for name in ("int8_bottleneck_v2", "int8_stem_pool"):
             for what, c in (("evaluation", eval_counts),
                             ("evaluation and training from files",

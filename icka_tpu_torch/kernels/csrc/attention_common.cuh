@@ -1,6 +1,7 @@
-// What the attention bodies of blockwise_attention.cu share: element access
-// for fp32 and bf16, warp reductions, and the start of the online softmax's
-// running maximum.
+// What the attention bodies of blockwise_attention.cu and
+// attention_wgmma.cuh share: element access for fp32 and bf16, bf16
+// packing, warp reductions, and the start of the online softmax's running
+// maximum.
 
 #pragma once
 
@@ -54,6 +55,13 @@ struct Num<__nv_bfloat16> {
     return __bfloat162float(__float2bfloat16(x));
   }
 };
+
+// two floats rounded to bf16 (to nearest even), `lo` in the low half: the
+// A operand of a bf16 tensor-core product held in registers
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll

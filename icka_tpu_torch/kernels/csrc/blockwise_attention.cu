@@ -35,10 +35,15 @@
 // score -inf, rows past Sq are never stored), so no block size has to
 // divide a sequence length.
 //
-// Three bodies:
+// Four bodies:
 //
-// bf16 up to head width 128, on the tensor cores (mma.sync m16n8k16, bf16
-// in, fp32 sums), in the shape of FlashAttention-2. A warp owns 16 query
+// bf16 at head width 64 (every full-width model of the repo), on Hopper's
+// wgmma with TMA-fed shared memory, an mbarrier ring and a producer
+// warpgroup (attention_wgmma.cuh, its own note). 4 instances, (block_q,
+// block_k) in {64, 128}^2.
+//
+// bf16 at the other head widths up to 128, on the tensor cores (mma.sync
+// m16n8k16, bf16 in, fp32 sums), in the shape of FlashAttention-2. A warp owns 16 query
 // rows (one m16 tile), so a block has block_q / 16 warps. The warp's Q
 // fragments are read once from the staged query tile with ldmatrix and stay
 // in registers for the whole key loop. S = Q K^T takes its B fragments from
@@ -52,8 +57,8 @@
 // tile k computes, one barrier per tile; rows past Sk arrive as zeros (the
 // zero-fill form of cp.async), so p = 0 meets V = 0 and never a stale Inf
 // or NaN. Staged rows are padded by 8 elements (16 bytes), which keeps
-// every ldmatrix free of bank conflicts. 24 instances, (block_k, head_dim)
-// with head_dim in 16..128.
+// every ldmatrix free of bank conflicts. 21 instances, (block_k, head_dim)
+// with head_dim in 16..128 but 64.
 //
 // fp32 up to head width 128, on the tensor cores through 3xTF32
 // (mma.sync m16n8k8 .tf32, fp32 sums), in the bf16 body's shape: the same
@@ -103,6 +108,7 @@
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "attention_wgmma.cuh"
 #include "ptx.cuh"
 
 namespace {
@@ -393,12 +399,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to bf16 (to nearest even), `lo` in the low half
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
 }
 
 // grid (ceil(Sq / bq), num_heads, B), bq = 16 * warps of the block. In the
@@ -1062,7 +1062,12 @@ cudaError_t launch_mma_width(int hd, const void* q, const void* k,
     ICKA_WIDTH(16)
     ICKA_WIDTH(32)
     ICKA_WIDTH(48)
-    ICKA_WIDTH(64)
+    case 64:  // bf16 at 64 runs the wgmma body
+      if constexpr (std::is_same_v<T, float>)
+        return launch_mma_tile<T, BK, 64>(q, k, v, bias, out, ld, B, Sq, Sk,
+                                          num_heads, bq, key_mode, sb, sq, sk,
+                                          scale, stream);
+      return cudaErrorInvalidValue;
     ICKA_WIDTH(80)
     ICKA_WIDTH(96)
     ICKA_WIDTH(112)
@@ -1096,36 +1101,56 @@ cudaError_t launch_mma(int bk, const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
+// The body a call names, which must be the one its type and width take
+// (`attention_body` in the Python wrapper)
+enum Body { kTf32 = 0, kMma = 1, kWgmma = 2, kWide = 3 };
+
+inline int body_of(int dtype, int head_dim) {
+  if (head_dim > 128) return kWide;
+  if (dtype == 0) return kTf32;
+  return head_dim == icka_wgmma::kHeadDim ? kWgmma : kMma;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Up to head_dim 128 (a multiple of 16)
-// the tensor-core bodies run, bf16 or 3xTF32, block_q in {32, 64, 128},
-// block_k in {32, 64, 128} (bf16) or {32, 64} (fp32); above, head_dim a
-// multiple of 32, the CUDA-core body runs in both types at block_k 32 and
-// block_q 32 or 64, in column chunks of at most 256. q, k and v aligned to
-// 16 bytes, their rows ldq, ldk and ldv elements apart (multiples of 8, at
-// least num_heads * head_dim; batch b at b * S * ld); the output is written
-// contiguous. key_mode != 0 reads `bias` as (B, Sk) through (bias_sb,
-// bias_sk), else as (B, Sq, Sk) through all three strides. Returns
-// cudaGetLastError() after the launch (0 on success), or
+// dtype: 0 = float32, 1 = bfloat16; body: 0 = 3xTF32, 1 = bf16 mma.sync,
+// 2 = bf16 wgmma, 3 = the wide CUDA-core body, the one `body_of` gives for
+// the type and width (any other is refused). Up to head_dim 128 (a
+// multiple of 16) the tensor-core bodies run: bf16 at 64 on wgmma, block_q
+// and block_k in {64, 128}; bf16 at the other widths or 3xTF32, block_q in
+// {32, 64, 128}, block_k in {32, 64, 128} (bf16) or {32, 64} (fp32);
+// above, head_dim a multiple of 32, the CUDA-core body runs in both types
+// at block_k 32 and block_q 32 or 64, in column chunks of at most 256. q,
+// k and v aligned to 16 bytes, their rows ldq, ldk and ldv elements apart
+// (multiples of 8, at least num_heads * head_dim; batch b at b * S * ld);
+// the output is written contiguous. key_mode != 0 reads `bias` as (B, Sk)
+// through (bias_sb, bias_sk), else as (B, Sq, Sk) through all three
+// strides. Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for arguments without an instance or a tiling that
-// does not fit shared memory; the caller checks it.
+// does not fit shared memory (cudaErrorInvalidKernelImage: a wgmma
+// instance built with another register count than its setmaxnreg plan);
+// the caller checks it.
 extern "C" int icka_blockwise_attention(
-    int dtype, const void* q, const void* k, const void* v, const void* bias,
-    void* out, long long ldq, long long ldk, long long ldv, int B, int Sq,
-    int Sk, int num_heads, int head_dim, int block_q, int block_k,
-    int key_mode, long long bias_sb, long long bias_sq, long long bias_sk,
-    float scale, void* stream) {
+    int dtype, int body, const void* q, const void* k, const void* v,
+    const void* bias, void* out, long long ldq, long long ldk, long long ldv,
+    int B, int Sq, int Sk, int num_heads, int head_dim, int block_q,
+    int block_k, int key_mode, long long bias_sb, long long bias_sq,
+    long long bias_sk, float scale, void* stream) {
   const float* b = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const RowStrides ld{ldq, ldk, ldv};
   if (head_dim <= 0 || head_dim % 16 || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
+  if (body != body_of(dtype, head_dim)) return cudaErrorInvalidValue;
   if (block_q != 32 && block_q != 64 && block_q != 128)
     return cudaErrorInvalidValue;
   const long long D = (long long)num_heads * head_dim;
   if (ldq < D || ldk < D || ldv < D || ldq % 8 || ldk % 8 || ldv % 8)
     return cudaErrorInvalidValue;
+  if (body == kWgmma)
+    return icka_wgmma::launch_wgmma(block_q, block_k, q, k, v, b, out, ldq,
+                                    ldk, ldv, B, Sq, Sk, num_heads, key_mode,
+                                    bias_sb, bias_sq, bias_sk, scale, s);
   if (head_dim > 128) {
     if (head_dim % 32 || block_k != 32) return cudaErrorInvalidValue;
     return dtype == 0

@@ -1,9 +1,12 @@
 // PTX wrappers shared by the tensor-core kernels (blockwise_attention.cu,
-// int8_conv.cu): asynchronous copies into shared memory and ldmatrix.
+// int8_conv.cu): asynchronous copies into shared memory and ldmatrix; and
+// Hopper's (sm_90a) for attention_wgmma.cuh: mbarriers, TMA tensor loads,
+// register reallocation between warpgroups, and wgmma.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace icka_ptx {
 
@@ -54,6 +57,217 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers in shared memory (addresses as smem_u32 gives them)
+// ---------------------------------------------------------------------------
+
+// a barrier whose phase completes after `count` arrivals (and the bytes
+// announced by arrive_expect_tx)
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// makes initialised barriers visible to the other threads and to TMA
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// one arrival, and `bytes` more that TMA copies must deliver to complete
+// the phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned bar,
+                                                      unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// waits until the phase of parity `parity` has completed (a barrier starts
+// in phase 0: waiting on parity 1 returns at once). The spin stays inside
+// the PTX: a loop the compiler sees would make the code after it a
+// divergent path, where ptxas serialises every wgmma (C7518).
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TMA: a box of a 3-D tensor map from device to shared memory
+// ---------------------------------------------------------------------------
+
+// the box at coordinates (c0, c1, c2) (innermost first) of the tensor map
+// `tmap` (a __grid_constant__ kernel parameter) into shared memory at
+// `dst`; its bytes complete on the barrier `bar`. Elements outside the
+// tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(unsigned dst, const void* tmap,
+                                            int c0, int c1, int c2,
+                                            unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Registers moved between warpgroups (every warp of the warpgroup executes
+// it): a warpgroup that gives registers up, one that takes them
+// ---------------------------------------------------------------------------
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// wgmma: one warpgroup's asynchronous product on the tensor cores
+// ---------------------------------------------------------------------------
+
+// orders this thread's register and shared-memory writes before the
+// wgmma that follows
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// waits until at most N committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pins a register that a wgmma writes or reads asynchronously in place
+// until this point: the compiler neither reads it earlier nor reuses it
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+__device__ __forceinline__ void fence_operand(unsigned& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// The shared-memory descriptor of a wgmma operand stored with TMA's
+// 128-byte swizzle (rows of 128 bytes in atoms of 8 rows, the tile 1024-byte
+// aligned): start address, leading and stride byte offsets, each >> 4, and
+// the swizzle mode (1: 128 bytes) in bits 62-63.
+__device__ __forceinline__ uint64_t wgmma_desc(unsigned addr, unsigned lbo,
+                                               unsigned sbo) {
+  return (uint64_t)((addr & 0x3ffff) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3fff) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3fff) << 32) | (1ull << 62);
+}
+
+// d (64 x 64, fp32) (+)= a (64 x 16) b (16 x 64), bf16, both from shared
+// memory through descriptors, both K-major; d is zeroed first unless
+// accumulate
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
+                                                   uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128, fp32) (+)= a (64 x 16) b (16 x 128), bf16, both from shared
+// memory through descriptors, both K-major; d is zeroed first unless
+// accumulate
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                    uint64_t a, uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += a (64 x 16, bf16, in registers: this thread's
+// fragment of its warp's 16 rows, as mma.sync's m16k16 A) b (16 x 64,
+// bf16, from shared memory, MN-major: the transpose bit set)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const unsigned (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 }  // namespace icka_ptx

@@ -176,14 +176,16 @@ def test_tiles_snap_and_fit_shared_memory():
 
 @pytest.mark.parametrize("hd", [8, 40, 64, 128])
 def test_every_bf16_tiling_fits_at_every_head_width(hd):
-    """The tensor-core body stages bf16 rows (query tile, two stages of K
-    and V) and keeps the scores in registers: every (block_q, block_k) it
-    is asked for fits shared memory as asked, at every width up to 128
-    (padded widths at the instance's width)."""
+    """The tensor-core bodies stage bf16 rows (query tile, stages of K and
+    V) and keep the scores in registers: every (block_q, block_k) they are
+    asked for fits shared memory as asked, at every width up to 128
+    (padded widths at the instance's width). At 64 the wgmma body takes at
+    least a warpgroup's 64 rows and 64 keys a tile."""
+    low = 64 if hd == 64 else 0
     for bq in BLOCK_SIZES:
         for bk in BLOCK_SIZES:
             assert blockwise_tiles(1024, 1024, hd, torch.bfloat16,
-                                   bq, bk) == (bq, bk)
+                                   bq, bk) == (max(bq, low), max(bk, low))
     assert _smem_bytes(128, 128, 128, torch.bfloat16) <= 232448
 
 

@@ -289,8 +289,8 @@ def test_blockwise_tilings_agree_on_card(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_minus_inf_key_tiles_stay_finite(cuda_device, dtype):
     """-inf over the first whole key tiles of every second row: both kernels
-    (on the tensor-core bodies, bf16 and 3xTF32) start the running maximum
-    at -1e30, so p = 0 and alpha = 1 there."""
+    (on the tensor-core bodies, bf16 wgmma at this width and 3xTF32) start
+    the running maximum at -1e30, so p = 0 and alpha = 1 there."""
     q, k, v, _ = _attn_case(cuda_device, dtype, 2, 40, 256, 2, 64, "BSk")
     bias = torch.zeros(2, 40, 256, device=cuda_device)
     bias[:, ::2, :128] = float("-inf")
@@ -362,27 +362,31 @@ def test_blockwise_bf16_at_every_head_width(cuda_device, hd):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Sk,blocks", [(129, (128, 128)), (65, (32, 64)),
-                                       (33, (64, 32))])
-def test_blockwise_last_key_tile_of_one_key(cuda_device, Sk, blocks, dtype):
+@pytest.mark.parametrize("Sk,blocks,hd", [(129, (128, 128), 64),
+                                          (65, (32, 64), 64),
+                                          (33, (64, 32), 32)])
+def test_blockwise_last_key_tile_of_one_key(cuda_device, Sk, blocks, hd,
+                                            dtype):
     """Sk one past a multiple of the key tile: the last tile holds one key,
-    its other rows arrive as zeros and score -inf (both tensor-core
-    bodies)."""
+    its other rows arrive as zeros and score -inf (every tensor-core body:
+    3xTF32, bf16 wgmma at width 64 and bf16 mma.sync at 32, whose key tile
+    of 32 the wgmma body does not have)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    q, k, v, bias = _attn_case(cuda_device, dtype, 2, 70, Sk, 4, 64, "BSk")
+    q, k, v, bias = _attn_case(cuda_device, dtype, 2, 70, Sk, 4, hd, "BSk")
     got = tattn.fused_attention_blockwise(q, k, v, bias, 4, *blocks)
     torch.cuda.synchronize()
-    assert Sk % tattn.blockwise_tiles(70, Sk, 64, dtype, *blocks)[1] == 1
+    assert Sk % tattn.blockwise_tiles(70, Sk, hd, dtype, *blocks)[1] == 1
     assert bool(torch.isfinite(got).all())
     _assert_attn_close(got, tattn.attention_blockwise_reference(
         q, k, v, bias, 4, *blocks))
 
 
 def test_bf16_blockwise_raises_rather_than_launch_another_body(cuda_device):
-    """A bf16 CUDA tensor reaches the tensor-core body or raises: a view two
-    bytes past a 16-byte boundary (cp.async needs 16) is refused before any
-    launch at an instance's width; at a padded width the kernel reads the
-    padded copies, fresh aligned allocations, and launches."""
+    """A bf16 CUDA tensor reaches its tensor-core body (wgmma at 64,
+    mma.sync at 40 padded to 48) or raises: a view two bytes past a 16-byte
+    boundary (TMA and cp.async need 16) is refused before any launch at an
+    instance's width; at a padded width the kernel reads the padded
+    copies, fresh aligned allocations, and launches."""
     bias = torch.zeros(1, 8, device=cuda_device)
     before = tattn.fused_attention_blockwise.launches
     for hd in (64, 40):
@@ -401,21 +405,25 @@ def test_bf16_blockwise_raises_rather_than_launch_another_body(cuda_device):
 
 
 def test_k1_bf16_runs_the_tensor_core_body(cuda_device):
-    """K1 in bf16 is one launch of the blockwise library's tensor-core body,
-    counted on K1 and never on K2, and it raises on a view two bytes past a
-    16-byte boundary (cp.async needs 16) before any launch."""
+    """K1 in bf16 at head width 64 is one launch of the blockwise library's
+    wgmma body at `K1_WGMMA_TILES`, counted on K1 (and on its
+    `wgmma_launches`) and never on K2, bit-equal to K2 asked for the same
+    tiling, and it raises on a view two bytes past a 16-byte boundary (TMA
+    needs 16) before any launch."""
     counts = (tattn.fused_attention.launches,
-              tattn.fused_attention_blockwise.launches)
+              tattn.fused_attention_blockwise.launches,
+              tattn.fused_attention.wgmma_launches)
     for kind in ("B11Sk", "full"):
         q, k, v, bias = _attn_case(cuda_device, torch.bfloat16, 3, 150, 150,
                                    16, 64, kind)
         got = tattn.fused_attention(q, k, v, bias, 16)
         torch.cuda.synchronize()
         _assert_attn_close(got, tattn.attention_reference(q, k, v, bias, 16))
-        _assert_attn_close(got, tattn.fused_attention_blockwise(
-            q, k, v, bias, 16, *tattn.K1_TILES))
+        assert torch.equal(got, tattn.fused_attention_blockwise(
+            q, k, v, bias, 16, *tattn.K1_WGMMA_TILES))
     assert (tattn.fused_attention.launches - counts[0],
-            tattn.fused_attention_blockwise.launches - counts[1]) == (2, 2)
+            tattn.fused_attention_blockwise.launches - counts[1],
+            tattn.fused_attention.wgmma_launches - counts[2]) == (2, 2, 2)
     flat = torch.zeros(8 * 128 + 1, device=cuda_device, dtype=torch.bfloat16)
     q = flat[1:].view(1, 8, 128)
     assert q.is_contiguous() and q.data_ptr() % 16 == 2
@@ -427,14 +435,15 @@ def test_k1_bf16_runs_the_tensor_core_body(cuda_device):
 
 def test_k1_fp32_runs_the_tensor_core_body(cuda_device):
     """K1 in fp32 is one launch of the blockwise library's 3xTF32 body at
-    `K1_FP32_TILES`, counted on K1 and never on K2, bit-equal to K2 asked
-    for the same tiling and within 2e-5 of the plain version; it raises on a
-    view four bytes past a 16-byte boundary (cp.async needs 16) before any
-    launch. TF32 matmuls stay off for the plain version; the kernel never
-    reads that switch."""
+    `K1_FP32_TILES` (never the wgmma body), counted on K1 and never on K2,
+    bit-equal to K2 asked for the same tiling and within 2e-5 of the plain
+    version; it raises on a view four bytes past a 16-byte boundary
+    (cp.async needs 16) before any launch. TF32 matmuls stay off for the
+    plain version; the kernel never reads that switch."""
     torch.backends.cuda.matmul.allow_tf32 = False
     counts = (tattn.fused_attention.launches,
               tattn.fused_attention_blockwise.launches)
+    wgmma = tattn.fused_attention.wgmma_launches
     for kind in ("B11Sk", "full"):
         q, k, v, bias = _attn_case(cuda_device, torch.float32, 3, 150, 150,
                                    16, 64, kind)
@@ -445,6 +454,7 @@ def test_k1_fp32_runs_the_tensor_core_body(cuda_device):
             q, k, v, bias, 16, *tattn.K1_FP32_TILES))
     assert (tattn.fused_attention.launches - counts[0],
             tattn.fused_attention_blockwise.launches - counts[1]) == (2, 2)
+    assert tattn.fused_attention.wgmma_launches == wgmma
     flat = torch.zeros(8 * 128 + 1, device=cuda_device)
     q = flat[1:].view(1, 8, 128)
     assert q.is_contiguous() and q.data_ptr() % 16 == 4
@@ -452,6 +462,91 @@ def test_k1_fp32_runs_the_tensor_core_body(cuda_device):
         tattn.fused_attention(q, q, q, torch.zeros(1, 8, device=cuda_device),
                               2)
     assert tattn.fused_attention.launches - counts[0] == 2
+
+
+WGMMA_TILINGS = [(bq, bk) for bq in tattn.WGMMA_BLOCK_SIZES
+                 for bk in tattn.WGMMA_BLOCK_SIZES]
+
+
+@pytest.mark.parametrize("blocks", WGMMA_TILINGS,
+                         ids=lambda b: f"{b[0]}x{b[1]}")
+@pytest.mark.parametrize("shape,kind", [
+    ((150, 150), "B11Sk"), ((172, 172), "full"), ((23, 150), "BSk"),
+    ((150, 23), "full"), ((300, 1024), "B11Sk")])
+def test_wgmma_body_matches_both_plain_versions(cuda_device, shape, kind,
+                                                blocks):
+    """The wgmma body (bf16, head width 64) at each of its tilings through
+    K2, and K1 at its own, against both plain versions: K1's and K2's
+    serving shapes with a key and a full bias, ragged in both dimensions,
+    and a long key sequence. B = 24 at 16 heads gives more work items than
+    the persistent grid has blocks."""
+    q, k, v, bias = _attn_case(cuda_device, torch.bfloat16, 24, *shape, 16,
+                               64, kind)
+    before = tattn.fused_attention_blockwise.wgmma_launches
+    got = tattn.fused_attention_blockwise(q, k, v, bias, 16, *blocks)
+    torch.cuda.synchronize()
+    assert tattn.fused_attention_blockwise.wgmma_launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _assert_attn_close(got, tattn.attention_blockwise_reference(
+        q, k, v, bias, 16, *blocks))
+    _assert_attn_close(got, tattn.attention_reference(q, k, v, bias, 16))
+    k1 = tattn.fused_attention(q, k, v, bias, 16)
+    torch.cuda.synchronize()
+    _assert_attn_close(k1, tattn.attention_reference(q, k, v, bias, 16))
+
+
+@pytest.mark.parametrize("blocks", WGMMA_TILINGS,
+                         ids=lambda b: f"{b[0]}x{b[1]}")
+def test_wgmma_body_at_one_key_and_a_minus_inf_tile(cuda_device, blocks):
+    """One key (a tile of one valid row, the rest TMA's zeros), and -inf
+    over the first 128 keys of every second row: finite, within the bound
+    of both plain versions."""
+    q, k, v, bias = _attn_case(cuda_device, torch.bfloat16, 3, 70, 1, 4, 64,
+                               "BSk")
+    bias = torch.zeros(3, 1, device=cuda_device)
+    got = tattn.fused_attention_blockwise(q, k, v, bias, 4, *blocks)
+    torch.cuda.synchronize()
+    _assert_attn_close(got, tattn.attention_blockwise_reference(
+        q, k, v, bias, 4, *blocks))
+    _assert_attn_close(got, v.expand_as(got))     # one key: its value
+    q, k, v, _ = _attn_case(cuda_device, torch.bfloat16, 3, 70, 256, 4, 64,
+                            "BSk")
+    bias = torch.zeros(3, 70, 256, device=cuda_device)
+    bias[:, ::2, :128] = float("-inf")
+    got = tattn.fused_attention_blockwise(q, k, v, bias, 4, *blocks)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _assert_attn_close(got, tattn.attention_blockwise_reference(
+        q, k, v, bias, 4, *blocks))
+    _assert_attn_close(got, tattn.attention_reference(q, k, v, bias, 4))
+
+
+@pytest.mark.parametrize("wrapper", ["fused_attention",
+                                     "fused_attention_blockwise"])
+def test_wgmma_launches_count_bf16_at_width_64_only(cuda_device, wrapper):
+    """`wgmma_launches` rises by one for each bf16 launch at head width 64
+    (and at 56, padded to 64), on contiguous tensors and on the strided
+    views of a fused projection, and not at widths 48 or 128 in bf16 nor
+    at 64 in fp32; `bf16_launches` counts every bf16 launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fn = getattr(tattn, wrapper)
+    for dtype, hd, wgmma in ((torch.bfloat16, 64, 1), (torch.bfloat16, 56, 1),
+                             (torch.bfloat16, 48, 0),
+                             (torch.bfloat16, 128, 0),
+                             (torch.float32, 64, 0)):
+        q, k, v, bias = _attn_case(cuda_device, dtype, 2, 45, 70, 4, hd,
+                                   "BSk")
+        fused = torch.cat([q, q], dim=-1)[..., :4 * hd]
+        for args in ((q, k, v), (fused, k, v)):
+            before = (fn.launches, fn.wgmma_launches, fn.bf16_launches)
+            got = fn(*args, bias, 4)
+            torch.cuda.synchronize()
+            assert (fn.launches - before[0], fn.wgmma_launches - before[1],
+                    fn.bf16_launches - before[2]) == (
+                1, wgmma, int(dtype == torch.bfloat16))
+            plain = (tattn.attention_reference if wrapper == "fused_attention"
+                     else tattn.attention_blockwise_reference)
+            _assert_attn_close(got, plain(*args, bias, 4))
 
 
 @pytest.mark.parametrize("hd", [w for w in tattn.HEAD_DIMS if w <= 128]
