@@ -8,17 +8,18 @@ Phases; any failure exits non-zero:
   1. build every CUDA kernel from `icka_tpu_torch/kernels/csrc` (one nvcc
      per source, all started together), count the tensor-core instructions
      in the blockwise library (bf16 HMMA and TF32 HMMA apart, and the wgmma
-     body's HGMMA and its TMA loads, UTMALDG) and in the int8 library
-     (IMMA, and no dp4a left), check that no fp32 CUDA-core attention
-     instance is left at widths up to 128 and that the four wgmma instances
-     neither spill nor have their wgmma serialised by ptxas (C7518), print
+     bodies' HGMMA, bf16 and TF32 apart, and their TMA loads, UTMALDG) and
+     in the int8 library (IMMA, and no dp4a left), check that no fp32
+     CUDA-core attention instance is left at widths up to 128 and that the
+     six wgmma instances (four bf16, two TF32) neither spill nor have their
+     wgmma serialised by ptxas (C7518), print
      registers and spills of every instance, and print the card's name and
      power limit as nvidia-smi gives them;
   2. hold every kernel against its plain PyTorch version on the card at the
      main paths' shapes: K1 `fused_attention` and K2
      `fused_attention_blockwise` (up to width 128 on the blockwise kernel's
-     tensor-core bodies: bf16 at 64 on wgmma, at the other widths on
-     mma.sync, fp32 on 3xTF32) in fp32 (TF32 off for the plain
+     tensor-core bodies: at 64 on wgmma, bf16 and 3xTF32, at the other
+     widths on mma.sync, bf16 and 3xTF32) in fp32 (TF32 off for the plain
      versions) and bf16 within a tolerance, at every head width they are
      built for (up to 256), at four widths they zero-pad (8, 24, 40, 144)
      and at two above 256 (272, 512: column chunks); K2 against
@@ -94,7 +95,7 @@ Phases; any failure exits non-zero:
      steps, dev evaluation and best-F1 save each epoch; losses finite and
      falling, K1 0 in the steps and 12 a dev batch), a fresh trainer
      resuming the first epoch's snapshot (next loss within 1e-4), one
-     step each of "cl" and "ip", one fp32 step at depth 2 card vs CPU
+     step each of "cl" and "ip", one fp32 step at depth 1 card vs CPU
      (loss 1e-5, gradient norm 1e-4, moments 1e-4); walls, device busy
      and launches, step median, train pairs/s and peak memory printed;
  10. weights from files on disk (after 9's serving, before 8): from random
@@ -125,15 +126,16 @@ Phases; any failure exits non-zero:
      the plain core and the fp32 model, and walls, device busy and
      launches beside phase 9's float bf16 gate_cl, printed;
   8. train (run before 7, whose K1 row carries its launches):
-     `ICKATrainer.fit` at full width in bf16 over fp32 master weights on a
+     `ICKATrainer.fit` at full width, 4 layers a RoBERTa stack
+     (`TRAIN_LAYERS`), in bf16 over fp32 master weights on a
      synthetic corpus without image files, two epochs of three steps with
      gradient accumulation 2, train-mode crop and flip, dropout on (so
      attention trains on the plain core: K1 0 times in the train steps,
-     48 times per dev batch), a dev evaluation and best-F1 save each
+     8 times per dev batch), a dev evaluation and best-F1 save each
      epoch; every loss finite, the last epoch's mean below the first's, a
      best-F1 checkpoint and a step snapshot written; a fresh trainer
      resumes the first epoch's snapshot and its next step's loss matches
-     the run's; two fp32 steps at depth two on the card against the CPU
+     the run's; two fp32 steps at depth one on the card against the CPU
      (loss, gradient norm, moments, updates); the parameter count,
      optimizer-state bytes, peak memory, step and update times and the
      device-busy share printed;
@@ -258,16 +260,21 @@ Phases; any failure exits non-zero:
      (K1 at 150 and 172 with 16 heads and 128 and 48 with 12, K2 at 150,
      172, 512 and 1024) by the profiler's device time a launch, at each of
      its four tilings too, beside SDPA, the bound and the recorded time of
-     the mma.sync body (`MMA_SYNC_MS`); K1's fp32 tilings; K1 and K2 in
-     fp32 at K1's two
-     shapes; both at the first head width above 256; K1 at the gate_cl
-     family's 12 heads (S=128 key bias, S=48 full bias, both types; at 128
-     also on the strided q/k/v views of one fused projection); time the
-     served requests end to end.
+     the mma.sync body (`MMA_SYNC_MS`); K1 and K2 in fp32 at K1's two
+     shapes on the TF32 wgmma body, by events and by device time, beside
+     SDPA, the bound and the recorded time of the 3xTF32 mma.sync body
+     (`TF32_MMA_SYNC_MS`; at every other fp32 shape of the table, in
+     phases 7, 13, 14 and 15, beside its device time too), and K1 at the
+     body's two tilings; both at the first head width above 256; K1 at the
+     gate_cl family's 12 heads (S=128 key bias, S=48 full bias, both
+     types; at 128 also on the strided q/k/v views of one fused
+     projection); time the served requests end to end.
 
-After the last phase, every bf16 launch of K1 and K2 on the fifteen main
-paths must have run the wgmma body (`wgmma_launches` equal to
-`bf16_launches`, path by path). The line before the last is the
+After the last phase, every launch of K1 and K2 on the fifteen main paths
+(heads of 64) must have run a wgmma body, path by path: every bf16 launch
+the bf16 one (`wgmma_launches` equal to `bf16_launches`) and every fp32
+launch the 3xTF32 one (`tf32_wgmma_launches` equal to the rest). Each
+phase prints its seconds. The line before the last is the
 `{"kernels": [...]}` JSON object; the last line is `{"ok": true, "device":
 {...}}`. Needs CUDA; imports nothing of JAX.
 """
@@ -275,6 +282,7 @@ paths must have run the wgmma body (`wgmma_launches` equal to
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import ctypes
@@ -422,10 +430,25 @@ K2_CUDA_CORE_MS = {150: 0.8847, 172: 1.3611, 512: 5.6154, 1024: 21.4974}
 # K1's bf16 times on its CUDA-core body, B=128, 16x64, key bias at 150,
 # full block-diagonal bias at 172 (chip_smoke.py phase 6 as of the fifth
 # slice of the port, NVIDIA H100 80GB HBM3, 700.00 W): recorded, printed on
-# comment lines for comparison only. And the tilings of its fp32 body
-# timed beside K1_FP32_TILES.
+# comment lines for comparison only. And the tilings of its fp32 body (the
+# TF32 wgmma body's instances) timed beside K1_FP32_TILES.
 K1_CUDA_CORE_MS = {150: 1.0643, 172: 1.2439}
-K1_TILINGS = ((64, 64), (128, 64), (64, 32), (32, 64))
+TF32_WGMMA_TILINGS = ((64, 64), (128, 64))
+# K1's and K2's fp32 times at head width 64 on the 3xTF32 mma.sync body
+# that ran them before the TF32 wgmma body (NVIDIA H100 80GB HBM3, 700.00
+# W): at B=128, 16 heads (by Sq = Sk), CUDA events, K1 at (64, 32), K2
+# asked for (128, 128), running (128, 64); at the other shapes of PERF.md's
+# kernel table (by their tag in K1's row), the profiler's device time a
+# launch (chip_smoke.py's last run on that body). Recorded, not measured
+# here: printed beside the new times, never in the `kernels` line.
+TF32_MMA_SYNC_MS = {("K1", 150): 0.3680, ("K1", 172): 0.4686,
+                    ("K2", 150): 0.5409, ("K2", 172): 0.6308,
+                    "bert_float32_s128": 0.1744, "bert_float32_s48": 0.0582,
+                    "gen_caption_greedy": 0.0154, "gen_caption_beam": 0.0340,
+                    "gen_chunk32": 0.0064, "gen_chunk64": 0.0081,
+                    "vcr_joint": 0.0239, "vcr_history3": 0.0240,
+                    "vcr_history50": 0.0282, "tp": 0.0199,
+                    "tp_strided": 0.0199}
 # The bf16 shapes at head width 64 of PERF.md's kernel table, B=128: (row,
 # heads, Sq = Sk, bias), where the wgmma body is timed beside SDPA, its
 # bound and MMA_SYNC_MS: the times of the mma.sync body that ran them
@@ -491,22 +514,27 @@ COS_FUSED_VS_FLOAT_MIN = 0.4
 # its margin of 32)
 TRAIN_ROWS, DEV_ROWS, TRAIN_BATCH, TRAIN_ACCUM = 48, 16, 8, 2
 TRAIN_EPOCHS, TRAIN_LR, TRAIN_DECODE = 2, 1e-4, 256
+# ... at full width but TRAIN_LAYERS layers a RoBERTa stack (the script's
+# time limit; phase 11 trains both stacks at full depth): K1 runs
+# 2 * TRAIN_LAYERS times a dev batch
+TRAIN_LAYERS = 4
 # a fresh trainer resuming the first epoch's snapshot runs the next step on
 # the same weights, batch and dropout seeds: the same bf16 forward, held
 # to 1e-4 of the uninterrupted run's loss
 RESUME_REL_TOL = 1e-4
-# one fp32 step on the card against the CPU at a depth of two layers (both
-# stacks and the cross stacks), TF32 off, dropout 0, the same weights and
-# batches: the loss and the gradients' global norm differ only by the
-# order of sums (STEP_LOSS_RTOL, STEP_NORM_RTOL); the moments after the
-# first step (lr 0 under warmup: params unmoved) within MOMENT_RTOL in
-# relative L2 over all leaves, and the second step's parameter updates
-# within UPDATE_RTOL. An element whose gradient is at noise level (a key
-# projection's bias has a zero gradient in exact arithmetic) could take
-# Adam's update of about +-lr on either side; it does not, as its noise
-# (about 1e-10) lies below eps (1e-8): 4.4e-5 measured (NVIDIA H100 80GB
+# one fp32 step on the card against the CPU at a depth of one layer (both
+# stacks and the cross stacks; the CPU's steps set this check's seconds),
+# TF32 off, dropout 0, the same weights and batches: the loss and the
+# gradients' global norm differ only by the order of sums (STEP_LOSS_RTOL,
+# STEP_NORM_RTOL); the moments after the first step (lr 0 under warmup:
+# params unmoved) within MOMENT_RTOL in relative L2 over all leaves, and
+# the second step's parameter updates within UPDATE_RTOL. An element
+# whose gradient is at noise level (a key projection's bias has a zero
+# gradient in exact arithmetic) could take Adam's update of about +-lr on
+# either side; it does not, as its noise (about 1e-10) lies below eps
+# (1e-8): 4.5e-5 measured at depth 1, 4.4e-5 at depth 2 (NVIDIA H100 80GB
 # HBM3, 700 W), 20x inside the bound.
-TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_LAYERS = 1
 STEP_LOSS_RTOL, STEP_NORM_RTOL, MOMENT_RTOL, UPDATE_RTOL = \
     1e-5, 1e-4, 1e-4, 1e-3
 # phase 9, the gate_cl family (GateCLConfig(): BERT-base): K1 launches a
@@ -519,9 +547,9 @@ GC_TRAIN_BATCH, GC_TRAIN_ACCUM, GC_TRAIN_ROWS = 32, 2, 192
 GC_DEV_ROWS, GC_EVAL_BATCH, GC_CLIP_DIM = 16, 8, 16
 # phase 10, weights from files on disk: the files go here (about 2.1 GB
 # with the converted copies) and are removed when the phase ends. The
-# RoBERTa-large safetensors file and the TF bundle hold 2 layers: the TF
-# bundle's pure-Python crc32c costs 0.1-0.2 s a MB each way on an H100's
-# host. The fused fp32 encoder against the unfused one differs only in the
+# RoBERTa-large safetensors file and the TF bundle hold 2 layers (the
+# bundle's 154 MB took 1.64 s each way with the numpy crc32c, 23.9 and
+# 28.2 s with the byte loop, on an H100's host). The fused fp32 encoder against the unfused one differs only in the
 # QKV product's order of sums, 12 layers deep.
 WEIGHTS_DIR = WORK_DIR / "weights"
 ROBERTA_DEPTH, TF_DEPTH = 2, 2
@@ -608,11 +636,14 @@ COUNTERS = {
 NO_CALLER = ("fused_attention_blockwise", "int8_conv3x3", "int8_bottleneck")
 
 
-# the attention wrappers' launches of the wgmma body and on bf16 inputs, as
-# `read_counts` keys: on the main paths (every head 64 wide) the two agree
+# the attention wrappers' launches of the bf16 and the fp32 (3xTF32) wgmma
+# bodies and on bf16 inputs, as `read_counts` keys: on the main paths
+# (every head 64 wide) every bf16 launch is a wgmma launch and every other
+# a tf32_wgmma launch
 ATTENTION = ("fused_attention", "fused_attention_blockwise")
 BODY_COUNTS = {f"{name}.{what}": (name, f"{what}_launches")
-               for name in ATTENTION for what in ("wgmma", "bf16")}
+               for name in ATTENTION
+               for what in ("wgmma", "tf32_wgmma", "bf16")}
 
 
 def zero_counts():
@@ -708,18 +739,23 @@ def phase_build():
     print(f"# phase 1: built {list(build.SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s")
     bf16_op, tf32_op = "HMMA.16816.F32.BF16", "HMMA.1688.F32.TF32"
-    hmma = sass_counts("blockwise_attention", ("HMMA", bf16_op, tf32_op,
-                                               "HGMMA", "UTMALDG"))
+    hgmma_tf32 = "HGMMA.64x64x8.F32.TF32"
+    hmma = sass_counts("blockwise_attention", (
+        "HMMA", bf16_op, tf32_op, "HGMMA", hgmma_tf32, "UTMALDG"))
+    hgmma_bf16 = hmma["HGMMA"] - hmma[hgmma_tf32]
     print(f"#   blockwise_attention: {hmma['HMMA']} HMMA instructions in its "
-          f"SASS: {hmma[bf16_op]} {bf16_op} (bf16 body), {hmma[tf32_op]} "
-          f"{tf32_op} (3xTF32 body)")
+          f"SASS: {hmma[bf16_op]} {bf16_op} (bf16 mma.sync body), "
+          f"{hmma[tf32_op]} {tf32_op} (3xTF32 mma.sync body, head widths "
+          f"other than 64)")
     check(hmma[bf16_op] > 0, "the blockwise library has no bf16 HMMA")
     check(hmma[tf32_op] > 0, "the blockwise library has no TF32 HMMA")
-    print(f"#   blockwise_attention: {hmma['HGMMA']} HGMMA (wgmma) and "
-          f"{hmma['UTMALDG']} UTMALDG (TMA loads) instructions in its SASS "
-          f"(the bf16 body at head width 64)")
-    check(hmma["HGMMA"] > 0 and hmma["UTMALDG"] > 0,
-          "the blockwise library has no wgmma or no TMA load")
+    print(f"#   blockwise_attention: {hmma['HGMMA']} HGMMA (wgmma) "
+          f"instructions in its SASS, {hmma[hgmma_tf32]} {hgmma_tf32} (the "
+          f"3xTF32 wgmma body at head width 64) and {hgmma_bf16} bf16 ones "
+          f"(the bf16 body at 64); {hmma['UTMALDG']} UTMALDG (TMA loads)")
+    check(hgmma_bf16 > 0 and hmma[hgmma_tf32] > 0 and hmma["UTMALDG"] > 0,
+          "the blockwise library has no bf16 or no TF32 wgmma, or no TMA "
+          "load")
     conv = sass_counts("int8_conv", ("IMMA", "IDP"))
     print(f"#   int8_conv: {conv['IMMA']} IMMA instructions in its SASS, "
           f"{conv['IDP']} IDP (dp4a)")
@@ -742,10 +778,13 @@ def phase_build():
                 f"{r[0].split(' ', 1)[1]} {r[1]} registers, {r[3]} bytes "
                 f"spilled" for r in wgmma) + f"; ptxas serialised wgmma "
                 f"(C7518) {log.count('C7518')} times")
-            check(len(wgmma) == 4 and all(r[3] == 0 for r in wgmma)
+            # 4 bf16 instances, (64 | 128)^2, and 2 TF32 ones, block_q
+            # 64 | 128 at block_k 64
+            check(len(wgmma) == 6 and all(r[3] == 0 for r in wgmma)
+                  and sum("tf32" in r[0] for r in wgmma) == 2
                   and "C7518" not in log,
-                  f"wgmma instances {wgmma}: expected 4, none spilling, "
-                  f"none serialised")
+                  f"wgmma instances {wgmma}: expected 6 (2 of them TF32), "
+                  f"none spilling, none serialised")
         for what, regs, smem, spill in rows:
             print(f"#     {what}: {regs} registers, {smem} bytes static "
                   f"smem, {spill} bytes spilled")
@@ -1141,33 +1180,34 @@ def recorded(n: int, fn) -> int:
 
 def device_profile(fn, top=8):
     """torch.profiler over one call of `fn`: total device seconds, the
-    `top` device kernels by time and K1's own row (name, ms, calls), and
-    the number of device kernels launched."""
+    `top` device records by time and K1's own row (name, ms, calls), and
+    the number of device records (kernels, copies and sets), grouped by
+    name from the profiler's raw records: `key_averages` costs tens of
+    seconds on a call of thousands of launches."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    # device-side events only: an operator's row repeats its kernels' time
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    rows = sorted(kernels, key=dev_us, reverse=True)[:top]
-    rows += [e for e in kernels
-             if "attention" in e.key and "kernel" in e.key and e not in rows]
-    return (sum(dev_us(e) for e in kernels) / 1e6,
-            [(e.key, dev_us(e) / 1e3, e.count) for e in rows],
-            recorded(sum(e.count for e in kernels), fn))
+    ns, calls = collections.Counter(), collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ns[e.name()] += e.duration_ns()
+            calls[e.name()] += 1
+    rows = [name for name, _ in ns.most_common(top)]
+    rows += [name for name in ns
+             if "attention" in name and "kernel" in name and name not in rows]
+    return (sum(ns.values()) / 1e9,
+            [(name, ns[name] / 1e6, calls[name]) for name in rows],
+            recorded(sum(calls.values()), fn))
 
 
 def device_busy(fn):
     """(device seconds, device-side records: kernels, copies and sets) of
-    one call of `fn`, as `device_profile` counts them, read from the
-    profiler's raw records: grouping a train step's records by name
-    (`key_averages`) costs tens of seconds."""
+    one call of `fn`, as `device_profile` counts them, without grouping
+    them by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2075,18 +2115,20 @@ def train_loaders(feats, images, batch, accum, eval_batch, seed):
 
 
 def phase_train(args, card, dev, base, layers):
-    """The training entry point, `ICKATrainer.fit`, at full width: bf16
-    over fp32 master weights, `use_pallas` for the dev evaluation (training
-    runs dropout, so attention takes the plain core), the frozen backbone,
+    """The training entry point, `ICKATrainer.fit`, at full width and
+    TRAIN_LAYERS layers a RoBERTa stack: bf16 over fp32 master weights,
+    `use_pallas` for the dev evaluation (training runs dropout, so
+    attention takes the plain core), the frozen backbone,
     TRAIN_EPOCHS epochs with accumulation, a dev evaluation and a best-F1
     save each epoch, the resumed snapshot (`fit_and_resume`); bf16 against
     fp32 dev tags on the trained weights; two fp32 steps on the card
     against the CPU at depth TRAIN_CHECK_LAYERS. Returns every kernel's
     launch count over `fit`."""
-    cfg = dataclasses.replace(
-        base, embedding=dataclasses.replace(base.embedding, use_pallas=True),
-        last_encoder=dataclasses.replace(base.last_encoder, use_pallas=True))
-    print(f"# phase 8: train: ICKATrainer.fit at full width (bf16 over fp32 "
+    cfg = dataclasses.replace(base, **{k: dataclasses.replace(
+        getattr(base, k), use_pallas=True, num_hidden_layers=TRAIN_LAYERS)
+        for k in ("embedding", "last_encoder")})
+    print(f"# phase 8: train: ICKATrainer.fit at full width, {TRAIN_LAYERS} "
+          f"layers a RoBERTa stack (bf16 over fp32 "
           f"master weights, {TRAIN_EPOCHS} epochs of {TRAIN_ROWS} rows in "
           f"steps of {TRAIN_ACCUM} x {TRAIN_BATCH}, dev {DEV_ROWS} rows, "
           f"lr {TRAIN_LR}, dropout on)")
@@ -2104,7 +2146,8 @@ def phase_train(args, card, dev, base, layers):
     counts, fresh, _ = fit_and_resume(
         lambda: ICKATrainer(cfg, tcfg, spec, resnet_layers=layers,
                             device=dev),
-        loader, train_batches, root / "out", card, dev, LAYERS_PER_BATCH)
+        loader, train_batches, root / "out", card, dev,
+        2 * TRAIN_LAYERS if LAYERS_PER_BATCH else 0)
     # bf16 against fp32 tags on the dev split, the trained weights
     model32 = ICKAModel(cfg, device=dev).eval()
     model32.load_state_dict(fresh.model.state_dict())
@@ -2876,7 +2919,7 @@ def phase_gate_cl_train(args, card, dev, base, layers):
         del tr
         torch.cuda.empty_cache()
 
-    # the depth-2 check runs self-attention on the plain core: with
+    # the shallow check runs self-attention on the plain core: with
     # dropout 0 the kernel would take it, and K1 refuses a gradient
     enc = dataclasses.replace(base.encoder,
                               num_hidden_layers=TRAIN_CHECK_LAYERS,
@@ -2895,12 +2938,13 @@ def phase_gate_cl_train(args, card, dev, base, layers):
 
 def rel_l2_on(dev, pairs) -> float:
     """`rel_l2` in float64 on `dev`, one pair at a time (the full-width
-    model's 968 M elements take minutes on the host)."""
+    model's 968 M elements take minutes on the host); a host tensor moves
+    in its own type and widens on `dev`."""
     num = torch.zeros((), dtype=torch.float64, device=dev)
     den = torch.zeros((), dtype=torch.float64, device=dev)
     for a, b in pairs:
-        a = a.detach().to(dev, torch.float64)
-        b = b.detach().to(dev, torch.float64)
+        a = a.detach().to(dev).double()
+        b = b.detach().to(dev).double()
         num += (a - b).square().sum()
         den += b.square().sum()
     return math.sqrt(float(num) / max(float(den), 1e-300))
@@ -3570,7 +3614,8 @@ def phase_tp(seen, ref, served, card) -> dict:
         check(t["coords"] == (0, r), f"rank {r} sits at {t['coords']}")
         train, ev = t["train"], t["eval"]
         add_counts(counts, train["counts"])
-        add_counts(counts, {n: ev["counts"][n] for n in COUNTERS})
+        add_counts(counts, {n: ev["counts"][n]
+                            for n in (*COUNTERS, *BODY_COUNTS)})
         check(train["counts"]["fused_attention"] == 0,
               f"rank {r}: K1 launched in the TP train steps (dropout on: "
               f"the plain core)")
@@ -3623,7 +3668,8 @@ def phase_tp(seen, ref, served, card) -> dict:
                   f"rank {r}: K1 launched {k1} times for {n_batches} "
                   f"evaluation batches")
         fused, step = t["fused_eval"], t["fused_step"]
-        add_counts(counts, {n: fused["counts"][n] for n in COUNTERS})
+        add_counts(counts, {n: fused["counts"][n]
+                            for n in (*COUNTERS, *BODY_COUNTS)})
         add_counts(counts, step["counts"])
         fk1, strided = fused["counts"]["fused_attention"], \
             fused["counts"]["strided"]
@@ -3720,9 +3766,11 @@ def phase_k1_local_heads(gen, row):
                 "tp_plain_ms": plain_ms, "tp_bound_ms": bound_ms,
                 "tp_bound_by": bound_by, "tp_library_ms": library_ms})
     print(f"#   {shape}: kernel {times['contiguous'][0]:.4f} ms (device "
-          f"{times['contiguous'][1]:.4f} ms a launch), on the fused views "
+          f"{times['contiguous'][1]:.4f} ms a launch, "
+          f"{earlier('tp', times['contiguous'][1])}), on the fused views "
           f"{times['strided'][0]:.4f} ms (device {times['strided'][1]:.4f} "
-          f"ms), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+          f"ms, {earlier('tp_strided', times['strided'][1])}), plain "
+          f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}: {byts / 1e6:.2f} MB, "
           f"{flops / 1e9:.3f} GFLOP)")
 
@@ -4000,9 +4048,11 @@ def phase_bert_times(gen, row):
                        f"bit-equal: device time "
                        f"{row[f'{tag}_strided_device_ms']:.4f} ms)"
                        if f"{tag}_strided_device_ms" in row else "")
+            was = (f"; {earlier(tag, device_ms)}" if dtype == torch.float32
+                   else "")
             print(f"#   {str(dtype)[6:]} Sq=Sk={S} bias={kind}: max_abs_err "
                   f"{err:.3e}; kernel {ms:.4f} ms (profiler device time "
-                  f"{device_ms:.4f} ms a launch){strided}, plain "
+                  f"{device_ms:.4f} ms a launch{was}){strided}, plain "
                   f"{plain_ms:.4f} ms, "
                   f"SDPA {library_ms:.4f} ms ({ms / library_ms:.2f}x), bound "
                   f"{bound_ms:.4f} ms ({ms / bound_ms:.1f}x; {bound_by}: "
@@ -4560,10 +4610,20 @@ def phase_blockwise_times(gen, k1_row, launches):
 
 
 def k1_tiling_ms(q, k, v, bias, N, iters):
-    """The 3xTF32 body at each of `K1_TILINGS` on K1's fp32 inputs,
-    through K2's wrapper (the same kernel; K1 runs `K1_FP32_TILES`)."""
+    """The TF32 wgmma body at each of `TF32_WGMMA_TILINGS` on K1's fp32
+    inputs, through K2's wrapper (the same kernel; K1 runs
+    `K1_FP32_TILES`)."""
     return {blocks: cuda_time_ms(lambda: fused_attention_blockwise(
-        q, k, v, bias, N, *blocks), iters=iters) for blocks in K1_TILINGS}
+        q, k, v, bias, N, *blocks), iters=iters)
+        for blocks in TF32_WGMMA_TILINGS}
+
+
+def earlier(tag, device_ms):
+    """The recorded time of the 3xTF32 mma.sync body at the shape `tag`
+    (`TF32_MMA_SYNC_MS`), as a phrase beside this run's time."""
+    was = TF32_MMA_SYNC_MS[tag]
+    return (f"{device_ms / was:.3f} of the recorded 3xTF32 mma.sync time "
+            f"{was:.4f} ms")
 
 
 def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
@@ -4614,9 +4674,9 @@ def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
     row.update(wgmma_fields("K1", N, S, "B11Sk", fused_attention,
                             (q, k, v, bias), library_ms,
                             (bound_ms, bound_by)))
-    row["fp32_body"] = "tf32"
+    row["fp32_body"] = "wgmma_tf32"
     rows = [row, phase_blockwise_times(gen, row, k2_launches)]
-    rows[1]["fp32_body"] = "tf32"
+    rows[1]["fp32_body"] = "wgmma_tf32"
     phase_fp32_times(gen, *rows)
     phase_bert_times(gen, row)
     phase_wide_times(gen)
@@ -4624,11 +4684,13 @@ def phase_times(gen, launches, packed_launches, eval_launches, k2_launches,
 
 
 def phase_fp32_times(gen, k1_row, k2_row):
-    """K1 and K2 in fp32 (the 3xTF32 body) at K1's two serving shapes beside
-    their plain versions, SDPA in fp32 (TF32 off), their recorded CUDA-core
-    times and the fp32 bound (bytes / 3.35 TB/s against three TF32 products'
-    FLOPs / 494.7 TFLOP/s); K1 at its four tilings. Adds `fp32_*` keys to
-    both rows."""
+    """K1 and K2 in fp32 (the 3xTF32 wgmma body) at K1's two serving shapes
+    beside their plain versions, SDPA in fp32 (TF32 off), the recorded
+    times of the 3xTF32 mma.sync body (`TF32_MMA_SYNC_MS`) and of the
+    CUDA-core bodies before it, and the fp32 bound (bytes / 3.35 TB/s
+    against three TF32 products' FLOPs / 494.7 TFLOP/s), by CUDA events and
+    by the profiler's device time a launch; K1 at the body's two tilings.
+    Adds `fp32_*` keys to both rows."""
     B, N, hd, dtype = 128, 16, 64, torch.float32
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"# phase 7: K1 and K2 in fp32 at B={B}, {N} heads of {hd} (K1 at "
@@ -4655,15 +4717,20 @@ def phase_fp32_times(gen, k1_row, k2_row):
             err, _ = attention_close(out, want, f"{name} fp32 S={S} {kind}")
             del out
             ms = cuda_time_ms(lambda: fn(q, k, v, bias, N), iters=20)
+            device_ms = kernel_device_ms(lambda: fn(q, k, v, bias, N),
+                                         seconds=0.25)
             plain_ms = cuda_time_ms(plain[name], iters=3, warmup=1)
             cuda_core_ms = FP32_CUDA_CORE_MS[name][S]
             row.update({f"fp32_{tag}_{key}": val for key, val in (
                 ("shape", f"B={B} Sq=Sk={S} {N}x{hd} fp32 bias={kind}"),
-                ("max_abs_err", err), ("ms", ms), ("plain_ms", plain_ms),
+                ("max_abs_err", err), ("ms", ms), ("device_ms", device_ms),
+                ("plain_ms", plain_ms),
                 ("bound_ms", bound_ms), ("bound_by", bound_by),
                 ("library_ms", library_ms))})
             print(f"#   {name} fp32 Sq=Sk={S} bias={kind}: max_abs_err "
-                  f"{err:.3e}; kernel {ms:.4f} ms (recorded CUDA-core time "
+                  f"{err:.3e}; kernel {ms:.4f} ms (device {device_ms:.4f} "
+                  f"ms a launch; {earlier((name, S), ms)}; recorded "
+                  f"CUDA-core time "
                   f"of the sixth slice {cuda_core_ms:.4f} ms, "
                   f"{cuda_core_ms / ms:.2f}x), plain {plain_ms:.4f} ms, "
                   f"SDPA {library_ms:.4f} ms ({ms / library_ms:.2f}x), bound "
@@ -5184,7 +5251,8 @@ def phase_k1_generation_shapes(gen, row):
             ("bound_ms", bound_ms), ("bound_by", bound_by),
             ("library_ms", library_ms))})
         print(f"#   {shape}: kernel {ms:.4f} ms (device {device_ms:.4f} ms "
-              f"a launch), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} "
+              f"a launch, {earlier(f'gen_{name}', device_ms)}), plain "
+              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} "
               f"ms, bound {bound_ms:.4f} ms ({bound_by}: {byts / 1e6:.2f} "
               f"MB, {flops / 1e9:.3f} GFLOP)")
 
@@ -5755,7 +5823,8 @@ def phase_k1_vcr_shapes(gen, row):
             ("bound_ms", bound_ms), ("bound_by", bound_by),
             ("library_ms", library_ms))})
         print(f"#   {shape}: kernel {ms:.4f} ms (device {device_ms:.4f} ms "
-              f"a launch), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} "
+              f"a launch, {earlier(f'vcr_{name}', device_ms)}), plain "
+              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} "
               f"ms, bound {bound_ms:.4f} ms ({bound_by}: {byts / 1e6:.2f} "
               f"MB, {flops / 1e9:.3f} GFLOP)")
 
@@ -5916,21 +5985,29 @@ def main(argv=None) -> int:
             check(total[name] == 0, f"{name} has no caller in the model, yet "
                                     f"the main paths launched it "
                                     f"{total[name]} times")
-        # every bf16 launch of K1 and K2 on the main paths (heads of 64)
-        # ran the wgmma body, path by path
+        # every launch of K1 and K2 on the main paths (heads of 64) ran a
+        # wgmma body, path by path: the bf16 body in bf16, the 3xTF32 one
+        # in fp32
         body = {key: sum(c.get(key, 0) for c in runs) for key in BODY_COUNTS}
-        print(f"#   K1 and K2 launches of the wgmma body over the fifteen "
+        print(f"#   K1 and K2 launches of the wgmma bodies over the fifteen "
               f"main paths: {body}")
         for name in ATTENTION:
             for i, c in enumerate(runs):
-                check(c.get(f"{name}.wgmma", 0) == c.get(f"{name}.bf16", 0),
-                      f"main path {i}: {name} launched {c.get(name + '.bf16')}"
-                      f" times in bf16, {c.get(name + '.wgmma')} of them on "
-                      f"the wgmma body")
-        check(body["fused_attention.wgmma"] > 0,
-              "no main path launched K1 on the wgmma body")
+                bf16 = c.get(f"{name}.bf16", 0)
+                check(c.get(f"{name}.wgmma", 0) == bf16
+                      and c.get(f"{name}.tf32_wgmma", 0) == c[name] - bf16,
+                      f"main path {i}: {name} launched {bf16} times in bf16, "
+                      f"{c.get(name + '.wgmma')} of them on the wgmma body, "
+                      f"and {c[name] - bf16} times in fp32, "
+                      f"{c.get(name + '.tf32_wgmma')} of them on the TF32 "
+                      f"wgmma body")
+        check(body["fused_attention.wgmma"] > 0
+              and body["fused_attention.tf32_wgmma"] > 0,
+              "no main path launched K1 on the bf16 or on the TF32 wgmma "
+              "body")
         for k in kernels[:2]:
             k["wgmma_launches"] = body[f"{k['name']}.wgmma"]
+            k["tf32_wgmma_launches"] = body[f"{k['name']}.tf32_wgmma"]
         for name in ("int8_bottleneck_v2", "int8_stem_pool"):
             for what, c in (("evaluation", eval_counts),
                             ("evaluation and training from files",

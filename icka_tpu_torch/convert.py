@@ -63,15 +63,18 @@ def _leaf_dtype(value) -> np.dtype:
 
 
 def _torch_entry(key: str, value: np.ndarray):
+    # the transposes run in torch: a strided numpy copy of the flagship's
+    # kernels takes tens of seconds on one core
+    out = torch.from_numpy(np.array(value, _leaf_dtype(value)))
     if key == "kernel" or key.endswith(".kernel"):
         key = key[:-len("kernel")] + "weight"
         if value.ndim == 2:
-            value = value.T
+            out = out.t().contiguous()
         elif value.ndim == 4:
-            value = value.transpose(3, 2, 0, 1)
+            out = out.permute(3, 2, 0, 1).contiguous()
         else:
             raise ValueError(f"kernel {key} of rank {value.ndim}")
-    return key, torch.from_numpy(np.array(value, _leaf_dtype(value)))
+    return key, out
 
 
 def state_dict_from_flax(tree: Mapping) -> dict:
@@ -186,21 +189,22 @@ def calib_from_flax(calib: Mapping) -> dict:
 
 
 def _flax_entry(key: str, value) -> tuple[str, np.ndarray]:
-    if isinstance(value, torch.Tensor):
-        value = value.detach().cpu()
-        if value.dtype != torch.int8:
-            value = value.float()
-        value = value.numpy()
-    value = np.asarray(value, _leaf_dtype(np.asarray(value)), order="C")
+    # a weight is transposed in torch, where it lies (on the card, before
+    # it moves to the host), as `_torch_entry` does
+    value = (value.detach() if isinstance(value, torch.Tensor)
+             else torch.from_numpy(np.array(value)))
     if key == "weight" or key.endswith(".weight"):
         key = key[:-len("weight")] + "kernel"
         if value.ndim == 2:
-            value = np.ascontiguousarray(value.T)
+            value = value.t().contiguous()
         elif value.ndim == 4:
-            value = np.ascontiguousarray(value.transpose(2, 3, 1, 0))
+            value = value.permute(2, 3, 1, 0).contiguous()
         else:
             raise ValueError(f"weight {key} of rank {value.ndim}")
-    return key, value
+    value = value.cpu()
+    if value.dtype != torch.int8:
+        value = value.float()
+    return key, np.asarray(value.numpy(), order="C")
 
 
 def flax_tree_from_state_dict(sd: Mapping) -> dict:

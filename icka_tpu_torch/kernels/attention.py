@@ -15,14 +15,16 @@ fp32 accumulation and probabilities rounded to bf16 before P.V. The output
 has q's dtype.
 
 Which body runs (`csrc/blockwise_attention.cu`, one library for both
-wrappers; `attention_body` names it): bf16 at head width 64, Hopper's
-`wgmma` on TMA-fed shared memory (`csrc/attention_wgmma.cuh`); up to width
-128 otherwise, the `mma.sync` tensor-core bodies, in bf16 on bf16
-`mma.sync` and in fp32 on TF32 `mma.sync` through 3xTF32 (each operand
-split into a TF32 high and low part, three products into one fp32 sum,
-held to the fp32 contract); `fused_attention` asks them for a
-short-sequence tiling (`K1_WGMMA_TILES` at bf16 64, `K1_TILES` in bf16
-elsewhere, `K1_FP32_TILES` in fp32), K2 for the tiling its caller asks.
+wrappers; `attention_body` names it): at head width 64, Hopper's `wgmma` on
+TMA-fed shared memory, in bf16 (`csrc/attention_wgmma.cuh`) and in fp32
+through 3xTF32 (`csrc/attention_wgmma_tf32.cuh`: each operand split into
+a TF32 high and low part, three products into one fp32 sum, held to the
+fp32 contract; Q and K split and V transposed in shared memory); up to
+width 128 otherwise, the `mma.sync` tensor-core bodies, in bf16 on bf16
+`mma.sync` and in fp32 on TF32 `mma.sync` through 3xTF32;
+`fused_attention` asks them for a short-sequence tiling (`K1_WGMMA_TILES`
+in bf16 and `K1_FP32_TILES` in fp32 at 64, `K1_TILES` elsewhere), K2 for
+the tiling its caller asks.
 Above 128 both wrappers run the CUDA-core body in either type, at one key
 tile of 32, in column chunks of at most 256 (any width).
 Every width without an instance is zero-padded per head of q, k and v to
@@ -40,8 +42,10 @@ Each wrapper takes its plain version (`attention_reference`,
 `attention_blockwise_reference`) for tensors on the CPU, and only then. For
 CUDA tensors it launches a kernel or raises. `<wrapper>.launches` counts
 kernel launches, `<wrapper>.strided_launches` those of them whose q, k or v
-was not contiguous, `<wrapper>.wgmma_launches` those of the wgmma body and
-`<wrapper>.bf16_launches` those on bf16 inputs (at width 64 the two agree).
+was not contiguous, `<wrapper>.wgmma_launches` those of the bf16 wgmma
+body, `<wrapper>.tf32_wgmma_launches` those of the fp32 (3xTF32) wgmma
+body and `<wrapper>.bf16_launches` those on bf16 inputs (at width 64 every
+bf16 launch is a wgmma launch and every other a tf32_wgmma launch).
 """
 
 from __future__ import annotations
@@ -65,23 +69,26 @@ WIDE_MAX_CHUNK = HEAD_DIMS[-1]  # columns a wide-body block owns, at most
 BLOCK_SIZES = (32, 64, 128)  # query rows and keys per tile of the blockwise
 WIDE_BLOCK_K = 32            # the one key tile above NARROW_MAX_HEAD_DIM
 WIDE_MAX_BLOCK_Q = 64        # ... and its largest query tile
-TF32_MAX_BLOCK_K = 64        # widest key tile of the fp32 (3xTF32) body
-# the tilings `fused_attention` asks of the mma.sync tensor-core bodies:
-# the fastest of (64, 64), (128, 64), (64, 32) and (32, 64) at K1's serving
+TF32_MAX_BLOCK_K = 64        # widest key tile of the fp32 (3xTF32) bodies
+# the tiling `fused_attention` asks of the mma.sync tensor-core bodies: the
+# fastest of (64, 64), (128, 64), (64, 32) and (32, 64) at K1's serving
 # shapes (S = 150 and 172, 16 heads of 64; PERF.md), in bf16 and in fp32
 K1_TILES = (64, 32)
-K1_FP32_TILES = (64, 32)
-# the wgmma body (bf16 at head width 64): query rows by one or two
-# warpgroups of 64, key tiles of 64 or 128; K1 asks it for the tiling that
-# timed fastest at S = 150, 172, 128 and 48 (PERF.md)
+# the wgmma bodies (head width 64): query rows by one or two warpgroups of
+# 64; key tiles of 64 or 128 in bf16, of 64 in fp32 (3xTF32: K, K's lo
+# plane, V and V^T's two planes a stage fill shared memory); K1 asks each
+# for the tiling that timed fastest at its serving shapes (PERF.md)
 WGMMA_HEAD_DIM = 64
 WGMMA_BLOCK_SIZES = (64, 128)
 K1_WGMMA_TILES = (64, 64)
-_BODY_CODE = {"tf32": 0, "mma": 1, "wgmma": 2, "wide": 3}
+K1_FP32_TILES = (64, 64)
+TF32_WGMMA_STAGES = 2        # stages of the fp32 wgmma body's K and V rings
+_BODY_CODE = {"tf32": 0, "mma": 1, "wgmma": 2, "wide": 3, "wgmma_tf32": 4}
 _SMEM_LIMIT = 232448         # bytes of shared memory a block can use (sm_90)
 _KV_ROW_PAD = 4              # wide body: elements of padding per K/V row
 _MMA_ROW_PAD_BYTES = 16      # tensor-core bodies: padding per staged row
 _SWIZZLE_ATOM = 1024         # wgmma body: 8 rows of 128 bytes, its alignment
+_SWIZZLE_SPAN = 128          # wgmma bodies: bytes of a swizzled row, a TMA box
 _GRID_LIMIT = 65535          # grid.y (heads) and grid.z (batch)
 
 
@@ -169,17 +176,18 @@ def row_stride(name, x) -> int:
 
 
 def tensor_map_geometry(x, num_heads: int, rows: int):
-    """(dims, byte strides, box) of the 3-D tensor map the wgmma body reads
-    a (B, S, num_heads * 64) bf16 tensor through (`tensor_map` in
-    `csrc/attention_wgmma.cuh`): dims (num_heads * 64, S, B) innermost
+    """(dims, byte strides, box) of the 3-D tensor map the wgmma bodies
+    read a (B, S, num_heads * 64) bf16 or fp32 tensor through (`tensor_map`
+    in `csrc/attention_wgmma.cuh`): dims (num_heads * 64, S, B) innermost
     first, strides of a row and of a batch from `row_stride` (which raises
-    on a layout it does not take), a box of one head's 64 columns by `rows`
-    rows of one batch element. TMA wants the strides multiples of 16 bytes
-    and at most 256 rows a box."""
+    on a layout it does not take), a box of one 128-byte swizzle span of
+    columns (a bf16 head's 64, half an fp32 head's: two boxes a tile) by
+    `rows` rows of one batch element. TMA wants the strides multiples of
+    16 bytes and at most 256 rows a box."""
     B, S, _ = x.shape
     ld, elt = row_stride("the wgmma body", x), x.element_size()
     return ((num_heads * WGMMA_HEAD_DIM, S, B), (ld * elt, S * ld * elt),
-            (WGMMA_HEAD_DIM, rows, 1))
+            (_SWIZZLE_SPAN // elt, rows, 1))
 
 
 def kernel_width(hd: int) -> int:
@@ -256,8 +264,8 @@ def _fused_attention(q, k, v, bias, num_heads: int):
         return attention_reference(q, k, v, bias, num_heads)
     _check_kernel_inputs(name, q, k, v, num_heads)
     body = attention_body(q.dtype, D // num_heads)
-    tiles = {"wgmma": K1_WGMMA_TILES, "tf32": K1_FP32_TILES}.get(body,
-                                                                  K1_TILES)
+    tiles = {"wgmma": K1_WGMMA_TILES,
+             "wgmma_tf32": K1_FP32_TILES}.get(body, K1_TILES)
     out = _blockwise_launch(name, q, k, v, bias, num_heads, *tiles)
     _count(fused_attention, q, k, v, body)
     return out
@@ -269,6 +277,8 @@ def _count(wrapper, q, k, v, body):
         wrapper.strided_launches += 1
     if body == "wgmma":
         wrapper.wgmma_launches += 1
+    if body == "wgmma_tf32":
+        wrapper.tf32_wgmma_launches += 1
     if q.dtype == torch.bfloat16:
         wrapper.bf16_launches += 1
 
@@ -276,6 +286,7 @@ def _count(wrapper, q, k, v, body):
 fused_attention.launches = 0
 fused_attention.strided_launches = 0
 fused_attention.wgmma_launches = 0
+fused_attention.tf32_wgmma_launches = 0
 fused_attention.bf16_launches = 0
 
 
@@ -286,18 +297,25 @@ def wgmma_stages(bq: int, bk: int) -> int:
     return 2 if (bq, bk) == (64, 128) else 3
 
 
+def tf32_q_buffers(bq: int) -> int:
+    """Query buffers of the fp32 wgmma body at block_q `bq` (`q_buffers`
+    in `csrc/attention_wgmma_tf32.cuh`): two at 64, one at 128, where a
+    second would not fit beside the two K/V stages."""
+    return 2 if bq == 64 else 1
+
+
 def attention_body(dtype, head_dim: int) -> str:
     """The body of `csrc/blockwise_attention.cu` that runs a head of
-    `head_dim` (at its instance width, `kernel_width`) in `dtype`: "wgmma"
-    in bf16 at 64, else "mma" in bf16 and "tf32" in fp32 up to 128, and
-    "wide" above 128 in either type. The C entry point launches the body
-    it is named or refuses."""
+    `head_dim` (at its instance width, `kernel_width`) in `dtype`: at 64
+    "wgmma" in bf16 and "wgmma_tf32" in fp32, else "mma" in bf16 and
+    "tf32" in fp32 up to 128, and "wide" above 128 in either type. The C
+    entry point launches the body it is named or refuses."""
     width = kernel_width(head_dim)
     if width > NARROW_MAX_HEAD_DIM:
         return "wide"
-    if dtype == torch.float32:
-        return "tf32"
-    return "wgmma" if width == WGMMA_HEAD_DIM else "mma"
+    if width == WGMMA_HEAD_DIM:
+        return "wgmma_tf32" if dtype == torch.float32 else "wgmma"
+    return "tf32" if dtype == torch.float32 else "mma"
 
 # ---------------------------------------------------------------------------
 # Blockwise (flash-style) attention, the length-scalable variant
@@ -318,19 +336,31 @@ def _smem_bytes(bq: int, bk: int, hd: int, dtype) -> int:
     wgmma body (bf16 at 64; `wgmma_smem_bytes` in
     `csrc/attention_wgmma.cuh`): up to 1024 bytes to align the tiles, two
     query tiles, the stages of K and V tiles (`wgmma_stages`; unpadded
-    128-byte rows) and 2 * stages + 4 barriers of 8 bytes. Up to width 128
-    otherwise, the mma.sync tensor-core bodies (`mma_smem_bytes` and
-    `tf32_smem_bytes` in `csrc/blockwise_attention.cu`): the query tile (in
+    128-byte rows) and 2 * stages + 4 barriers of 8 bytes. The fp32 wgmma
+    body (`tf32_wgmma_smem_bytes` in `csrc/attention_wgmma_tf32.cuh`): the
+    1024 bytes, `tf32_q_buffers` query buffers of a hi and a lo plane,
+    `TF32_WGMMA_STAGES` stages of each of its two rings (K hi and K lo; V
+    as landed, V^T hi and V^T lo), fp32 rows of a head, and a full, a ready
+    and an empty barrier for each stage of both rings and each query
+    buffer. Up to width 128 otherwise, the mma.sync tensor-core bodies
+    (`mma_smem_bytes` and `tf32_smem_bytes` in
+    `csrc/blockwise_attention.cu`): the query tile (in
     fp32 its hi and lo planes), two stages of K and V tiles and two of the
     key-bias strip, rows padded by 16 bytes. Above, the wide CUDA-core body
     (`smem_bytes` there) at its column chunk: fp32 query chunk and
     probability tile, the key-bias strip, K and V chunks in the input type
     with padded rows."""
     elt = torch.empty((), dtype=dtype).element_size()
-    if attention_body(dtype, hd) == "wgmma":
+    body = attention_body(dtype, hd)
+    if body == "wgmma":
         stages = wgmma_stages(bq, bk)
         return (_SWIZZLE_ATOM + (2 * bq + 2 * stages * bk) * hd * elt
                 + (2 * stages + 4) * 8)
+    if body == "wgmma_tf32":
+        nq, stages = tf32_q_buffers(bq), TF32_WGMMA_STAGES
+        return (_SWIZZLE_ATOM + nq * 2 * bq * hd * elt
+                + stages * (3 * bk + 2 * hd) * hd * elt
+                + (6 * stages + 3 * nq) * 8)
     if hd <= NARROW_MAX_HEAD_DIM:
         row = hd * elt + _MMA_ROW_PAD_BYTES
         planes = 2 if dtype == torch.float32 else 1
@@ -347,16 +377,21 @@ def blockwise_tiles(Sq: int, Sk: int, head_dim: int, dtype,
     sequence needs, and both halved (keys first) until the tiles fit a
     block's shared memory at the instance's width (`kernel_width`). The
     wgmma body (bf16 at 64) takes at least 64 of each
-    (`WGMMA_BLOCK_SIZES`: a warpgroup's 64 rows; every such tiling fits).
-    In fp32 up to width 128 the keys take at most `TF32_MAX_BLOCK_K`;
-    above width 128 the keys take `WIDE_BLOCK_K` and the rows at most
+    (`WGMMA_BLOCK_SIZES`: a warpgroup's 64 rows; every such tiling fits);
+    the fp32 wgmma body at least 64 rows and keys of `TF32_MAX_BLOCK_K`,
+    its one key tile. In fp32 at the other widths up to 128 the keys take
+    at most `TF32_MAX_BLOCK_K`; above width 128 the keys take
+    `WIDE_BLOCK_K` and the rows at most
     `WIDE_MAX_BLOCK_Q`, the wide body's one tiling. The sizes need not
     divide Sq or Sk: the last tile of either dimension is masked."""
     bq, bk = _snap(block_q, Sq), _snap(block_k, Sk)
     width = kernel_width(head_dim)
-    if attention_body(dtype, head_dim) == "wgmma":
-        low = WGMMA_BLOCK_SIZES[0]
+    body = attention_body(dtype, head_dim)
+    low = WGMMA_BLOCK_SIZES[0]
+    if body == "wgmma":
         return max(bq, low), max(bk, low)
+    if body == "wgmma_tf32":
+        return max(bq, low), TF32_MAX_BLOCK_K
     if width > NARROW_MAX_HEAD_DIM:
         bq, bk = min(bq, WIDE_MAX_BLOCK_Q), WIDE_BLOCK_K
     elif dtype == torch.float32:
@@ -436,7 +471,7 @@ def _blockwise_launch(name, q, k, v, bias, num_heads: int, block_q: int,
     """One launch of `csrc/blockwise_attention.cu` on CUDA tensors that
     passed `_check_kernel_inputs`; returns the output. q, k and v are read
     in place through their row strides (`row_stride`, which raises before
-    the launch on any other layout; the wgmma body's tensor maps take every
+    the launch on any other layout; the wgmma bodies' tensor maps take every
     layout it accepts), or as zero-padded copies at widths without an
     instance. The body is `attention_body`'s."""
     B, Sq, D = q.shape
@@ -487,4 +522,5 @@ def fused_attention_blockwise(q, k, v, bias, num_heads: int,
 fused_attention_blockwise.launches = 0
 fused_attention_blockwise.strided_launches = 0
 fused_attention_blockwise.wgmma_launches = 0
+fused_attention_blockwise.tf32_wgmma_launches = 0
 fused_attention_blockwise.bf16_launches = 0

@@ -1,7 +1,7 @@
-// What the attention bodies of blockwise_attention.cu and
-// attention_wgmma.cuh share: element access for fp32 and bf16, bf16
-// packing, warp reductions, and the start of the online softmax's running
-// maximum.
+// What the attention bodies of blockwise_attention.cu,
+// attention_wgmma.cuh and attention_wgmma_tf32.cuh share: element access
+// for fp32 and bf16, bf16 packing, the TF32 rounding and split of 3xTF32,
+// warp reductions, and the start of the online softmax's running maximum.
 
 #pragma once
 
@@ -61,6 +61,26 @@ struct Num<__nv_bfloat16> {
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
+}
+
+// x rounded to TF32 (10 stored mantissa bits; to nearest, ties away from
+// zero), as the .b32 operand of a TF32 mma: the rounding of
+// cvt.rna.tf32.f32, done on the bits. Half of the lowest kept bit is added
+// to the magnitude (a carry runs into the exponent as it should) and the 13
+// dropped bits are cleared: two integer instructions, where cvt.rna compiles
+// to a longer sequence on sm_90a that also guards NaN payloads. For every
+// finite x the two agree bit for bit (the outputs of both versions were
+// bit-equal on an NVIDIA H100 80GB HBM3 at 700 W, and 13-15% apart in
+// time; PERF.md); a NaN still gives a NaN lo part, so NaN propagates.
+__device__ __forceinline__ unsigned tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, up to what TF32 drops of x - hi
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ float warp_max(float x) {

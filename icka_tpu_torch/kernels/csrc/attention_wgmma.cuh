@@ -537,21 +537,27 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The 3-D map of a (B, S, num_heads * 64) bf16 tensor whose rows are ld
-// elements apart and whose batches S rows apart: dims (num_heads * 64, S,
-// B), byte strides (ld * 2, S * ld * 2), a box of (64, rows, 1), 128-byte
+// The 3-D map of a (B, S, num_heads * 64) tensor of `elt`-byte elements
+// (2: bf16, 4: fp32) whose rows are ld elements apart and whose batches S
+// rows apart: dims (num_heads * 64, S, B), byte strides (ld * elt,
+// S * ld * elt), a box of one 128-byte swizzle span of columns (64 bf16,
+// 32 fp32: half a head) by `rows` rows of one batch element, 128-byte
 // swizzled; what lies past S in a box is filled with zeros.
 inline bool tensor_map(CUtensorMap* map, const void* base, int num_heads,
-                       int S, int B, long long ld, int rows) {
+                       int S, int B, long long ld, int rows, int elt) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)num_heads * kHeadDim,
                               (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2,
-                                 (cuuint64_t)S * ld * 2};
-  const cuuint32_t box[3] = {kHeadDim, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * elt,
+                                 (cuuint64_t)S * ld * elt};
+  const cuuint32_t box[3] = {(cuuint32_t)(kRowBytes / elt),
+                             (cuuint32_t)rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  return encode(map,
+                elt == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                3,
                 const_cast<void*>(base), dims, strides, box, step,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -587,9 +593,9 @@ cudaError_t launch_wgmma_tile(const void* q, const void* k, const void* v,
     return n;
   }();
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, num_heads, Sq, B, ldq, BQ) ||
-      !tensor_map(&tk, k, num_heads, Sk, B, ldk, BK) ||
-      !tensor_map(&tv, v, num_heads, Sk, B, ldv, BK))
+  if (!tensor_map(&tq, q, num_heads, Sq, B, ldq, BQ, 2) ||
+      !tensor_map(&tk, k, num_heads, Sk, B, ldk, BK, 2) ||
+      !tensor_map(&tv, v, num_heads, Sk, B, ldv, BK, 2))
     return cudaErrorInvalidValue;
   const long long items = (long long)(Sq + BQ - 1) / BQ * num_heads * B;
   if (items > INT_MAX) return cudaErrorInvalidValue;   // the kernel's count

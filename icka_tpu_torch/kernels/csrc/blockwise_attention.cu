@@ -35,12 +35,17 @@
 // score -inf, rows past Sq are never stored), so no block size has to
 // divide a sequence length.
 //
-// Four bodies:
+// Five bodies:
 //
 // bf16 at head width 64 (every full-width model of the repo), on Hopper's
 // wgmma with TMA-fed shared memory, an mbarrier ring and a producer
 // warpgroup (attention_wgmma.cuh, its own note). 4 instances, (block_q,
 // block_k) in {64, 128}^2.
+//
+// fp32 at head width 64, 3xTF32 on TF32 wgmma in the same scaffolding,
+// Q and K split and V transposed and split in shared memory by the
+// producer warpgroup (attention_wgmma_tf32.cuh, its own note). 2
+// instances, block_q 64 or 128, block_k 64.
 //
 // bf16 at the other head widths up to 128, on the tensor cores (mma.sync
 // m16n8k16, bf16 in, fp32 sums), in the shape of FlashAttention-2. A warp owns 16 query
@@ -60,8 +65,8 @@
 // every ldmatrix free of bank conflicts. 21 instances, (block_k, head_dim)
 // with head_dim in 16..128 but 64.
 //
-// fp32 up to head width 128, on the tensor cores through 3xTF32
-// (mma.sync m16n8k8 .tf32, fp32 sums), in the bf16 body's shape: the same
+// fp32 at the other head widths up to 128, on the tensor cores through
+// 3xTF32 (mma.sync m16n8k8 .tf32, fp32 sums), in the bf16 body's shape: the same
 // warps, staging and softmax. TF32 keeps 10 of fp32's 23 mantissa bits, so
 // one TF32 product does not hold the fp32 contract (2e-5 against the plain
 // version). Each operand x is split as hi = tf32(x), lo = tf32(x - hi)
@@ -80,8 +85,8 @@
 // position t holds key 2t and position t + 4 key 2t + 1, which is where the
 // m16n8 accumulator already holds them. Staged rows are padded by 4 floats
 // (row stride = 4 mod 32 words): the K fragment K[g][t] reads banks 4g + t
-// and the V fragment V[2t][g] banks 8t + g, each 32 distinct. 16
-// instances, (block_k 32 or 64, head_dim in 16..128).
+// and the V fragment V[2t][g] banks 8t + g, each 32 distinct. 14
+// instances, (block_k 32 or 64, head_dim in 16..128 but 64).
 //
 // Head widths above 128, fp32 and bf16, on the CUDA cores: 8 query rows
 // per warp, at most 64 a block, one key tile of 32 (lane j scores key j of
@@ -109,6 +114,7 @@
 
 #include "attention_common.cuh"
 #include "attention_wgmma.cuh"
+#include "attention_wgmma_tf32.cuh"
 #include "ptx.cuh"
 
 namespace {
@@ -688,26 +694,6 @@ inline size_t tf32_smem_bytes(int bq, int bk, int hd) {
   return 2 * bq * row + 2 * (2 * bk * row + (size_t)bk * sizeof(float));
 }
 
-// x rounded to TF32 (10 stored mantissa bits; to nearest, ties away from
-// zero), as the .b32 operand of a TF32 mma: the rounding of
-// cvt.rna.tf32.f32, done on the bits. Half of the lowest kept bit is added
-// to the magnitude (a carry runs into the exponent as it should) and the 13
-// dropped bits are cleared: two integer instructions, where cvt.rna compiles
-// to a longer sequence on sm_90a that also guards NaN payloads. For every
-// finite x the two agree bit for bit (the outputs of both versions were
-// bit-equal on an NVIDIA H100 80GB HBM3 at 700 W, and 13-15% apart in
-// time; PERF.md); a NaN still gives a NaN lo part, so NaN propagates.
-__device__ __forceinline__ unsigned tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo, up to what TF32 drops of x - hi
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
-                                           unsigned& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
 // c (16x8, fp32) += a (16x8, tf32, row) * b (8x8, tf32, col)
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
                                          unsigned b0, unsigned b1) {
@@ -1062,11 +1048,7 @@ cudaError_t launch_mma_width(int hd, const void* q, const void* k,
     ICKA_WIDTH(16)
     ICKA_WIDTH(32)
     ICKA_WIDTH(48)
-    case 64:  // bf16 at 64 runs the wgmma body
-      if constexpr (std::is_same_v<T, float>)
-        return launch_mma_tile<T, BK, 64>(q, k, v, bias, out, ld, B, Sq, Sk,
-                                          num_heads, bq, key_mode, sb, sq, sk,
-                                          scale, stream);
+    case 64:  // width 64 runs the wgmma bodies
       return cudaErrorInvalidValue;
     ICKA_WIDTH(80)
     ICKA_WIDTH(96)
@@ -1103,22 +1085,24 @@ cudaError_t launch_mma(int bk, const void* q, const void* k, const void* v,
 
 // The body a call names, which must be the one its type and width take
 // (`attention_body` in the Python wrapper)
-enum Body { kTf32 = 0, kMma = 1, kWgmma = 2, kWide = 3 };
+enum Body { kTf32 = 0, kMma = 1, kWgmma = 2, kWide = 3, kWgmmaTf32 = 4 };
 
 inline int body_of(int dtype, int head_dim) {
   if (head_dim > 128) return kWide;
-  if (dtype == 0) return kTf32;
-  return head_dim == icka_wgmma::kHeadDim ? kWgmma : kMma;
+  if (head_dim == icka_wgmma::kHeadDim) return dtype == 0 ? kWgmmaTf32 : kWgmma;
+  return dtype == 0 ? kTf32 : kMma;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; body: 0 = 3xTF32, 1 = bf16 mma.sync,
-// 2 = bf16 wgmma, 3 = the wide CUDA-core body, the one `body_of` gives for
-// the type and width (any other is refused). Up to head_dim 128 (a
-// multiple of 16) the tensor-core bodies run: bf16 at 64 on wgmma, block_q
-// and block_k in {64, 128}; bf16 at the other widths or 3xTF32, block_q in
-// {32, 64, 128}, block_k in {32, 64, 128} (bf16) or {32, 64} (fp32);
+// dtype: 0 = float32, 1 = bfloat16; body: 0 = 3xTF32 mma.sync, 1 = bf16
+// mma.sync, 2 = bf16 wgmma, 3 = the wide CUDA-core body, 4 = 3xTF32 wgmma,
+// the one `body_of` gives for the type and width (any other is refused).
+// Up to head_dim 128 (a multiple of 16) the tensor-core bodies run: bf16
+// at 64 on wgmma, block_q and block_k in {64, 128}; fp32 at 64 on TF32
+// wgmma, block_q in {64, 128}, block_k 64; bf16 or 3xTF32 mma.sync at the
+// other widths, block_q in {32, 64, 128}, block_k in {32, 64, 128} (bf16)
+// or {32, 64} (fp32);
 // above, head_dim a multiple of 32, the CUDA-core body runs in both types
 // at block_k 32 and block_q 32 or 64, in column chunks of at most 256. q,
 // k and v aligned to 16 bytes, their rows ldq, ldk and ldv elements apart
@@ -1151,6 +1135,10 @@ extern "C" int icka_blockwise_attention(
     return icka_wgmma::launch_wgmma(block_q, block_k, q, k, v, b, out, ldq,
                                     ldk, ldv, B, Sq, Sk, num_heads, key_mode,
                                     bias_sb, bias_sq, bias_sk, scale, s);
+  if (body == kWgmmaTf32)
+    return icka_wgmma_tf32::launch_wgmma_tf32(
+        block_q, block_k, q, k, v, b, out, ldq, ldk, ldv, B, Sq, Sk,
+        num_heads, key_mode, bias_sb, bias_sq, bias_sk, scale, s);
   if (head_dim > 128) {
     if (head_dim % 32 || block_k != 32) return cudaErrorInvalidValue;
     return dtype == 0

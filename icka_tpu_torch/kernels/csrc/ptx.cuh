@@ -1,7 +1,8 @@
 // PTX wrappers shared by the tensor-core kernels (blockwise_attention.cu,
 // int8_conv.cu): asynchronous copies into shared memory and ldmatrix; and
-// Hopper's (sm_90a) for attention_wgmma.cuh: mbarriers, TMA tensor loads,
-// register reallocation between warpgroups, and wgmma.
+// Hopper's (sm_90a) for attention_wgmma.cuh and attention_wgmma_tf32.cuh:
+// mbarriers, TMA tensor loads, register reallocation between warpgroups,
+// wgmma in bf16 and TF32, and the proxy fence between them.
 
 #pragma once
 
@@ -268,6 +269,65 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64, fp32) (+)= a (64 x 8) b (8 x 64), tf32, both from shared
+// memory through descriptors, both K-major (TF32 has no transpose: 32-bit
+// operands are K-major only); d is zeroed first unless accumulate
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32],
+                                                       uint64_t a, uint64_t b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += a (64 x 8, tf32, in registers: this thread's
+// fragment of its warp's 16 rows, as mma.sync's m16k8 A: (g, t), (g + 8,
+// t), (g, t + 4), (g + 8, t + 4)) b (8 x 64, tf32, from shared memory,
+// K-major)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
+                                                       const unsigned (&a)[4],
+                                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// makes this thread's ordinary shared-memory writes visible to the async
+// proxy (wgmma's operand reads, TMA's writes) that a barrier orders after it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 }  // namespace icka_ptx

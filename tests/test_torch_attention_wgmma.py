@@ -172,7 +172,7 @@ def test_a_minus_inf_key_tile_stays_finite(tiles):
 def test_attention_body_by_type_and_width():
     for hd in (49, 56, 64):          # widths that run at the instance 64
         assert attention_body(BF16, hd) == "wgmma"
-        assert attention_body(torch.float32, hd) == "tf32"
+        assert attention_body(torch.float32, hd) == "wgmma_tf32"
     for hd in (16, 32, 48, 80, 112, 128):
         assert attention_body(BF16, hd) == "mma"
         assert attention_body(torch.float32, hd) == "tf32"

@@ -145,7 +145,9 @@ def test_tiles_snap_and_fit_shared_memory():
     f32, bf16 = torch.float32, torch.bfloat16
     assert blockwise_tiles(1024, 1024, 64, bf16) == (128, 128)
     assert blockwise_tiles(150, 150, 64, bf16, 100, 70) == (64, 64)
-    assert blockwise_tiles(23, 23, 64, f32) == (32, 32)
+    assert blockwise_tiles(23, 23, 48, f32) == (32, 32)
+    # fp32 at width 64 (the wgmma body): a warpgroup's 64 rows, 64 keys
+    assert blockwise_tiles(23, 23, 64, f32) == (64, 64)
     assert blockwise_tiles(48, 256, 16, bf16, 16, 128) == (32, 128)
     # fp32 up to width 128: at most 64 keys a tile (the 3xTF32 body)
     assert blockwise_tiles(48, 256, 16, f32, 16, 128) == (32, 64)
@@ -154,7 +156,7 @@ def test_tiles_snap_and_fit_shared_memory():
     assert blockwise_tiles(64, 65, 64, bf16) == (64, 128)
     # the 3xTF32 body stages Q as hi and lo planes and K/V in fp32, rows
     # padded by 16 bytes: at width 128, (128, 64) needs 270,848 bytes, so
-    # keys are halved once more; at 64, (128, 64) fits
+    # keys are halved once more; at 64 the wgmma body's (128, 64) fits
     assert _smem_bytes(128, 64, 128, f32) == 2 * 128 * 528 + 2 * (
         2 * 64 * 528 + 256)
     assert blockwise_tiles(1024, 1024, 128, f32) == (128, 32)

@@ -434,15 +434,17 @@ def test_k1_bf16_runs_the_tensor_core_body(cuda_device):
 
 
 def test_k1_fp32_runs_the_tensor_core_body(cuda_device):
-    """K1 in fp32 is one launch of the blockwise library's 3xTF32 body at
-    `K1_FP32_TILES` (never the wgmma body), counted on K1 and never on K2,
+    """K1 in fp32 at head width 64 is one launch of the blockwise library's
+    3xTF32 wgmma body at `K1_FP32_TILES` (never the bf16 wgmma body),
+    counted on K1 (and on its `tf32_wgmma_launches`) and never on K2,
     bit-equal to K2 asked for the same tiling and within 2e-5 of the plain
-    version; it raises on a view four bytes past a 16-byte boundary
-    (cp.async needs 16) before any launch. TF32 matmuls stay off for the
-    plain version; the kernel never reads that switch."""
+    version; it raises on a view four bytes past a 16-byte boundary (TMA
+    needs 16) before any launch. TF32 matmuls stay off for the plain
+    version; the kernel never reads that switch."""
     torch.backends.cuda.matmul.allow_tf32 = False
     counts = (tattn.fused_attention.launches,
-              tattn.fused_attention_blockwise.launches)
+              tattn.fused_attention_blockwise.launches,
+              tattn.fused_attention.tf32_wgmma_launches)
     wgmma = tattn.fused_attention.wgmma_launches
     for kind in ("B11Sk", "full"):
         q, k, v, bias = _attn_case(cuda_device, torch.float32, 3, 150, 150,
@@ -453,7 +455,9 @@ def test_k1_fp32_runs_the_tensor_core_body(cuda_device):
         assert torch.equal(got, tattn.fused_attention_blockwise(
             q, k, v, bias, 16, *tattn.K1_FP32_TILES))
     assert (tattn.fused_attention.launches - counts[0],
-            tattn.fused_attention_blockwise.launches - counts[1]) == (2, 2)
+            tattn.fused_attention_blockwise.launches - counts[1],
+            tattn.fused_attention.tf32_wgmma_launches - counts[2]) == (2, 2,
+                                                                      2)
     assert tattn.fused_attention.wgmma_launches == wgmma
     flat = torch.zeros(8 * 128 + 1, device=cuda_device)
     q = flat[1:].view(1, 8, 128)
@@ -521,29 +525,127 @@ def test_wgmma_body_at_one_key_and_a_minus_inf_tile(cuda_device, blocks):
     _assert_attn_close(got, tattn.attention_reference(q, k, v, bias, 4))
 
 
+TF32_WGMMA_TILINGS = [(bq, 64) for bq in tattn.WGMMA_BLOCK_SIZES]
+
+
+@pytest.mark.parametrize("blocks", TF32_WGMMA_TILINGS,
+                         ids=lambda b: f"{b[0]}x{b[1]}")
+@pytest.mark.parametrize("shape,kind", [
+    ((150, 150), "B11Sk"), ((172, 172), "full"), ((23, 150), "BSk"),
+    ((150, 23), "full"), ((300, 1024), "B11Sk")])
+def test_tf32_wgmma_body_matches_both_plain_versions(cuda_device, shape,
+                                                     kind, blocks):
+    """The 3xTF32 wgmma body (fp32, head width 64) at each of its
+    instances through K2, and K1 at its own, within 2e-5 of both plain
+    versions: K1's and K2's serving shapes with a key and a full bias,
+    ragged in both dimensions (a query tile of 128 whose second warpgroup
+    has no row), and a long key sequence. B = 24 at 16 heads gives more
+    work items than the persistent grid has blocks."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, bias = _attn_case(cuda_device, torch.float32, 24, *shape, 16,
+                               64, kind)
+    before = tattn.fused_attention_blockwise.tf32_wgmma_launches
+    got = tattn.fused_attention_blockwise(q, k, v, bias, 16, *blocks)
+    torch.cuda.synchronize()
+    assert tattn.fused_attention_blockwise.tf32_wgmma_launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    _assert_attn_close(got, tattn.attention_blockwise_reference(
+        q, k, v, bias, 16, *blocks))
+    _assert_attn_close(got, tattn.attention_reference(q, k, v, bias, 16))
+    k1 = tattn.fused_attention(q, k, v, bias, 16)
+    torch.cuda.synchronize()
+    _assert_attn_close(k1, tattn.attention_reference(q, k, v, bias, 16))
+
+
+@pytest.mark.parametrize("blocks", TF32_WGMMA_TILINGS,
+                         ids=lambda b: f"{b[0]}x{b[1]}")
+def test_tf32_wgmma_body_at_one_key_and_a_minus_inf_tile(cuda_device,
+                                                         blocks):
+    """One key (a tile of one valid row, the rest TMA's zeros), and -inf
+    over the first two key tiles of every second row: finite, within 2e-5
+    of both plain versions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, _ = _attn_case(cuda_device, torch.float32, 3, 70, 1, 4, 64,
+                            "BSk")
+    bias = torch.zeros(3, 1, device=cuda_device)
+    got = tattn.fused_attention_blockwise(q, k, v, bias, 4, *blocks)
+    torch.cuda.synchronize()
+    _assert_attn_close(got, tattn.attention_blockwise_reference(
+        q, k, v, bias, 4, *blocks))
+    _assert_attn_close(got, v.expand_as(got))     # one key: its value
+    q, k, v, _ = _attn_case(cuda_device, torch.float32, 3, 70, 256, 4, 64,
+                            "BSk")
+    bias = torch.zeros(3, 70, 256, device=cuda_device)
+    bias[:, ::2, :128] = float("-inf")
+    got = tattn.fused_attention_blockwise(q, k, v, bias, 4, *blocks)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _assert_attn_close(got, tattn.attention_blockwise_reference(
+        q, k, v, bias, 4, *blocks))
+    _assert_attn_close(got, tattn.attention_reference(q, k, v, bias, 4))
+
+
+@pytest.mark.parametrize("wrapper", ["fused_attention",
+                                     "fused_attention_blockwise"])
+def test_tf32_wgmma_body_on_strided_views(cuda_device, wrapper):
+    """The TMA tensor maps of fp32 q, k and v read in place: the views of
+    one fused (B, S, 3D) projection and a tensor-parallel rank's columns
+    of a gathered (8, 150, 3 x 1024) projection, each bit-equal to the same
+    call on contiguous copies and within 2e-5 of the plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fn = getattr(tattn, wrapper)
+    plain = (tattn.attention_reference if wrapper == "fused_attention"
+             else tattn.attention_blockwise_reference)
+    q, k, v, bias = _attn_case(cuda_device, torch.float32, 3, 150, 150, 16,
+                               64, "B11Sk")
+    fused = torch.cat([q, k, v], dim=-1).split(q.shape[-1], dim=-1)
+    H, n = 1024, 512
+    qkv = torch.zeros(8, 150, 3 * H, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    qkv.normal_(generator=gen)
+    tp = [qkv[..., j * H + n:j * H + 2 * n] for j in range(3)]
+    tp_bias = bias[:1].expand(8, 1, 1, 150)
+    for views, b, N in ((fused, bias, 16), (tp, tp_bias, 8)):
+        before = (fn.launches, fn.strided_launches, fn.tf32_wgmma_launches)
+        got = fn(*views, b, N)
+        torch.cuda.synchronize()
+        assert (fn.launches - before[0], fn.strided_launches - before[1],
+                fn.tf32_wgmma_launches - before[2]) == (1, 1, 1)
+        copies = [t.contiguous() for t in views]
+        assert torch.equal(got, fn(*copies, b, N))
+        _assert_attn_close(got, plain(*copies, b, N))
+
+
 @pytest.mark.parametrize("wrapper", ["fused_attention",
                                      "fused_attention_blockwise"])
 def test_wgmma_launches_count_bf16_at_width_64_only(cuda_device, wrapper):
     """`wgmma_launches` rises by one for each bf16 launch at head width 64
     (and at 56, padded to 64), on contiguous tensors and on the strided
     views of a fused projection, and not at widths 48 or 128 in bf16 nor
-    at 64 in fp32; `bf16_launches` counts every bf16 launch."""
+    at 64 in fp32; `tf32_wgmma_launches` likewise for each fp32 launch at
+    64 (and 56) and at no other width or type; `bf16_launches` counts
+    every bf16 launch."""
     torch.backends.cuda.matmul.allow_tf32 = False
     fn = getattr(tattn, wrapper)
-    for dtype, hd, wgmma in ((torch.bfloat16, 64, 1), (torch.bfloat16, 56, 1),
-                             (torch.bfloat16, 48, 0),
-                             (torch.bfloat16, 128, 0),
-                             (torch.float32, 64, 0)):
+    for dtype, hd, wgmma, tf32 in ((torch.bfloat16, 64, 1, 0),
+                                   (torch.bfloat16, 56, 1, 0),
+                                   (torch.bfloat16, 48, 0, 0),
+                                   (torch.bfloat16, 128, 0, 0),
+                                   (torch.float32, 64, 0, 1),
+                                   (torch.float32, 56, 0, 1),
+                                   (torch.float32, 48, 0, 0)):
         q, k, v, bias = _attn_case(cuda_device, dtype, 2, 45, 70, 4, hd,
                                    "BSk")
         fused = torch.cat([q, q], dim=-1)[..., :4 * hd]
         for args in ((q, k, v), (fused, k, v)):
-            before = (fn.launches, fn.wgmma_launches, fn.bf16_launches)
+            before = (fn.launches, fn.wgmma_launches, fn.bf16_launches,
+                      fn.tf32_wgmma_launches)
             got = fn(*args, bias, 4)
             torch.cuda.synchronize()
             assert (fn.launches - before[0], fn.wgmma_launches - before[1],
-                    fn.bf16_launches - before[2]) == (
-                1, wgmma, int(dtype == torch.bfloat16))
+                    fn.bf16_launches - before[2],
+                    fn.tf32_wgmma_launches - before[3]) == (
+                1, wgmma, int(dtype == torch.bfloat16), tf32)
             plain = (tattn.attention_reference if wrapper == "fused_attention"
                      else tattn.attention_blockwise_reference)
             _assert_attn_close(got, plain(*args, bias, 4))

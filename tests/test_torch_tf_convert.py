@@ -31,6 +31,17 @@ def test_crc32c_known_vectors():
     assert ttf._masked_crc(data) == jtf._masked_crc(data)
 
 
+@pytest.mark.parametrize("n", [ttf._CRC_VECTOR_MIN - 1, ttf._CRC_VECTOR_MIN,
+                               ttf._CRC_VECTOR_MIN + 3, 65537, 250_003])
+@pytest.mark.parametrize("crc", [0, 0x9E3779B9])
+def test_crc32c_chunked_equals_the_byte_loop(n, crc):
+    # the numpy path (rows side by side, joined by the zero-byte matrices,
+    # a ragged tail) against the JAX package's byte-by-byte loop, also
+    # continuing a running crc
+    data = np.random.default_rng(n).integers(0, 256, n, np.uint8).tobytes()
+    assert ttf.crc32c(data, crc) == jtf.crc32c(data, crc)
+
+
 def _fake_bert_vars(rng, n_layers=3):
     """BERT-style names (long shared prefixes exercise the block builder's
     prefix compression), mixed dtypes and optimizer slots."""
