@@ -491,6 +491,7 @@ EVAL_ROWS, EVAL_BATCH, EVAL_CLI_FLAGS = 67, 8, ()
 # integer sums, the same fp32 multiplies, adds and roundings)
 CONV_STAGES = ((56, 64), (28, 128), (14, 256), (7, 512))    # (H, Cw)
 CONV_SOURCE = "icka_tpu_torch/kernels/csrc/int8_conv.cu"
+BNECK_SOURCE = "icka_tpu_torch/kernels/csrc/int8_bottleneck_wgmma.cuh"
 CHECK_CONV_LAUNCHES = True        # a CPU rehearsal launches no kernel
 # K3-K6 at B=128 with their main loop on dp4a (chip_smoke.py phase 6 as of
 # the fifth slice of the port, NVIDIA H100 80GB HBM3, 700.00 W): recorded,
@@ -498,6 +499,21 @@ CHECK_CONV_LAUNCHES = True        # a CPU rehearsal launches no kernel
 CONV_DP4A_MS = {"int8_stem_pool": 1.5628, "int8_bottleneck_v2 H=14": 0.7419,
                 "int8_bottleneck_v2 H=56": 1.2492, "int8_bottleneck": 0.7461,
                 "int8_conv3x3": 0.3133}
+# K4's and K6's times on the three-launch mma.sync body that ran them before
+# the wgmma body (NVIDIA H100 80GB HBM3, 700.00 W): at B=128 from PERF.md's
+# kernel table (chip_smoke.py phase 7 as of the twelfth slice of the port);
+# at the serving batch, by stage H, the device time of a call's three
+# launches (tools/int8_conv_launches.py on that body's tree, the mean of
+# two runs in one chip call with the wgmma body's, parent and change in
+# turns). Recorded, printed beside the new times, never in the `kernels`
+# line.
+CONV_MMA_SYNC_MS = {"int8_bottleneck_v2 H=14": 0.2585,
+                    "int8_bottleneck_v2 H=56": 0.5313,
+                    "int8_bottleneck": 0.2584}
+CONV_MMA_SYNC_B16_MS = {56: 0.0721, 28: 0.0595, 14: 0.0695, 7: 0.0884}
+# phase 4b's int8-static visual half for 16 images (PERF.md §5, the ninth
+# slice of the port), printed beside phase 4's
+INT8_VISUAL_PR9_MS = 15.7
 # att of the int8-static ResNet-152 (50 blocks, random weights, BatchNorm
 # statistics calibrated on the request images), as cosines. The JAX
 # package's test holds a 2-stage net to 0.995 (fused vs unfused) and 0.99
@@ -634,6 +650,10 @@ COUNTERS = {
 }
 # kernels that no model calls, here as in the JAX package
 NO_CALLER = ("fused_attention_blockwise", "int8_conv3x3", "int8_bottleneck")
+# the bottleneck wrappers' launches by cluster size, as `read_counts` keys
+BOTTLENECKS = ("int8_bottleneck_v2", "int8_bottleneck")
+CLUSTER_COUNTS = {f"{name}.cl{n}": (name, n) for name in BOTTLENECKS
+                  for n in (1, 2, 4, 8)}
 
 
 # the attention wrappers' launches of the bf16 and the fp32 (3xTF32) wgmma
@@ -653,13 +673,24 @@ def zero_counts():
             wrapper.strided_launches = 0
     for name, attr in BODY_COUNTS.values():
         setattr(COUNTERS[name], attr, 0)
+    for name in BOTTLENECKS:
+        COUNTERS[name].cluster_launches.update(
+            dict.fromkeys(COUNTERS[name].cluster_launches, 0))
 
 
 def read_counts() -> dict:
     counts = {name: wrapper.launches for name, wrapper in COUNTERS.items()}
     counts.update({key: getattr(COUNTERS[name], attr)
                    for key, (name, attr) in BODY_COUNTS.items()})
+    counts.update({key: COUNTERS[name].cluster_launches[n]
+                   for key, (name, n) in CLUSTER_COUNTS.items()})
     return counts
+
+
+def cluster_split(counts: dict, name: str) -> dict:
+    """A bottleneck wrapper's launches by cluster size, sizes that ran."""
+    return {n: counts[f"{name}.cl{n}"] for n in (1, 2, 4, 8)
+            if counts[f"{name}.cl{n}"]}
 
 
 def attention_inputs(B, Sq, Sk, dtype, bias_kind, gen, N=16, hd=64,
@@ -756,10 +787,16 @@ def phase_build():
     check(hgmma_bf16 > 0 and hmma[hgmma_tf32] > 0 and hmma["UTMALDG"] > 0,
           "the blockwise library has no bf16 or no TF32 wgmma, or no TMA "
           "load")
-    conv = sass_counts("int8_conv", ("IMMA", "IDP"))
-    print(f"#   int8_conv: {conv['IMMA']} IMMA instructions in its SASS, "
-          f"{conv['IDP']} IDP (dp4a)")
-    check(conv["IMMA"] > 0, "the int8 library has no tensor-core instruction")
+    conv = sass_counts("int8_conv", ("IMMA", "IDP", "IGMMA", "UTMALDG",
+                                     "UBLKCP"))
+    print(f"#   int8_conv: {conv['IGMMA']} IGMMA (int8 wgmma: the "
+          f"bottleneck body), {conv['UTMALDG']} UTMALDG (TMA tensor loads) "
+          f"and {conv['UBLKCP']} UBLKCP (TMA bulk copies) in its SASS; "
+          f"{conv['IMMA']} IMMA (mma.sync: K3 and K5), {conv['IDP']} IDP "
+          f"(dp4a)")
+    check(conv["IGMMA"] > 0 and conv["UTMALDG"] > 0,
+          "the int8 library has no int8 wgmma or no TMA load")
+    check(conv["IMMA"] > 0, "the int8 library has no mma.sync for K3/K5")
     check(conv["IDP"] == 0, "the int8 library still multiplies with dp4a")
     for name in build.SOURCES:
         rows = ptxas_rows(build.build_log(name))
@@ -785,6 +822,18 @@ def phase_build():
                   and "C7518" not in log,
                   f"wgmma instances {wgmma}: expected 6 (2 of them TF32), "
                   f"none spilling, none serialised")
+        if name == "int8_conv":
+            body = [r for r in rows if r[0].startswith(
+                "int8_bottleneck_kernel")]
+            log = build.build_log(name)
+            serialised = log.count("C7518") + log.count("are serialized")
+            print(f"#   the bottleneck body: " + ", ".join(
+                f"{r[1]} registers at launch, {r[3]} bytes spilled"
+                for r in body) + f"; ptxas serialised wgmma {serialised} "
+                f"times")
+            check(len(body) == 1 and body[0][3] == 0 and serialised == 0,
+                  f"bottleneck body {body}: expected one instance, none "
+                  f"spilling, no wgmma serialised")
         for what, regs, smem, spill in rows:
             print(f"#     {what}: {regs} registers, {smem} bytes static "
                   f"smem, {spill} bytes spilled")
@@ -1026,7 +1075,7 @@ def phase_conv_kernels_vs_plain(gen, B=4):
     absolute error seen per kernel (0.0 when every check passed)."""
     print(f"# phase 2: K3-K6 int8 conv kernels vs plain versions, bit-equal "
           f"(B={B}, stages (H, Cw) = {CONV_STAGES})")
-    errs, n = {}, 0
+    errs, n, clusters = {}, 0, set()
     for H, Cw in CONV_STAGES:
         a = conv3x3_inputs(gen, B, H, Cw, Cw)
         for res in (None, a["residual"], a["residual"].bfloat16()):
@@ -1046,6 +1095,8 @@ def phase_conv_kernels_vs_plain(gen, B=4):
                     n += 1
         args = bottleneck_inputs(gen, B, H, Cw)
         rs = torch.tensor([0.37], device="cuda")
+        clusters.add(kconv.bottleneck_geometry(B, H, H, Cw,
+                                               kconv._sm_count(0))["CL"])
         Wp = -(-(H + 2) // 32) * 32
         xp = _int8(gen, B, H + 2, Wp, 4 * Cw)       # arbitrary borders
         xp[:, 1:H + 1, 1:H + 1] = args[0]
@@ -1073,7 +1124,10 @@ def phase_conv_kernels_vs_plain(gen, B=4):
                     kconv.stem_pool_reference(*args), errs, "int8_stem_pool")
         n += 1
     print(f"#   {n} comparisons bit-equal: " + ", ".join(
-        f"{k} max_abs_err={v}" for k, v in errs.items()))
+        f"{k} max_abs_err={v}" for k, v in errs.items())
+          + f"; K4/K6 in clusters of {sorted(clusters)} CTAs")
+    check(clusters == {1, 2, 4, 8}, f"K4/K6 ran in clusters of "
+                                    f"{sorted(clusters)}, not 1, 2, 4 and 8")
     return errs
 
 
@@ -1221,9 +1275,9 @@ def device_busy(fn):
             recorded(len(records), fn))
 
 
-def kernel_device_ms(fn, iters=50, seconds=1.0):
-    """Device time per launch of the attention kernel that `fn` launches,
-    from torch.profiler's kernel records: where the kernel is shorter
+def kernel_device_ms(fn, iters=50, seconds=1.0, kernel="attention"):
+    """Device time per launch of the kernel (named with `kernel`) that `fn`
+    launches, from torch.profiler's kernel records: where the kernel is shorter
     than its wrapper's host time, CUDA events around a loop of calls count
     the gaps between launches too. The profiled loop lasts about `seconds`
     (at least `iters` calls): late in a process the profiler keeps none
@@ -1246,7 +1300,7 @@ def kernel_device_ms(fn, iters=50, seconds=1.0):
     # the raw records: grouping thousands of calls' records by name
     # (`key_averages`) costs seconds
     ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-          if e.device_type() == DeviceType.CUDA and "attention" in e.name()]
+          if e.device_type() == DeviceType.CUDA and kernel in e.name()]
     return sum(ns) / 1e6 / recorded(len(ns), fn)
 
 
@@ -4119,13 +4173,16 @@ def phase_int8_visual(args, card, dev, ctx, resnet_layers):
     k5, k4, k1 = (counts[name] for name in (
         "int8_stem_pool", "int8_bottleneck_v2", "fused_attention"))
     n_batches = sum(stats.batches_per_bucket.values())
+    split = cluster_split(counts, "int8_bottleneck_v2")
     print(f"#   fused: K5 launches {k5}, K4 launches {k4} (one backbone "
-          f"call, {identity_blocks} identity blocks), K1 launches {k1} in "
-          f"{n_batches} device batches")
+          f"call, {identity_blocks} identity blocks; by cluster size "
+          f"{split}), K1 launches {k1} in {n_batches} device batches")
     if CHECK_CONV_LAUNCHES:
         check(k5 == 1 and k4 == identity_blocks,
               f"K5 launched {k5} times and K4 {k4} times for one backbone "
               f"call with {identity_blocks} identity blocks")
+        check(sum(split.values()) == k4, f"K4's launches by cluster size "
+                                         f"{split} do not sum to {k4}")
         check(k1 == LAYERS_PER_BATCH * n_batches, f"K1 launched {k1} times")
     check(stats.total_pairs == len(texts), "int8 visual: pairs lost")
     for t, tx in zip(tags, texts):
@@ -4210,7 +4267,9 @@ def phase_int8_visual(args, card, dev, ctx, resnet_layers):
                     ("float fp32", float_backbone)):
         print(f"#   visual half, {len(texts)} images, {name}: "
               f"{visual_ms(m, images, dev):.2f} ms (best of 3, host clock "
-              f"to a synchronise) on {card}")
+              f"to a synchronise) on {card}"
+              + (f"; the ninth slice's phase 4b: {INT8_VISUAL_PR9_MS} ms"
+                 if name == "int8 fused" else ""))
     run = lambda: serve(server, models["fused"], texts, images)
     best = min((run()[3] for _ in range(3)), key=sum)
     print(f"#   int8 fused + bf16 flagship: {len(texts) / sum(best):.2f} "
@@ -4775,22 +4834,27 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def conv_row(name, replaces, shape, launches, err, ms, plain_ms, unfused_ms,
-             byts, ops, dp4a_ms):
+def int8_bound(byts, ops):
+    """(bound ms, what bounds it) of int8 work."""
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_INT8_OPS * 1e3
-    row = {"name": name, "route": "cuda", "source": CONV_SOURCE,
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def conv_row(name, replaces, shape, launches, err, ms, plain_ms, unfused_ms,
+             byts, ops, earlier, source=CONV_SOURCE):
+    bound, by = int8_bound(byts, ops)
+    row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches, "max_abs_err": err,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_ms": None, "unfused_ms": unfused_ms, "shape": shape,
            "on_main_path": launches > 0}
     print(f"#   {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"unfused port path {unfused_ms:.4f} ms, bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {byts / 1e6:.1f} MB,"
           f" {ops / 1e9:.2f} GOP); no single PyTorch call computes it; "
-          f"recorded dp4a time of the fifth slice {dp4a_ms:.4f} ms "
-          f"({dp4a_ms / ms:.2f}x)")
+          f"recorded times of earlier bodies: " + ", ".join(
+              f"{what} {t:.4f} ms ({t / ms:.2f}x)" for what, t in earlier))
     return row
 
 
@@ -4808,7 +4872,9 @@ def static_module(module, gen):
 def phase_conv_times(gen, launches, errs, B=128):
     """K3-K6 at B=128 beside their plain versions, the unfused port path
     for the same block (ConvBN modules, integer products on `_int_mm`) and
-    their bounds."""
+    their bounds; K4 also at the serving batch, by stage. K4 and K6 are
+    called as the model calls K4, with their weights laid out for the
+    kernel once (`kmajor_tiles`)."""
     print(f"# phase 7: K3-K6 at B={B}; bound = max(bytes / 3.35e12, ops / "
           f"1979e12 int8 dense)")
     dev = torch.device("cuda", 0)
@@ -4840,7 +4906,7 @@ def phase_conv_times(gen, launches, errs, B=128):
         launches["int8_stem_pool"],
         max(err, errs["int8_stem_pool"]), ms, plain_ms, unfused_ms,
         nbytes(*args) + out_bytes, 2 * B * 56 * 56 * K * N,
-        CONV_DP4A_MS["int8_stem_pool"]))
+        [("dp4a, the fifth slice", CONV_DP4A_MS["int8_stem_pool"])]))
     del args, pixels
 
     # K4 at layer3 and layer1, K6 at layer3
@@ -4856,37 +4922,63 @@ def phase_conv_times(gen, launches, errs, B=128):
         byts = nbytes(*args, rs) + B * H * H * Cin       # int8 out
         ops = 2 * B * H * H * 17 * Cw * Cw
         shape = f"B={B} H={H} Cw={Cw} int8 out"
-        t = timed(lambda: kconv.int8_bottleneck_v2(*args, rs),
+        # the model's call: the weights laid out once (`kmajor_tiles`)
+        tiles = kconv.bottleneck_weight_tiles(*args[1:4])
+        t = timed(lambda: kconv._int8_bottleneck_v2_tiled(tiles, *args, rs),
                   lambda: kconv.bottleneck_v2_reference(*args, rs),
                   lambda: block(x16), "int8_bottleneck_v2")
+        key = f"int8_bottleneck_v2 H={H}"
         k4_rows[H] = conv_row(
             "int8_bottleneck_v2", "icka_tpu/kernels/conv.py:377", shape,
             launches["int8_bottleneck_v2"],
             max(t[0], errs["int8_bottleneck_v2"]), *t[1:], byts, ops,
-            CONV_DP4A_MS[f"int8_bottleneck_v2 H={H}"])
+            [("mma.sync, three launches", CONV_MMA_SYNC_MS[key]),
+             ("dp4a, the fifth slice", CONV_DP4A_MS[key])], BNECK_SOURCE)
         if H == 14:
-            t = timed(lambda: kconv.int8_bottleneck(*args, 0.37),
+            t = timed(lambda: kconv._int8_bottleneck_tiled(tiles, *args,
+                                                           0.37),
                       lambda: kconv.bottleneck_reference(*args, 0.37),
                       lambda: block(x16), "int8_bottleneck")
             k6_row = conv_row(
                 "int8_bottleneck", "icka_tpu/kernels/conv.py:204", shape,
                 launches["int8_bottleneck"],
                 max(t[0], errs["int8_bottleneck"]), *t[1:], byts, ops,
-                CONV_DP4A_MS["int8_bottleneck"])
-        del args, x16
+                [("mma.sync, three launches",
+                  CONV_MMA_SYNC_MS["int8_bottleneck"]),
+                 ("dp4a, the fifth slice", CONV_DP4A_MS["int8_bottleneck"])],
+                BNECK_SOURCE)
+        del args, x16, tiles
     with torch.inference_mode():           # the serving batch, per stage
         per_stage = []
         for H, Cw in CONV_STAGES:
             args = bottleneck_inputs(gen, REQUESTS, H, Cw)
             rs = torch.tensor([0.37], device=dev)
-            per_stage.append(cuda_time_ms(
-                lambda: kconv.int8_bottleneck_v2(*args, rs), iters=20))
-    print(f"#   int8_bottleneck_v2 at the serving batch B={REQUESTS}, stages "
-          f"{CONV_STAGES}: " + ", ".join(f"{t:.4f}" for t in per_stage)
-          + " ms a call (three launches each)")
+            g = kconv.bottleneck_geometry(REQUESTS, H, H, Cw,
+                                          kconv._sm_count(0))
+            tiles = kconv.bottleneck_weight_tiles(*args[1:4])
+            # device time: at this batch a call's host time is longer
+            ms = kernel_device_ms(lambda: kconv._int8_bottleneck_v2_tiled(
+                tiles, *args, rs), iters=20, seconds=0.5,
+                kernel="int8_bottleneck_kernel")
+            bound, by = int8_bound(
+                nbytes(*args, rs) + REQUESTS * H * H * 4 * Cw,
+                2 * REQUESTS * H * H * 17 * Cw * Cw)
+            old = CONV_MMA_SYNC_B16_MS[H]
+            # the recorded time is printed only: every number in the
+            # `kernels` line is measured in this run
+            per_stage.append(dict(H=H, Cw=Cw, CL=g["CL"], ms=ms,
+                                  bound_ms=bound, bound_by=by))
+            print(f"#   int8_bottleneck_v2 at the serving batch B={REQUESTS}"
+                  f", H={H} Cw={Cw} (tiles {g['TR']}x{g['TC']}, clusters "
+                  f"of {g['CL']}): {ms:.4f} ms device time a launch, bound "
+                  f"{bound:.4f} ms ({by}, {ms / bound:.1f}x); recorded "
+                  f"mma.sync body {old:.4f} ms ({old / ms:.2f}x)")
+            del args, tiles
     k4 = k4_rows[14]
     k4.update({f"layer1_{k}": k4_rows[56][k] for k in (
         "shape", "ms", "plain_ms", "unfused_ms", "bound_ms", "bound_by")})
+    k4["serving_batch"] = per_stage
+    k4["cluster_launches"] = cluster_split(launches, "int8_bottleneck_v2")
     rows += [k4, k6_row]
 
     # K3 at layer3's 3x3: bf16 out with ReLU, no residual
@@ -4906,7 +4998,7 @@ def phase_conv_times(gen, launches, errs, B=128):
         launches["int8_conv3x3"],
         max(t[0], errs["int8_conv3x3"]), *t[1:],
         nbytes(*args) + B * H * H * C * 2, 2 * B * H * H * 9 * C * C,
-        CONV_DP4A_MS["int8_conv3x3"]))
+        [("dp4a, the fifth slice", CONV_DP4A_MS["int8_conv3x3"])]))
     return rows
 
 
@@ -5943,7 +6035,8 @@ def main(argv=None) -> int:
         runs = [counts, conv_counts, int8_text_counts, packed_counts,
                 eval_counts, file_counts, train_counts, gc_serve_counts,
                 gc_train_counts, weights_counts, remat_counts]
-        total = {name: sum(c[name] for c in runs) for name in COUNTERS}
+        total = {name: sum(c.get(name, 0) for c in runs)
+                 for name in (*COUNTERS, *CLUSTER_COUNTS)}
         kernels = phase_times(gen, counts["fused_attention"],
                               packed_counts["fused_attention"],
                               eval_counts["fused_attention"],

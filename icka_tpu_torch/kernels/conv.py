@@ -17,8 +17,11 @@ a separate fp32 multiply and add in the order written below.
 
 Each wrapper takes its plain version for tensors on the CPU, and only then.
 For CUDA tensors it launches the kernel or raises. `<wrapper>.launches`
-counts calls that launched (the bottleneck is three launches of one tile
-kernel behind one call; it counts one).
+counts calls that launched, one launch each. The two bottleneck wrappers
+run one body (`csrc/int8_bottleneck_wgmma.cuh`) whose geometry
+`bottleneck_geometry` chooses; `<wrapper>.cluster_launches` counts their
+launches by the size of the thread block clusters that split a tile's
+channels.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as tfn
 
 from icka_tpu_torch.kernels import build
 
@@ -128,8 +132,8 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.icka_int8_conv3x3.argtypes = [p, p, p, p, p, i, p, i,
                                       i, i, i, i, i, i, f, p]
-    lib.icka_int8_bottleneck.argtypes = ([p] * 11 + [f] + [p] * 3
-                                         + [i] * 9 + [p])
+    lib.icka_int8_bottleneck.argtypes = ([p] * 11 + [f] + [p]
+                                         + [i] * 18 + [p])
     lib.icka_int8_stem_pool.argtypes = [p] * 5 + [i] * 4 + [p]
     for fn in (lib.icka_int8_conv3x3, lib.icka_int8_bottleneck,
                lib.icka_int8_stem_pool):
@@ -235,25 +239,248 @@ def _bottleneck_shapes(name, x_q, w1, w2, w3, vectors):
     return B, Cin, Cw
 
 
+# ---- the bottleneck's wgmma body: its geometry and its weights ----------
+#
+# The body (`csrc/int8_bottleneck_wgmma.cuh`) walks tiles of TR x TC output
+# pixels of one image, each with the one-pixel halo conv2 reads, on a
+# persistent grid of clusters of CL CTAs that split a tile's channels. Its
+# products are units of one 64-row block by one 64-channel slice (wgmma
+# m64n64k32), shared by two warpgroups; its operands stream through a ring
+# of shared-memory slots in chunks of 128 bytes of K.
+
+_BNECK_SMEM_LIMIT = 232448       # bytes a block may have (H100)
+_BNECK_SPAN = 128                # bytes of K a chunk: one swizzle span
+_BNECK_BLOCK = 64                # rows of an m-block, an n-slice, a tile
+_BNECK_SWIZZLE_ATOM = 8 * _BNECK_SPAN
+_BNECK_MAX_SLOTS = 4
+_BNECK_MAX_CLUSTER = 8           # the portable cluster size
+# conv3's staging rows: 8 consumer warps x 16 rows x 72 fp32 words
+_BNECK_STAGE_BYTES = 8 * 16 * 72 * 4
+# (conv1's rows, conv2's and conv3's rows) to try, largest first: conv1's
+# rows are TMA box rows (at most 256); conv2's and conv3's two warpgroups
+# hold at most two 64-row blocks each
+_BNECK_ROW_LIMITS = ((256, 128), (128, 128), (128, 64), (64, 64))
+
+
+def padded_width(c: int) -> int:
+    """Bytes a row of a1q or a2q takes for c channels, and each tap of a
+    K-major weight: 16-byte units that a swizzle keeps inside the row, 4 of
+    them or a multiple of 8 (`padded_width` in the CUDA source)."""
+    return 64 if c <= 64 else -(-c // 128) * 128
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def bottleneck_units(MB: int, NS: int, wg: int) -> tuple[int, int]:
+    """(m-blocks, slices) warpgroup `wg` (0 or 1) holds of a pass over MB
+    64-row blocks and NS 64-channel slices: the two split the m-blocks
+    where they are even in number or there is one slice, else the slices
+    (`Units` in the CUDA source)."""
+    if NS == 1 or MB % 2 == 0:
+        mbw, nsw = (MB - wg + 1) // 2, NS
+    else:
+        mbw, nsw = MB, (NS - wg + 1) // 2
+    return (0, 0) if mbw <= 0 or nsw <= 0 else (mbw, nsw)
+
+
+def _shape_ok(mbw: int, nsw: int) -> bool:
+    """A warpgroup's share the body has an instance for: at most 2 units
+    (32 accumulator registers each; `shape_ok` in the CUDA source)."""
+    return mbw == 0 or (nsw == 1 and mbw <= 2) or (mbw == 1 and nsw == 2)
+
+
+def _pass_width(channels: int, MB: int) -> int:
+    """The widest pass over a CTA's `channels`: a power-of-two count of
+    64-channel slices that divides them and that both warpgroups hold."""
+    width, ns = _BNECK_BLOCK, 1
+    while (channels // _BNECK_BLOCK) % ns == 0 and ns <= channels // 64:
+        if all(_shape_ok(*bottleneck_units(MB, ns, wg)) for wg in (0, 1)):
+            width = _BNECK_BLOCK * ns
+        ns *= 2
+    return width
+
+
+def _tile_shape(H: int, W: int, rows: int, out_rows: int):
+    """(TR, TC): whole rows of the image where three of them fit conv1's
+    `rows` (the halo adds a row above and below), else strips of at most 4
+    rows by columns with their own halo; evened out over the image."""
+    if 3 * W <= rows and W <= out_rows:
+        tr, tc = min(H, out_rows // W, rows // W - 2), W
+    else:
+        tr = min(H, 4)
+        tc = min(W, out_rows // tr, rows // (tr + 2) - 2)
+        tc = -(-W // -(-W // tc))
+    tr = -(-H // -(-H // tr))
+    return tr, tc
+
+
+def _bottleneck_smem_bytes(g: dict) -> int:
+    """Dynamic shared memory of the body (`smem_bytes` in the CUDA source):
+    up to 1024 bytes to align the ring to the swizzle's atom, the ring's
+    slots, a1q's conv1 rows and its zero row, a2q's rows (of Cwp bytes
+    each), the CTA's scales and biases (four fp32 vectors over its Cwp / CL
+    channels of a1q and a2q, two over its 4Cw / CL of the output), conv3's
+    staging rows (16 x 72 fp32 words a consumer warp), a full and an empty
+    barrier a slot and the two exchange barriers."""
+    return (_BNECK_SWIZZLE_ATOM + g["slots"] * g["slot_bytes"]
+            + (g["BM1"] + 1) * g["Cwp"] + g["BM"] * g["Cwp"]
+            + 4 * (4 * g["Cwp"] + 8 * g["Cw"]) // g["CL"]
+            + _BNECK_STAGE_BYTES + (2 * g["slots"] + 2) * 8)
+
+
+def bottleneck_geometry(B: int, H: int, W: int, Cw: int,
+                        sms: int = 132) -> dict:
+    """The body's geometry (see `_geometry`), a fresh dict each call."""
+    return dict(_geometry(B, H, W, Cw, sms, None))
+
+
+@functools.lru_cache(maxsize=256)
+def _geometry(B: int, H: int, W: int, Cw: int, sms: int,
+              cluster: int | None) -> dict:
+    """The body's geometry for a (B, H, W) grid of bottlenecks of width Cw
+    on a card of `sms` SMs: tile rows TR and columns TC, rows of conv1's
+    product BM1 (the halo box (TR + 2) x BC, BC = W for whole rows, else
+    TC + 2) and of conv2's and conv3's BM, each a multiple of 64; the
+    cluster size CL, doubled while the channels split evenly into 64-wide
+    slices and the clusters' CTAs fill at most half the SMs (above that
+    the exchanges cost more than the idle SMs: PERF.md); the channels a
+    pass of each product (np1, np2, np3) and the ring's slots, at most 4
+    and at least 2 within 232,448 bytes (the passes narrowed, then the
+    tiles made smaller, until they fit). `cluster`, where not None, sets CL
+    instead of the rule (`tools/int8_conv_launches.py --clusters` measures
+    the rule so). Raises ValueError for a width whose a1q and a2q do not
+    fit."""
+    Cin, Cwp = 4 * Cw, padded_width(Cw)
+    for rows, out_rows in _BNECK_ROW_LIMITS:
+        tr, tc = _tile_shape(H, W, rows, out_rows)
+        bc = W if tc == W else tc + 2
+        g = dict(TR=tr, TC=tc, BC=bc, cpad=int(tc < W), Cwp=Cwp, Cw=Cw,
+                 BM=_round_up(tr * tc, _BNECK_BLOCK),
+                 BM1=_round_up((tr + 2) * bc, _BNECK_BLOCK),
+                 nty=-(-H // tr), ntx=-(-W // tc))
+        g["ntiles"] = B * g["nty"] * g["ntx"]
+        cl = 1
+        while (cl < _BNECK_MAX_CLUSTER and (Cwp // 64) % (2 * cl) == 0
+               and (Cin // 64) % (2 * cl) == 0
+               and g["ntiles"] * 2 * cl <= sms // 2):
+            cl *= 2
+        if cluster is not None:
+            if cluster not in (1, 2, 4, 8) or (Cwp // 64) % cluster \
+                    or (Cin // 64) % cluster:
+                raise ValueError(f"no cluster of {cluster} CTAs splits "
+                                 f"Cw={Cw} into 64-channel slices")
+            cl = cluster
+        MB1, MB = g["BM1"] // 64, g["BM"] // 64
+        nps = {"np1": _pass_width(Cwp // cl, MB1),
+               "np2": _pass_width(Cwp // cl, MB),
+               "np3": _pass_width(Cin // cl, MB)}
+        while True:
+            g.update(CL=cl, **nps)
+            g["slot_bytes"] = _BNECK_SPAN * max(g["BM1"] + nps["np1"],
+                                                nps["np2"], nps["np3"])
+            g["slots"] = 0
+            fixed = _bottleneck_smem_bytes(g)
+            g["slots"] = min(_BNECK_MAX_SLOTS, (_BNECK_SMEM_LIMIT - fixed)
+                             // (g["slot_bytes"] + 16))
+            if g["slots"] >= 2:
+                g["smem"] = _bottleneck_smem_bytes(g)
+                return g
+            # narrow the pass that sets the slot's size, if it can be
+            sizes = {"np1": g["BM1"] + nps["np1"], "np2": nps["np2"],
+                     "np3": nps["np3"]}
+            widest = max((k for k in sizes if nps[k] > _BNECK_BLOCK),
+                         key=sizes.get, default=None)
+            if widest is None:
+                break
+            nps[widest] //= 2
+    raise ValueError(f"the int8 bottleneck kernel cannot fit a1q and a2q "
+                     f"of width Cw={Cw} in shared memory")
+
+
+def x_tensor_map_geometry(B: int, H: int, W: int, Cw: int, view, g: dict):
+    """(dims, byte strides, box) of the 4-D tensor map the body reads x
+    through (`x_tensor_map` in the CUDA source): dims (4Cw, W, H, B) from
+    the grid's origin, strides of a pixel, a row and an image of the
+    storage (Hs, Ws) = view[:2], a box of 128 channels (one 128-byte
+    swizzle span) by BC columns by TR + 2 rows of one image. TMA wants the
+    strides multiples of 16 bytes and at most 256 a box dimension."""
+    Hs, Ws = view[0], view[1]
+    Cin = 4 * Cw
+    return ((Cin, W, H, B), (Cin, Cin * Ws, Cin * Ws * Hs),
+            (_BNECK_SPAN, g["BC"], g["TR"] + 2, 1))
+
+
+def kmajor_tiles(wq, taps: int = 1):
+    """A (taps * Cin, F) int8 weight in the JAX layout, tap major, as the
+    bottleneck body reads it: K-major (F rows of K bytes: 8-bit wgmma reads
+    both operands K-major only), each tap's Cin channels padded with zeros
+    to `padded_width(Cin)`, rows to `padded_width(F)`, K to a multiple of
+    128; cut into tiles of 64 rows by 128 bytes ordered by chunk of K, then
+    by rows, so that one chunk of a run of rows is contiguous; inside a
+    tile, row r's 16-byte unit u at unit u ^ (r % 8), the 128-byte swizzle
+    TMA and wgmma use. Flat int8 on wq's device."""
+    K, F = wq.shape
+    cin = K // taps
+    cp, fp = padded_width(cin), padded_width(F)
+    kp = _round_up(taps * cp, _BNECK_SPAN)
+    wk = torch.zeros((fp, taps, cp), dtype=torch.int8, device=wq.device)
+    wk[:F, :, :cin] = wq.reshape(taps, cin, F).permute(2, 0, 1)
+    wk = tfn.pad(wk.reshape(fp, taps * cp), (0, kp - taps * cp))
+    t = wk.reshape(fp // 64, 64, kp // _BNECK_SPAN, 8, 16) \
+        .permute(2, 0, 1, 3, 4)
+    r = torch.arange(64, device=wq.device)
+    unit = torch.arange(8, device=wq.device)[None, :] ^ (r[:, None] & 7)
+    return t[:, :, r[:, None], unit].contiguous().reshape(-1)
+
+
+def bottleneck_weight_tiles(w1, w2, w3):
+    """`kmajor_tiles` of the three weights of a bottleneck."""
+    return kmajor_tiles(w1), kmajor_tiles(w2, 9), kmajor_tiles(w3)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_GEOMETRY_ARGS = ("TR", "TC", "BM1", "BM", "CL", "np1", "np2", "np3",
+                  "slots")
+
+
 def _bottleneck_launch(name, x_q, weights, vectors, rs_tensor, rs_float,
-                       out, H, W, Cw, view, out_bf16):
+                       out, H, W, Cw, view, out_bf16, tiles, g=None):
+    """One launch of the body; returns its cluster size. Without `tiles`
+    the weights are laid out for it on the device first; without `g`,
+    `bottleneck_geometry` chooses the geometry."""
     B = x_q.shape[0]
     if min(B, H, W) < 1 or Cw % 16:
         raise ValueError(f"{name} kernel needs Cw % 16 == 0, got B={B} "
                          f"H={H} W={W} Cw={Cw}")
-    # scratch for the two requantised intermediates; freed on return, which
-    # is safe because the allocator reuses memory in stream order and the
-    # launches below go to the current stream
-    a1q = torch.empty((B, H, W, Cw), dtype=torch.int8, device=x_q.device)
-    a2q = torch.empty_like(a1q)
+    if g is None:
+        g = bottleneck_geometry(B, H, W, Cw,
+                                _sm_count(x_q.device.index or 0))
+    if tiles is None:
+        tiles = bottleneck_weight_tiles(*weights)
+    for what, t, w, taps in zip(("w1", "w2", "w3"), tiles, weights,
+                                (1, 9, 1)):
+        K, F = w.shape
+        want = padded_width(F) * _round_up(taps * padded_width(K // taps),
+                                           _BNECK_SPAN)
+        if t.dtype != torch.int8 or t.numel() != want \
+                or t.device != x_q.device:
+            raise ValueError(f"{name} wants {what}'s tiles as "
+                             f"`kmajor_tiles` makes them ({want} int8)")
     ptrs = [_kernel_operand(name, "x_q", x_q)]
-    ptrs += [_kernel_operand(name, f"w{i + 1}", w)
-             for i, w in enumerate(weights)]
+    ptrs += [_kernel_operand(name, f"{w}'s tiles", t)
+             for w, t in zip(("w1", "w2", "w3"), tiles)]
     ptrs += [_kernel_operand(name, "a scale or bias", v) for v in vectors]
     _launch(name, _lib().icka_int8_bottleneck, x_q, *ptrs,
             None if rs_tensor is None else rs_tensor.data_ptr(), rs_float,
-            out.data_ptr(), a1q.data_ptr(), a2q.data_ptr(), B, H, W, Cw,
-            *view, int(out_bf16))
+            out.data_ptr(), B, H, W, Cw, *view, int(out_bf16),
+            *(g[k] for k in _GEOMETRY_ARGS))
+    return g["CL"]
 
 
 def int8_bottleneck_v2(x_q, w1, w2, w3, s1, b1, s2, b2, s3, b3, res_scale,
@@ -274,7 +501,24 @@ def int8_bottleneck_v2(x_q, w1, w2, w3, s1, b1, s2, b2, s3, b3, res_scale,
     B % g == 0) changes no result and no launch here. Returns int8 in the
     next block's domain (or bf16) in the layout of the input; padded
     outputs have zero borders. The kernel computes on the (H, H) grid in
-    both layouts and reaches the padded one through strides."""
+    both layouts and reaches the padded one through strides.
+
+    The kernel reads the weights K-major (`kmajor_tiles`): this wrapper
+    lays them out on the device at every call. The model keeps that copy
+    beside its weights and calls `_int8_bottleneck_v2_tiled` instead."""
+    return _int8_bottleneck_v2_tiled(None, x_q, w1, w2, w3, s1, b1, s2, b2,
+                                     s3, b3, res_scale, out_bf16, g,
+                                     padded_io)
+
+
+def _int8_bottleneck_v2_tiled(tiles, x_q, w1, w2, w3, s1, b1, s2, b2, s3,
+                              b3, res_scale, out_bf16: bool = False,
+                              g: int = 1, padded_io: bool = False):
+    """`int8_bottleneck_v2` with the kernel's K-major weights given: `tiles`
+    is `bottleneck_weight_tiles(w1, w2, w3)` (None: made here). The kernel
+    reads w1..w3 only through `tiles`, and nothing checks that they agree,
+    so only a caller that keeps the copy beside its weights passes it
+    (`Bottleneck._fused`, with each `ConvBN.kmajor_tiles()`)."""
     name = "int8_bottleneck_v2"
     if x_q.ndim != 4 or w1.ndim != 2:
         raise ValueError(f"{name} wants x_q (B,H,H,4Cw) and w1 (4Cw,Cw)")
@@ -308,20 +552,30 @@ def int8_bottleneck_v2(x_q, w1, w2, w3, s1, b1, s2, b2, s3, b3, res_scale,
     else:
         out = torch.empty((B, H, H, Cin), dtype=out_dt, device=x_q.device)
         view = (H, H, 0, 0)
-    _bottleneck_launch(name, x_q, (w1, w2, w3), vectors, rs, 0.0, out,
-                       H, H, Cw, view, out_bf16)
+    cl = _bottleneck_launch(name, x_q, (w1, w2, w3), vectors, rs, 0.0, out,
+                            H, H, Cw, view, out_bf16, tiles)
     int8_bottleneck_v2.launches += 1
+    int8_bottleneck_v2.cluster_launches[cl] += 1
     return out
 
 
 int8_bottleneck_v2.launches = 0
+int8_bottleneck_v2.cluster_launches = dict.fromkeys((1, 2, 4, 8), 0)
 
 
 def int8_bottleneck(x_q, w1, w2, w3, s1, b1, s2, b2, s3, b3,
                     res_scale: float, out_bf16: bool = False):
     """Fused int8-resident identity bottleneck, `res_scale` a Python float:
     x_q (B, H, W, 4Cw) int8, weights, scales and biases as in
-    `int8_bottleneck_v2`. Returns (B, H, W, 4Cw) int8 (or bf16)."""
+    `int8_bottleneck_v2`, whose weights it also lays out at every call.
+    Returns (B, H, W, 4Cw) int8 (or bf16)."""
+    return _int8_bottleneck_tiled(None, x_q, w1, w2, w3, s1, b1, s2, b2, s3,
+                                  b3, res_scale, out_bf16)
+
+
+def _int8_bottleneck_tiled(tiles, x_q, w1, w2, w3, s1, b1, s2, b2, s3, b3,
+                           res_scale: float, out_bf16: bool = False):
+    """`int8_bottleneck` with `tiles` as in `_int8_bottleneck_v2_tiled`."""
     name = "int8_bottleneck"
     if x_q.ndim != 4 or w1.ndim != 2:
         raise ValueError(f"{name} wants x_q (B,H,W,4Cw) and w1 (4Cw,Cw)")
@@ -334,13 +588,16 @@ def int8_bottleneck(x_q, w1, w2, w3, s1, b1, s2, b2, s3, b3,
                                     out_bf16)
     out = torch.empty((B, H, W, Cin), device=x_q.device,
                       dtype=torch.bfloat16 if out_bf16 else torch.int8)
-    _bottleneck_launch(name, x_q, (w1, w2, w3), vectors, None, res_scale,
-                       out, H, W, Cw, (H, W, 0, 0), out_bf16)
+    cl = _bottleneck_launch(name, x_q, (w1, w2, w3), vectors, None,
+                            res_scale, out, H, W, Cw, (H, W, 0, 0), out_bf16,
+                            tiles)
     int8_bottleneck.launches += 1
+    int8_bottleneck.cluster_launches[cl] += 1
     return out
 
 
 int8_bottleneck.launches = 0
+int8_bottleneck.cluster_launches = dict.fromkeys((1, 2, 4, 8), 0)
 
 
 def int8_stem_pool(patches, w2, scale, bias, out_dtype=torch.bfloat16):

@@ -65,6 +65,7 @@
 
 #include "attention_common.cuh"
 #include "ptx.cuh"
+#include "tensor_map.cuh"
 
 namespace icka_wgmma {
 
@@ -509,33 +510,6 @@ __global__ void __launch_bounds__((BQ / 64 + 1) * kWarpgroup,
 // ---------------------------------------------------------------------------
 // Host: tensor maps and the launch
 // ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime loaded, looked up once
-// (the library links no -lcuda); null if the driver lacks it
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // The 3-D map of a (B, S, num_heads * 64) tensor of `elt`-byte elements
 // (2: bf16, 4: fp32) whose rows are ld elements apart and whose batches S

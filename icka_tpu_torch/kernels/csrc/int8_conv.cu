@@ -10,7 +10,9 @@
 //   int8_bottleneck     -> 3x3 -> ReLU -> requant -> 1x1 + x * res_scale ->
 //                       ReLU, int8 [0,127] or bf16 out (one function for
 //                       both; v2 passes res_scale as a device scalar and may
-//                       read and write the padded layout through strides);
+//                       read and write the padded layout through strides):
+//                       one launch of the wgmma body in
+//                       int8_bottleneck_wgmma.cuh;
 //   int8_stem_pool      (B, OB, OB, K) int8 patches x (K, 4F) int8 into
 //                       int32; per sub-pixel plane (fp32 * scale) -> bf16,
 //                       + bf16 bias, ReLU; 3x3/s2 max-pool in
@@ -24,19 +26,14 @@
 // half-to-even (rintf); int32 -> fp32 is a plain cast.
 //
 // What bounds them: at the serving shapes the functions are bound by
-// operations once a batch fills the card (K4 at layer3, B=128: 52.5 MB and
-// 55.9 GOP, 0.028 ms at the int8 tensor-core peak against 0.016 ms for the
-// bytes), except the stem (224.8 MB against 88.8 GOP: bytes, 0.067 ms). So
-// the products run on the int8 tensor cores (mma.sync m16n8k32, s8 x s8 ->
-// s32). The bottleneck keeps its two narrow intermediates (a1q, a2q: Cw
-// channels against the 4Cw of x and out) in a device scratch between three
-// launches of one implicit-GEMM kernel, where L2 holds them at serving batch
-// sizes. Tiling over pixels and channels is also what fills the card at a
-// serving batch: 16 images of 14 x 14 pixels are 16 tiles for a kernel that
-// keeps one image per block, against 196 tiles here. wgmma, TMA and a
-// single-launch bottleneck on spatial tiles with a halo are later work.
+// operations once a batch fills the card (K3 at layer3, B=128: 0.015 ms at
+// the int8 tensor-core peak), except the stem (224.8 MB against 88.8 GOP:
+// bytes, 0.067 ms). So the products run on the int8 tensor cores: the
+// bottleneck on wgmma (see its header), the 3x3 conv and the stem on
+// mma.sync m16n8k32 (s8 x s8 -> s32). Tiling over pixels and channels is
+// also what fills the card at a serving batch.
 //
-// The design is one implicit-GEMM tile kernel. A block of 8 warps owns a
+// K3 and K5 share one implicit-GEMM tile kernel. A block of 8 warps owns a
 // tile of BM output pixels x BN output channels and walks K = ks*ks*C in
 // chunks of 64 bytes, each warp a (BM / WM) x (BN / WN) part of the tile
 // as m16 x n8 accumulators. The activation chunk (pixels x k, row-major) is
@@ -67,6 +64,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_bottleneck_wgmma.cuh"
 #include "ptx.cuh"
 
 namespace {
@@ -97,7 +95,7 @@ struct ASrc {
   int Hin, Win, C, K, pad;
 };
 
-enum { RES_NONE = 0, RES_INT8_SCALED = 1, RES_BF16 = 2, RES_F32 = 3 };
+enum { RES_NONE = 0, RES_BF16 = 2, RES_F32 = 3 };
 enum { OUT_INT8 = 0, OUT_BF16 = 1, OUT_F32 = 2 };
 
 struct ConvArgs {
@@ -110,8 +108,6 @@ struct ConvArgs {
   const void* res;           // residual, (B, H, W, F) through res_v
   View res_v;
   int res_kind;
-  const float* rs_ptr;       // res_scale on the device, or null
-  float rs_val;              // res_scale from the host
   int relu;
   float qmul;                // int8 out: round(v * qmul), clipped to +-127
   void* out;
@@ -142,8 +138,6 @@ struct Cfg {
   static constexpr int PIPE = kStages * STAGE + 2 * BN * BK;
   static constexpr int CS = BN + 8;              // staged int32 row
   static constexpr int SMEM = cmax(PIPE, BM * CS * 4);
-  // conv_kernel adds the tile of an int8 residual, (BM, BN) bytes
-  static constexpr int CONV_SMEM = SMEM + BM * BN;
   static_assert(MT >= 1 && NT % 2 == 0, "warp tile of m16 x 2n8 steps");
   static __device__ __forceinline__ int wm0(int warp) {
     return warp / WN * (BM / WM);
@@ -319,8 +313,7 @@ __device__ __forceinline__ int requant(float v, float qmul) {
 }
 
 // A bf16 or fp32 residual of channels n..n+3 of output pixel (b, y, x) as
-// stored, 8 or 16 bytes (an int8 one comes through shared memory, see
-// conv_kernel). Loaded apart from the arithmetic, so that a thread has all
+// stored, 8 or 16 bytes. Loaded apart from the arithmetic, so that a thread has all
 // of its loads in flight at once (a store to `out` might alias `res` for
 // the compiler).
 __device__ __forceinline__ uint4 load_res4(const ConvArgs& p, int b, int y,
@@ -336,12 +329,11 @@ __device__ __forceinline__ uint4 load_res4(const ConvArgs& p, int b, int y,
 }
 
 // Epilogue of four consecutive channels n..n+3 of output pixel (b, y, x):
-// their scale and bias, their residual's bytes as stored (4 int8, 4 bf16
-// or 4 fp32; unused without a residual).
+// their scale and bias, their residual's bytes as stored (4 bf16 or 4
+// fp32; unused without a residual).
 __device__ __forceinline__ void epilogue4(const ConvArgs& p, int b, int y,
                                           int x, int n, const int* acc4,
-                                          float rs, float4 s4, float4 b4,
-                                          uint4 raw) {
+                                          float4 s4, float4 b4, uint4 raw) {
   const float s[4] = {s4.x, s4.y, s4.z, s4.w};
   const float bi[4] = {b4.x, b4.y, b4.z, b4.w};
   float v[4];
@@ -350,11 +342,7 @@ __device__ __forceinline__ void epilogue4(const ConvArgs& p, int b, int y,
     v[j] = __fadd_rn(__fmul_rn((float)acc4[j], s[j]), bi[j]);
   if (p.res_kind != RES_NONE) {
     float r[4];
-    if (p.res_kind == RES_INT8_SCALED) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        r[j] = __fmul_rn((float)(int8_t)(raw.x >> (8 * j)), rs);
-    } else if (p.res_kind == RES_BF16) {
+    if (p.res_kind == RES_BF16) {
       r[0] = __uint_as_float(raw.x << 16);
       r[1] = __uint_as_float(raw.x & 0xffff0000u);
       r[2] = __uint_as_float(raw.y << 16);
@@ -424,29 +412,6 @@ __global__ void __launch_bounds__(kThreads, TN == 8 ? 2 : 3)
     for (int j = 0; j < C::NT; ++j)
       acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
 
-  // An int8 residual (the bottleneck's x) rides in by cp.async beside the
-  // first chunks: row r of the tile is pixel m0 + r, channels n0.. . Its
-  // group is committed first, so the main loop's waits cover it.
-  unsigned char* res_tile = smem + C::SMEM;
-  const bool res_int8 = p.res_kind == RES_INT8_SCALED;
-  if (res_int8) {
-    const int8_t* res = static_cast<const int8_t*>(p.res);
-#pragma unroll
-    for (int j = 0; j < C::BM * C::BN / 16 / kThreads; ++j) {
-      const int id = tid + kThreads * j;
-      const int r = id / (C::BN / 16), u = id % (C::BN / 16);
-      const int m = m0 + r, n = n0 + 16 * u;
-      const bool ok = m < M && n < p.F;
-      const int8_t* src = res;
-      if (ok) {
-        const int b = m / HW, rem = m - b * HW, y = rem / p.W;
-        src = res + pixel(p.res_v, b, y, rem - y * p.W) * p.F + n;
-      }
-      cp_async16(res_tile + r * C::BN + 16 * u, src, ok);
-    }
-  }
-  cp_async_commit();   // empty without an int8 residual
-
   mainloop<TM, TN>(p.a, rb, ry, rx, p.w, p.F, n0, acc, smem);
 
   // the accumulators, through shared memory, as a (BM, BN) int32 tile
@@ -465,7 +430,6 @@ __global__ void __launch_bounds__(kThreads, TN == 8 ? 2 : 3)
   __syncthreads();
 
   // thread (tx, ty): pixels ty + 16 i, channels tx * 4 + 64 h (+ 0..3)
-  const float rs = p.rs_ptr ? __ldg(p.rs_ptr) : p.rs_val;
   int pb[TM], py[TM], px[TM];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -485,10 +449,7 @@ __global__ void __launch_bounds__(kThreads, TN == 8 ? 2 : 3)
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       raw[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (res_int8)
-        raw[i].x = *reinterpret_cast<const uint32_t*>(
-            res_tile + (ty + 16 * i) * C::BN + nl);
-      else if (p.res_kind != RES_NONE && pb[i] >= 0)
+      if (p.res_kind != RES_NONE && pb[i] >= 0)
         raw[i] = load_res4(p, pb[i], py[i], px[i], n);
     }
 #pragma unroll
@@ -497,7 +458,7 @@ __global__ void __launch_bounds__(kThreads, TN == 8 ? 2 : 3)
       const int4 v = *reinterpret_cast<const int4*>(
           cs + (ty + 16 * i) * C::CS + nl);
       const int acc4[4] = {v.x, v.y, v.z, v.w};
-      epilogue4(p, pb[i], py[i], px[i], n, acc4, rs, s4, b4, raw[i]);
+      epilogue4(p, pb[i], py[i], px[i], n, acc4, s4, b4, raw[i]);
     }
   }
 }
@@ -508,12 +469,12 @@ cudaError_t launch_conv(const ConvArgs& p, cudaStream_t stream) {
   auto kernel = conv_kernel<TM, TN>;
   // above 48 KB the kernel has to be allowed its dynamic shared memory
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::CONV_SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   const long long M = (long long)p.B * p.H * p.W;
   dim3 grid((unsigned)((M + C::BM - 1) / C::BM),
             (unsigned)((p.F + C::BN - 1) / C::BN));
-  kernel<<<grid, kThreads, C::CONV_SMEM, stream>>>(p);
+  kernel<<<grid, kThreads, C::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -658,60 +619,46 @@ extern "C" int icka_int8_conv3x3(
   p.scale = static_cast<const float*>(scale);
   p.bias = static_cast<const float*>(bias);
   p.res = res; p.res_v = plain_view(H, W); p.res_kind = res_kind;
-  p.rs_ptr = nullptr; p.rs_val = 1.0f;
   p.relu = relu; p.qmul = qmul;
   p.out = out; p.out_v = plain_view(H, W); p.out_kind = out_kind;
   return (int)run_conv(p, static_cast<cudaStream_t>(stream));
 }
 
-// The identity bottleneck in three launches of the tile kernel. x and out
-// are (B, Hs, Ws, 4Cw) with the (H, W) grid at (oy, ox): (H, W, 0, 0) for
-// the plain layout, (H+2, Wp, 1, 1) for the padded one. a1q and a2q are
-// (B, H, W, Cw) int8 scratch. res_scale comes from rs_ptr (device) if not
-// null, else rs_val.
+// The identity bottleneck in one launch of the wgmma body. x and out are
+// (B, Hs, Ws, 4Cw) with the (H, W) grid at (oy, ox): (H, W, 0, 0) for the
+// plain layout, (H+2, Wp, 1, 1) for the padded one. w1t, w2t, w3t are the
+// weights as `kmajor_tiles` lays them out. res_scale comes from rs_ptr
+// (device) if not null, else rs_val. The geometry (tile rows and columns,
+// rows of the products, cluster size, channels a pass, ring slots) is
+// `bottleneck_geometry`'s in icka_tpu_torch/kernels/conv.py; one the body
+// does not take returns cudaErrorInvalidValue.
 extern "C" int icka_int8_bottleneck(
-    const void* x, const void* w1, const void* w2, const void* w3,
+    const void* x, const void* w1t, const void* w2t, const void* w3t,
     const void* s1, const void* b1, const void* s2, const void* b2,
     const void* s3, const void* b3, const void* rs_ptr, float rs_val,
-    void* out, void* a1q, void* a2q, int B, int H, int W, int Cw, int Hs,
-    int Ws, int oy, int ox, int out_bf16, void* stream_) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const View io{Hs, Ws, oy, ox};
-  const int Cin = 4 * Cw;
-
-  ConvArgs p{};
-  p.B = B; p.H = H; p.W = W;
-  p.rs_ptr = nullptr; p.rs_val = 1.0f; p.res_kind = RES_NONE;
-  p.relu = 1; p.qmul = 1.0f; p.out_kind = OUT_INT8;
-  // conv1 1x1: x -> a1q
-  p.a.in = static_cast<const int8_t*>(x); p.a.v = io;
-  p.a.Hin = H; p.a.Win = W; p.a.C = Cin; p.a.K = Cin; p.a.pad = 0;
-  p.w = static_cast<const int8_t*>(w1); p.F = Cw;
-  p.scale = static_cast<const float*>(s1);
-  p.bias = static_cast<const float*>(b1);
-  p.out = a1q; p.out_v = plain_view(H, W);
-  cudaError_t err = run_conv(p, stream);
-  if (err != cudaSuccess) return (int)err;
-  // conv2 3x3: a1q (taps outside the image are exactly 0) -> a2q
-  p.a.in = static_cast<const int8_t*>(a1q); p.a.v = plain_view(H, W);
-  p.a.C = Cw; p.a.K = 9 * Cw; p.a.pad = 1;
-  p.w = static_cast<const int8_t*>(w2);
-  p.scale = static_cast<const float*>(s2);
-  p.bias = static_cast<const float*>(b2);
-  p.out = a2q;
-  err = run_conv(p, stream);
-  if (err != cudaSuccess) return (int)err;
-  // conv3 1x1 + x * res_scale + ReLU: a2q -> out
-  p.a.in = static_cast<const int8_t*>(a2q);
-  p.a.C = Cw; p.a.K = Cw; p.a.pad = 0;
-  p.w = static_cast<const int8_t*>(w3); p.F = Cin;
-  p.scale = static_cast<const float*>(s3);
-  p.bias = static_cast<const float*>(b3);
-  p.res = x; p.res_v = io; p.res_kind = RES_INT8_SCALED;
-  p.rs_ptr = static_cast<const float*>(rs_ptr); p.rs_val = rs_val;
-  p.out = out; p.out_v = io;
-  p.out_kind = out_bf16 ? OUT_BF16 : OUT_INT8;
-  return (int)run_conv(p, stream);
+    void* out, int B, int H, int W, int Cw, int Hs, int Ws, int oy, int ox,
+    int out_bf16, int TR, int TC, int BM1, int BM, int CL, int np1, int np2,
+    int np3, int slots, void* stream) {
+  icka_bneck::Args p{};
+  p.x = static_cast<const int8_t*>(x);
+  p.w1t = static_cast<const int8_t*>(w1t);
+  p.w2t = static_cast<const int8_t*>(w2t);
+  p.w3t = static_cast<const int8_t*>(w3t);
+  p.s1 = static_cast<const float*>(s1);
+  p.b1 = static_cast<const float*>(b1);
+  p.s2 = static_cast<const float*>(s2);
+  p.b2 = static_cast<const float*>(b2);
+  p.s3 = static_cast<const float*>(s3);
+  p.b3 = static_cast<const float*>(b3);
+  p.rs_ptr = static_cast<const float*>(rs_ptr);
+  p.rs_val = rs_val;
+  p.out = out;
+  p.B = B; p.H = H; p.W = W; p.Cw = Cw;
+  p.Hs = Hs; p.Ws = Ws; p.oy = oy; p.ox = ox;
+  p.out_bf16 = out_bf16;
+  p.TR = TR; p.TC = TC; p.BM1 = BM1; p.BM = BM; p.CL = CL;
+  p.np1 = np1; p.np2 = np2; p.np3 = np3; p.slots = slots;
+  return (int)icka_bneck::launch(p, static_cast<cudaStream_t>(stream));
 }
 
 // int8_stem_pool: patches (B, OB, OB, K) int8, w (K, 4F) int8, out

@@ -1,8 +1,10 @@
 // PTX wrappers shared by the tensor-core kernels (blockwise_attention.cu,
 // int8_conv.cu): asynchronous copies into shared memory and ldmatrix; and
-// Hopper's (sm_90a) for attention_wgmma.cuh and attention_wgmma_tf32.cuh:
-// mbarriers, TMA tensor loads, register reallocation between warpgroups,
-// wgmma in bf16 and TF32, and the proxy fence between them.
+// Hopper's (sm_90a) for attention_wgmma.cuh, attention_wgmma_tf32.cuh and
+// int8_bottleneck_wgmma.cuh: mbarriers, TMA tensor and bulk loads, register
+// reallocation between warpgroups, wgmma in bf16, TF32 and int8, the proxy
+// fence between them, and a thread block cluster's shared memory and
+// barriers.
 
 #pragma once
 
@@ -51,6 +53,14 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
       : "r"(smem_u32(p)));
 }
 
+// the same, from a shared-memory address as smem_u32 gives it
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
                                                   const void* p) {
   asm volatile(
@@ -80,6 +90,15 @@ __device__ __forceinline__ void mbar_fence_init() {
 __device__ __forceinline__ void mbar_arrive(unsigned bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
+}
+
+// mbar_arrive where `pred`, predicated inside the PTX (no branch)
+__device__ __forceinline__ void mbar_arrive_if(unsigned bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"((int)pred)
+      : "memory");
 }
 
 // one arrival, and `bytes` more that TMA copies must deliver to complete
@@ -125,6 +144,129 @@ __device__ __forceinline__ void tma_load_3d(unsigned dst, const void* tmap,
       : "memory");
 }
 
+// the same for a 4-D tensor map
+__device__ __forceinline__ void tma_load_4d(unsigned dst, const void* tmap,
+                                            int c0, int c1, int c2, int c3,
+                                            unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// from device to shared memory by TMA; they complete on the barrier `bar`
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread block clusters: a CTA's rank, its peers' shared memory, barriers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the address of shared-memory location `addr` (smem_u32) in the CTA of
+// rank `rank` of this cluster, for the shared::cluster forms below
+__device__ __forceinline__ unsigned mapa(unsigned addr, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// (no memory clobber: a barrier's, which has one, orders these stores
+// before what reads them, and loads that need no order may move past them)
+__device__ __forceinline__ void st_shared_u32(unsigned addr, unsigned v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v));
+}
+
+__device__ __forceinline__ void st_cluster_u32(unsigned addr, unsigned v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v));
+}
+
+__device__ __forceinline__ void st_shared_v2(unsigned addr, float a,
+                                             float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a),
+               "f"(b));
+}
+
+__device__ __forceinline__ float4 ld_shared_v4(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// 16 bytes to global memory where `pred` (predicated inside the PTX)
+__device__ __forceinline__ void st_global_v4_if(void* ptr, uint4 v,
+                                                bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"
+      "@p st.global.v4.b32 [%0], {%1, %2, %3, %4};\n}\n" ::"l"(ptr),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"((int)pred)
+      : "memory");
+}
+
+// orders this thread's earlier memory accesses, in the cluster's shared
+// memory too, before its later ones for every thread of the cluster
+__device__ __forceinline__ void fence_cluster() {
+  asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+}
+
+// named barrier `id` (1-15; 0 is __syncthreads') of `threads` threads
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// where `pred`, one arrival on the barrier at `addr` (mapa'd) of a CTA of
+// this cluster, ordering this thread's earlier memory accesses before it
+// for the cluster; predicated inside the PTX: no branch that ptxas would
+// have to prove uniform around the wgmma that follow
+__device__ __forceinline__ void mbar_arrive_cluster_if(unsigned addr,
+                                                       bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n}\n" ::
+          "r"(addr),
+      "r"((int)pred)
+      : "memory");
+}
+
+// mbar_wait, acquiring what the cluster's arrivals released
+__device__ __forceinline__ void mbar_wait_cluster(unsigned bar,
+                                                  unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], "
+      "%1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// every (non-exited) thread of the cluster, warps converged
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // Registers moved between warpgroups (every warp of the warpgroup executes
 // it): a warpgroup that gives registers up, one that takes them
@@ -167,6 +309,10 @@ __device__ __forceinline__ void fence_operand(float& r) {
 }
 
 __device__ __forceinline__ void fence_operand(unsigned& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+__device__ __forceinline__ void fence_operand(int& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
 
@@ -322,6 +468,61 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64, s32) (+)= a (64 x 32) b (32 x 64), s8, both from shared
+// memory through descriptors, both K-major (8-bit types are K-major
+// only); d is zeroed first unless accumulate
+__device__ __forceinline__ void wgmma_m64n64k32_s8_ss(int (&d)[32], uint64_t a,
+                                                      uint64_t b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, s32) (+)= a (64 x 32, s8, in registers: this thread's
+// fragment of its warp's 16 rows, as mma.sync's m16n8k32 A: (g, 4t..4t+3),
+// (g + 8, 4t..), (g, 16 + 4t..), (g + 8, 16 + 4t..)) b (32 x 64, s8, from
+// shared memory, K-major); d is zeroed first unless accumulate
+__device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int (&d)[32],
+                                                      const unsigned (&a)[4],
+                                                      uint64_t b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
 }
 
 // makes this thread's ordinary shared-memory writes visible to the async

@@ -32,9 +32,13 @@ through the `int8_stem_pool` kernel and `fused_pallas` also sends every
 identity bottleneck through `int8_bottleneck_v2`, int8-resident between the
 blocks of a stage (the flags keep the JAX package's names). The integer
 products outside those kernels are `int8_matmul` (`torch._int_mm`), exact on
-the CPU and on the card. `wq` stays row-major, the layout the kernels read,
-so on the card the unfused path's product copies it column-major at each
-call.
+the CPU and on the card. `wq` stays row-major (K, F), the layout of the state
+dict, of the JAX package and of every public kernel wrapper: the stem kernel
+reads it so, and on the card the unfused path's product copies it
+column-major at each call. The bottleneck kernel reads its weights K-major
+instead: each `ConvBN` keeps that copy (`kmajor_tiles()`), derived from `wq`
+and out of the state dict, and `Bottleneck._fused` passes the three copies
+to the kernel.
 
 `plain_kernels=True` selects the kernels' plain PyTorch versions instead of
 the wrappers. It exists for tests and `chip_smoke.py`; nothing in the
@@ -43,6 +47,7 @@ package sets it.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -52,8 +57,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from icka_tpu_torch.core.device import generator_for, resolve_device
-from icka_tpu_torch.kernels.conv import (bottleneck_v2_reference,
-                                         int8_bottleneck_v2, int8_stem_pool,
+from icka_tpu_torch.kernels.conv import (_int8_bottleneck_v2_tiled,
+                                         bottleneck_v2_reference,
+                                         int8_stem_pool, kmajor_tiles,
                                          stem_pool_reference)
 from icka_tpu_torch.nn.layers import QUANT_MODES
 from icka_tpu_torch.nn.quant import (abs_max_scale, int8_matmul,
@@ -145,6 +151,17 @@ class ConvBN(nn.Module):
         amax = x.float().abs().amax()
         self.calib_amax.copy_(torch.maximum(self.calib_amax, amax))
         return wq, w_s, fused_bias, abs_max_scale(amax)
+
+    def kmajor_tiles(self):
+        """`wq` as the int8 bottleneck kernel reads it
+        (`kernels.conv.kmajor_tiles`): a derived copy, not in the state
+        dict, made at the first call after `wq` is set, loaded, written in
+        place or moved, and kept until then."""
+        key = (self.wq.device, self.wq.data_ptr(), self.wq._version)
+        if getattr(self, "_tiles_key", None) != key:
+            self._tiles = kmajor_tiles(self.wq, self.kernel ** 2)
+            self._tiles_key = key
+        return self._tiles
 
     def forward(self, x):
         if self.quant == "none":
@@ -329,7 +346,11 @@ class Bottleneck(nn.Module):
         kw = {}
         block = bottleneck_v2_reference
         if not self.plain_kernels:
-            block = int8_bottleneck_v2
+            tiles = None
+            if xh.is_cuda:
+                tiles = (c1.kmajor_tiles(), c2.kmajor_tiles(),
+                         c3.kmajor_tiles())
+            block = functools.partial(_int8_bottleneck_v2_tiled, tiles)
             kw["g"] = self.g if xh.shape[0] % self.g == 0 else 1
         out = block(
             xh.contiguous(), c1.wq, c2.wq, c3.wq,

@@ -132,6 +132,75 @@ def test_int8_bottleneck_equals_plain_version(cuda_device, out_bf16):
           cuda_device, out_bf16=out_bf16)
 
 
+def _stage_case(gen, B, H, Cw):
+    """K4 operands whose requantised intermediates spread over [0, 127]:
+    x as a block of a chain sees it, each scale about 40 steps over the
+    product's spread."""
+    Cin = 4 * Cw
+    x = torch.randint(0, 128, (B, H, H, Cin), generator=gen,
+                      dtype=torch.int32).to(torch.int8)
+
+    def scale(n, k, rms):
+        return 40.0 / (k ** 0.5 * rms * 73.3) * (0.5 + torch.rand(
+            n, generator=gen))
+    return [x, _int8(gen, Cin, Cw), _int8(gen, 9 * Cw, Cw),
+            _int8(gen, Cw, Cin), scale(Cw, Cin, 73.5),
+            torch.randn(Cw, generator=gen) * 10, scale(Cw, 9 * Cw, 28.0),
+            torch.randn(Cw, generator=gen) * 10, scale(Cin, Cw, 28.0),
+            torch.randn(Cin, generator=gen) * 10]
+
+
+@pytest.mark.parametrize("out_bf16", [False, True])
+@pytest.mark.parametrize("H,Cw", [(56, 64), (28, 128), (14, 256), (7, 512)])
+def test_bottleneck_body_at_the_serving_stages(cuda_device, H, Cw, out_bf16):
+    """The wgmma body at each ResNet-152 stage at the serving batch of 16,
+    in clusters of the size `bottleneck_geometry` gives (1, 1, 2, 4): K4 in
+    the plain and the padded layout and K6, one launch a call, counted by
+    cluster size, bit-equal to the plain versions; a1q and a2q spread."""
+    gen = torch.Generator().manual_seed(H)
+    args = [a.to(cuda_device) for a in _stage_case(gen, 16, H, Cw)]
+    rs = torch.tensor([0.37], device=cuda_device)
+    cl = tconv.bottleneck_geometry(16, H, H, Cw, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)["CL"]
+    want = tconv.bottleneck_v2_reference(*args, rs, out_bf16)
+    assert want.float().std() > 5
+    Wp = -(-(H + 2) // 32) * 32
+    xp = torch.randint(-127, 128, (16, H + 2, Wp, 4 * Cw), generator=gen,
+                       dtype=torch.int32).to(torch.int8).to(cuda_device)
+    xp[:, 1:H + 1, 1:H + 1] = args[0]
+    for fn, call in (
+            (tconv.int8_bottleneck_v2,
+             lambda: tconv.int8_bottleneck_v2(*args, rs, out_bf16)),
+            (tconv.int8_bottleneck_v2,
+             lambda: tconv.int8_bottleneck_v2(xp, *args[1:], rs, out_bf16,
+                                              padded_io=True)),
+            (tconv.int8_bottleneck,
+             lambda: tconv.int8_bottleneck(*args, 0.37, out_bf16))):
+        before = (fn.launches, fn.cluster_launches[cl])
+        got = call()
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.cluster_launches[cl]) == (before[0] + 1,
+                                                          before[1] + 1)
+        if got.shape[2] == Wp:
+            assert torch.equal(got[:, 1:H + 1, 1:H + 1], want)
+            got[:, 1:H + 1, 1:H + 1] = 0
+            assert not got.float().any()
+        else:
+            assert torch.equal(got, want)
+
+
+def test_bottleneck_body_on_column_tiles_and_padded_widths(cuda_device):
+    """A grid too wide for whole rows (strips of columns with their own
+    halo) and a width whose rows pad (Cw = 48: 64-byte rows, conv3 at 192
+    channels), both output types."""
+    gen = torch.Generator().manual_seed(11)
+    for B, H, W, Cw in ((1, 3, 100, 16), (2, 12, 12, 48)):
+        args = _bottleneck_case(gen, B, H, W, Cw)
+        for out_bf16 in (False, True):
+            _held(tconv.int8_bottleneck, tconv.bottleneck_reference,
+                  args + [0.37], cuda_device, out_bf16=out_bf16)
+
+
 @pytest.mark.parametrize("OB", [8, 20])
 def test_int8_stem_pool_equals_plain_version(cuda_device, OB):
     """8: one ragged tile; 20: ragged tiles in both axes with halos."""
