@@ -9,10 +9,12 @@ Phases; any failure exits non-zero:
      per source, all started together), count the tensor-core instructions
      in the blockwise library (bf16 HMMA and TF32 HMMA apart, and the wgmma
      bodies' HGMMA, bf16 and TF32 apart, and their TMA loads, UTMALDG) and
-     in the int8 library (IMMA, and no dp4a left), check that no fp32
-     CUDA-core attention instance is left at widths up to 128 and that the
-     six wgmma instances (four bf16, two TF32) neither spill nor have their
-     wgmma serialised by ptxas (C7518), print
+     in the int8 library (IGMMA and UTMALDG, and no IMMA or dp4a left: all
+     four of its instances are int8 wgmma bodies), check that no fp32
+     CUDA-core attention instance is left at widths up to 128, that the
+     six attention wgmma instances (four bf16, two TF32) neither spill nor
+     have their wgmma serialised by ptxas (C7518), and that none of the
+     int8 library's instances spills or has a wgmma serialised, print
      registers and spills of every instance, and print the card's name and
      power limit as nvidia-smi gives them;
   2. hold every kernel against its plain PyTorch version on the card at the
@@ -260,7 +262,10 @@ Phases; any failure exits non-zero:
      (K1 at 150 and 172 with 16 heads and 128 and 48 with 12, K2 at 150,
      172, 512 and 1024) by the profiler's device time a launch, at each of
      its four tilings too, beside SDPA, the bound and the recorded time of
-     the mma.sync body (`MMA_SYNC_MS`); K1 and K2 in fp32 at K1's two
+     the mma.sync body (`MMA_SYNC_MS`); K5 at B=128 and, by its device
+     time a launch, at the serving batch, K3 at B=128 and the bottleneck
+     at its stages, beside their bounds and the recorded times of the
+     mma.sync bodies (`CONV_MMA_SYNC_MS`); K1 and K2 in fp32 at K1's two
      shapes on the TF32 wgmma body, by events and by device time, beside
      SDPA, the bound and the recorded time of the 3xTF32 mma.sync body
      (`TF32_MMA_SYNC_MS`; at every other fp32 shape of the table, in
@@ -490,8 +495,8 @@ EVAL_ROWS, EVAL_BATCH, EVAL_CLI_FLAGS = 67, 8, ()
 # the int8 conv kernels against their plain versions: bit-equal (exact
 # integer sums, the same fp32 multiplies, adds and roundings)
 CONV_STAGES = ((56, 64), (28, 128), (14, 256), (7, 512))    # (H, Cw)
-CONV_SOURCE = "icka_tpu_torch/kernels/csrc/int8_conv.cu"
 BNECK_SOURCE = "icka_tpu_torch/kernels/csrc/int8_bottleneck_wgmma.cuh"
+STEM_CONV3_SOURCE = "icka_tpu_torch/kernels/csrc/int8_conv_wgmma.cuh"
 CHECK_CONV_LAUNCHES = True        # a CPU rehearsal launches no kernel
 # K3-K6 at B=128 with their main loop on dp4a (chip_smoke.py phase 6 as of
 # the fifth slice of the port, NVIDIA H100 80GB HBM3, 700.00 W): recorded,
@@ -509,8 +514,21 @@ CONV_DP4A_MS = {"int8_stem_pool": 1.5628, "int8_bottleneck_v2 H=14": 0.7419,
 # line.
 CONV_MMA_SYNC_MS = {"int8_bottleneck_v2 H=14": 0.2585,
                     "int8_bottleneck_v2 H=56": 0.5313,
-                    "int8_bottleneck": 0.2584}
+                    "int8_bottleneck": 0.2584,
+                    "int8_stem_pool": 0.7424, "int8_conv3x3": 0.1063}
 CONV_MMA_SYNC_B16_MS = {56: 0.0721, 28: 0.0595, 14: 0.0695, 7: 0.0884}
+# K5's and K3's times on the int8 mma.sync body that ran them before the
+# wgmma bodies (NVIDIA H100 80GB HBM3, 700.00 W): at B=128 in the entries
+# above, from PERF.md's kernel table (chip_smoke.py phase 7 as of the
+# twelfth slice of the port); K5 at the serving batch of 16, the device
+# time of a launch (tools/int8_conv_launches.py --batch 16 on the
+# twenty-first slice's tree, in the same chip call as the wgmma body's).
+# Recorded, printed beside the new times, never in the `kernels` line.
+CONV_MMA_SYNC_STEM_B16_MS = 0.0941
+# K3's mma.sync body at B=128, 14 x 14, C = F = 256, by device time a
+# launch (the same tool and chip call), the yardstick K3's `ms` is read in;
+# the entry above is by CUDA events
+CONV_MMA_SYNC_K3_DEVICE_MS = 0.1012
 # phase 4b's int8-static visual half for 16 images (PERF.md §5, the ninth
 # slice of the port), printed beside phase 4's
 INT8_VISUAL_PR9_MS = 15.7
@@ -790,13 +808,14 @@ def phase_build():
     conv = sass_counts("int8_conv", ("IMMA", "IDP", "IGMMA", "UTMALDG",
                                      "UBLKCP"))
     print(f"#   int8_conv: {conv['IGMMA']} IGMMA (int8 wgmma: the "
-          f"bottleneck body), {conv['UTMALDG']} UTMALDG (TMA tensor loads) "
-          f"and {conv['UBLKCP']} UBLKCP (TMA bulk copies) in its SASS; "
-          f"{conv['IMMA']} IMMA (mma.sync: K3 and K5), {conv['IDP']} IDP "
-          f"(dp4a)")
+          f"bottleneck, stem and 3x3 conv bodies), {conv['UTMALDG']} "
+          f"UTMALDG (TMA tensor loads) and {conv['UBLKCP']} UBLKCP (TMA "
+          f"bulk copies) in its SASS; {conv['IMMA']} IMMA (mma.sync), "
+          f"{conv['IDP']} IDP (dp4a)")
     check(conv["IGMMA"] > 0 and conv["UTMALDG"] > 0,
           "the int8 library has no int8 wgmma or no TMA load")
-    check(conv["IMMA"] > 0, "the int8 library has no mma.sync for K3/K5")
+    check(conv["IMMA"] == 0, "the int8 library still multiplies with "
+                             "mma.sync")
     check(conv["IDP"] == 0, "the int8 library still multiplies with dp4a")
     for name in build.SOURCES:
         rows = ptxas_rows(build.build_log(name))
@@ -823,17 +842,21 @@ def phase_build():
                   f"wgmma instances {wgmma}: expected 6 (2 of them TF32), "
                   f"none spilling, none serialised")
         if name == "int8_conv":
-            body = [r for r in rows if r[0].startswith(
-                "int8_bottleneck_kernel")]
+            # every instance is a wgmma body: the bottleneck's, the stem's
+            # at 4F = 128 and 256, the 3x3 conv's (common and wide widths)
             log = build.build_log(name)
-            serialised = log.count("C7518") + log.count("are serialized")
-            print(f"#   the bottleneck body: " + ", ".join(
-                f"{r[1]} registers at launch, {r[3]} bytes spilled"
-                for r in body) + f"; ptxas serialised wgmma {serialised} "
+            serialised = len(re.findall(r"C75\d\d|are serialized", log))
+            print(f"#   the int8 wgmma bodies: " + ", ".join(
+                f"{r[0]} {r[1]} registers at launch, {r[3]} bytes spilled"
+                for r in rows) + f"; ptxas serialised wgmma {serialised} "
                 f"times")
-            check(len(body) == 1 and body[0][3] == 0 and serialised == 0,
-                  f"bottleneck body {body}: expected one instance, none "
-                  f"spilling, no wgmma serialised")
+            want = ("int8_bottleneck_kernel <>", "int8_conv3x3_kernel <0>",
+                    "int8_conv3x3_kernel <1>", "int8_stem_pool_kernel <2>",
+                    "int8_stem_pool_kernel <4>")
+            check(sorted(r[0] for r in rows) == sorted(want)
+                  and all(r[3] == 0 for r in rows) and serialised == 0,
+                  f"int8 instances {rows}: expected {want}, none spilling, "
+                  f"no wgmma serialised")
         for what, regs, smem, spill in rows:
             print(f"#     {what}: {regs} registers, {smem} bytes static "
                   f"smem, {spill} bytes spilled")
@@ -1122,6 +1145,25 @@ def phase_conv_kernels_vs_plain(gen, B=4):
         args = stem_inputs(gen, B, OB)
         check_equal(f"K5 OB={OB}", kconv.int8_stem_pool(*args),
                     kconv.stem_pool_reference(*args), errs, "int8_stem_pool")
+        n += 1
+    # widths shared memory cannot hold: K5's weight streamed with the
+    # patches (K = 640 at 4F = 256) or resident in a ring of fewer slots
+    # than a tile's spans (K = 1024 at 4F = 128); K3's box in groups of
+    # spans (C = 5248) and its scales read from a global copy (F = 24576)
+    for K, F in ((640, 64), (1024, 32)):
+        args = stem_inputs(gen, B, 20, K, F)
+        check_equal(f"K5 OB=20 K={K} 4F={4 * F}",
+                    kconv.int8_stem_pool(*args),
+                    kconv.stem_pool_reference(*args), errs, "int8_stem_pool")
+        n += 1
+    for H, C, F in ((4, 5248, 16), (2, 16, 24576)):
+        a = conv3x3_inputs(gen, 1, H, C, F)
+        args = (a["x_pad"], a["w_q"], a["scale"], a["bias"],
+                a["residual"].bfloat16())
+        check_equal(f"K3 H={H} C={C} F={F}",
+                    kconv.int8_conv3x3(*args, out_scale=0.7),
+                    kconv.conv3x3_reference(*args, out_scale=0.7), errs,
+                    "int8_conv3x3")
         n += 1
     print(f"#   {n} comparisons bit-equal: " + ", ".join(
         f"{k} max_abs_err={v}" for k, v in errs.items())
@@ -4842,7 +4884,7 @@ def int8_bound(byts, ops):
 
 
 def conv_row(name, replaces, shape, launches, err, ms, plain_ms, unfused_ms,
-             byts, ops, earlier, source=CONV_SOURCE):
+             byts, ops, earlier, source):
     bound, by = int8_bound(byts, ops)
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -4872,9 +4914,10 @@ def static_module(module, gen):
 def phase_conv_times(gen, launches, errs, B=128):
     """K3-K6 at B=128 beside their plain versions, the unfused port path
     for the same block (ConvBN modules, integer products on `_int_mm`) and
-    their bounds; K4 also at the serving batch, by stage. K4 and K6 are
-    called as the model calls K4, with their weights laid out for the
-    kernel once (`kmajor_tiles`)."""
+    their bounds; K4 at the serving batch by stage and K5 at the serving
+    batch, by device time a launch. Every kernel is called as the model
+    calls K4 and K5, with its weights laid out for the kernel once
+    (`kmajor_tiles`)."""
     print(f"# phase 7: K3-K6 at B={B}; bound = max(bytes / 3.35e12, ops / "
           f"1979e12 int8 dense)")
     dev = torch.device("cuda", 0)
@@ -4889,25 +4932,63 @@ def phase_conv_times(gen, launches, errs, B=128):
                     cuda_time_ms(plain_fn, iters=3, warmup=1),
                     cuda_time_ms(unfused_fn, iters=3, warmup=1))
 
-    # K5: the stem's tail at 224^2
+    # K5: the stem's tail at 224^2, its weight laid out once as
+    # `StemPoolS2D` keeps it
     args = stem_inputs(gen, B)
     stem = static_module(StemPoolS2D(dtype=torch.bfloat16,
                                      quant="int8_static", device=dev), gen)
     pixels = _normal(gen, B, 224, 224, 3)
+    tiles = kconv.kmajor_tiles(args[1])
     err, ms, plain_ms, unfused_ms = timed(
-        lambda: kconv.int8_stem_pool(*args),
+        lambda: kconv._int8_stem_pool_tiled(tiles, *args),
         lambda: kconv.stem_pool_reference(*args),
         lambda: stem(pixels), "int8_stem_pool")
+    # beside the events, the device time a launch (the profiler's); K3's
+    # row takes the latter: the wrapper's host time shows in the events of
+    # so short a kernel
+    with torch.inference_mode():
+        device_ms = kernel_device_ms(
+            lambda: kconv._int8_stem_pool_tiled(tiles, *args), iters=20,
+            seconds=0.5, kernel="int8_stem_pool_kernel")
+    print(f"#   int8_stem_pool at B={B}: {ms:.4f} ms a call by CUDA events, "
+          f"{device_ms:.4f} ms device time a launch")
     K, N = args[1].shape
     out_bytes = B * 56 * 56 * (N // 4) * 2
-    rows.append(conv_row(
+    k5 = conv_row(
         "int8_stem_pool", "icka_tpu/kernels/conv.py:467",
         f"B={B} patches (56,56,{K}) -> (56,56,{N // 4}) bf16",
         launches["int8_stem_pool"],
         max(err, errs["int8_stem_pool"]), ms, plain_ms, unfused_ms,
         nbytes(*args) + out_bytes, 2 * B * 56 * 56 * K * N,
-        [("dp4a, the fifth slice", CONV_DP4A_MS["int8_stem_pool"])]))
-    del args, pixels
+        [("mma.sync", CONV_MMA_SYNC_MS["int8_stem_pool"]),
+         ("dp4a, the fifth slice", CONV_DP4A_MS["int8_stem_pool"])],
+        STEM_CONV3_SOURCE)
+    k5["device_ms"] = device_ms
+    del args, pixels, tiles
+    with torch.inference_mode():     # the serving batch: device time
+        args = stem_inputs(gen, REQUESTS)
+        tiles = kconv.kmajor_tiles(args[1])
+        def fn():
+            return kconv._int8_stem_pool_tiled(tiles, *args)
+        check_equal(f"int8_stem_pool at B={REQUESTS}", fn(),
+                    kconv.stem_pool_reference(*args), {}, "int8_stem_pool")
+        ms = kernel_device_ms(fn, iters=20, seconds=0.5,
+                              kernel="int8_stem_pool_kernel")
+        bound, by = int8_bound(nbytes(*args) + out_bytes * REQUESTS // B,
+                               2 * REQUESTS * 56 * 56 * K * N)
+        g = kconv.stem_geometry(REQUESTS, 56, K, N, kconv._sm_count(0))
+        old = CONV_MMA_SYNC_STEM_B16_MS
+        # the recorded time is printed only: every number in the
+        # `kernels` line is measured in this run
+        k5["serving_batch"] = dict(B=REQUESTS, ms=ms, bound_ms=bound,
+                                   bound_by=by)
+        print(f"#   int8_stem_pool at the serving batch B={REQUESTS} "
+              f"({g['ntiles']} tiles of 7x7 on {g['grid']} CTAs): {ms:.4f} "
+              f"ms device time a launch, bound {bound:.4f} ms ({by}, "
+              f"{ms / bound:.1f}x); recorded mma.sync body {old:.4f} ms "
+              f"({old / ms:.2f}x)")
+        del args, tiles
+    rows.append(k5)
 
     # K4 at layer3 and layer1, K6 at layer3
     k4_rows = {}
@@ -4981,7 +5062,9 @@ def phase_conv_times(gen, launches, errs, B=128):
     k4["cluster_launches"] = cluster_split(launches, "int8_bottleneck_v2")
     rows += [k4, k6_row]
 
-    # K3 at layer3's 3x3: bf16 out with ReLU, no residual
+    # K3 at layer3's 3x3: bf16 out with ReLU, no residual, through the
+    # public wrapper (it has no model caller); its time is the device time
+    # of the body's launch, which leaves out the weight's layout copy
     H, C = 14, 256
     a = conv3x3_inputs(gen, B, H, C, C)
     args = (a["x_pad"], a["w_q"], a["scale"], a["bias"])
@@ -4992,13 +5075,28 @@ def phase_conv_times(gen, launches, errs, B=128):
     t = timed(lambda: kconv.int8_conv3x3(*args),
               lambda: kconv.conv3x3_reference(*args),
               lambda: torch.relu(conv(x16)), "int8_conv3x3")
-    rows.append(conv_row(
+    with torch.inference_mode():
+        ms = kernel_device_ms(lambda: kconv.int8_conv3x3(*args),
+                              iters=20, seconds=0.5,
+                              kernel="int8_conv3x3_kernel")
+    g = kconv.conv3x3_geometry(B, H, H, C, C, kconv._sm_count(0))
+    print(f"#   int8_conv3x3 at B={B}: {ms:.4f} ms device time a launch, "
+          f"{t[1]:.4f} ms a call by CUDA events; tiles {g['TR']}x{g['TC']} "
+          f"({g['BM']} rows), {g['ntiles']} on {g['grid']} CTAs, passes of "
+          f"{g['np']} channels")
+    k3 = conv_row(
         "int8_conv3x3", "icka_tpu/kernels/conv.py:107",
         f"B={B} x_pad ({H + 2},{H + 2},{C}) -> ({H},{H},{C}) bf16",
         launches["int8_conv3x3"],
-        max(t[0], errs["int8_conv3x3"]), *t[1:],
+        max(t[0], errs["int8_conv3x3"]), ms, *t[2:],
         nbytes(*args) + B * H * H * C * 2, 2 * B * H * H * 9 * C * C,
-        [("dp4a, the fifth slice", CONV_DP4A_MS["int8_conv3x3"])]))
+        [("mma.sync by device time", CONV_MMA_SYNC_K3_DEVICE_MS),
+         ("mma.sync by CUDA events", CONV_MMA_SYNC_MS["int8_conv3x3"]),
+         ("dp4a by CUDA events, the fifth slice",
+          CONV_DP4A_MS["int8_conv3x3"])],
+        STEM_CONV3_SOURCE)
+    k3["events_ms"] = t[1]
+    rows.append(k3)
     return rows
 
 

@@ -17,24 +17,29 @@ a separate fp32 multiply and add in the order written below.
 
 Each wrapper takes its plain version for tensors on the CPU, and only then.
 For CUDA tensors it launches the kernel or raises. `<wrapper>.launches`
-counts calls that launched, one launch each. The two bottleneck wrappers
-run one body (`csrc/int8_bottleneck_wgmma.cuh`) whose geometry
-`bottleneck_geometry` chooses; `<wrapper>.cluster_launches` counts their
-launches by the size of the thread block clusters that split a tile's
-channels.
+counts calls that launched, one launch each. Every kernel runs on int8
+wgmma and reads its weights K-major (`kmajor_tiles`): the public wrappers
+lay them out at every call, the model keeps that copy beside its weights
+and calls a private entry (`_int8_bottleneck_v2_tiled`,
+`_int8_stem_pool_tiled`). The two bottleneck wrappers run one body
+(`csrc/int8_bottleneck_wgmma.cuh`) whose geometry `bottleneck_geometry`
+chooses; `<wrapper>.cluster_launches` counts their launches by the size of
+the thread block clusters that split a tile's channels. The stem and the
+3x3 conv run `csrc/int8_conv_wgmma.cuh`, whose geometry `stem_geometry`
+and `conv3x3_geometry` choose.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 
 import torch
 import torch.nn.functional as tfn
 
 from icka_tpu_torch.kernels import build
 
-_GRID_LIMIT = 65535
 _RES_KIND = {torch.bfloat16: 2, torch.float32: 3}
 _OUT_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 
@@ -130,11 +135,11 @@ def stem_pool_reference(patches, w2, scale, bias, out_dtype=torch.bfloat16):
 def _lib():
     lib = build.load("int8_conv")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.icka_int8_conv3x3.argtypes = [p, p, p, p, p, i, p, i,
-                                      i, i, i, i, i, i, f, p]
+    lib.icka_int8_conv3x3.argtypes = ([p] * 6 + [i, p] + [i] * 7 + [f]
+                                      + [i] * 8 + [p])
     lib.icka_int8_bottleneck.argtypes = ([p] * 11 + [f] + [p]
                                          + [i] * 18 + [p])
-    lib.icka_int8_stem_pool.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.icka_int8_stem_pool.argtypes = [p] * 5 + [i] * 7 + [p]
     for fn in (lib.icka_int8_conv3x3, lib.icka_int8_bottleneck,
                lib.icka_int8_stem_pool):
         fn.restype = ctypes.c_int
@@ -181,7 +186,10 @@ def int8_conv3x3(x_pad, w_q, scale, bias, residual=None, relu: bool = True,
     tap major; scale (F,) fp32 = act_scale * per-channel weight scale; bias
     (F,) fp32; residual: optional (B, H, W, F) added before the ReLU;
     out_scale: None gives `out_dtype`, a float gives int8 requantised as
-    round(out * (1/out_scale)) clipped to +-127. Returns (B, H, W, F)."""
+    round(out * (1/out_scale)) clipped to +-127. Returns (B, H, W, F).
+
+    The kernel reads w_q K-major (`kmajor_tiles(w_q, 9)`): this wrapper lays
+    it out on the device at every call."""
     name = "int8_conv3x3"
     if x_pad.ndim != 4 or w_q.ndim != 2:
         raise ValueError(f"{name} wants x_pad (B,H+2,W+2,C) and w_q (9C,F)")
@@ -207,17 +215,38 @@ def int8_conv3x3(x_pad, w_q, scale, bias, residual=None, relu: bool = True,
     if min(B, H, W) < 1 or C % 16 or F % 16:
         raise ValueError(f"{name} kernel needs C % 16 == 0 and F % 16 == 0, "
                          f"got B={B} H={H} W={W} C={C} F={F}")
-    out = torch.empty((B, H, W, F), dtype=out_dt, device=x_pad.device)
+    g = conv3x3_geometry(B, H, W, C, F, _sm_count(x_pad.device.index or 0))
+    return _conv3x3_launch(x_pad, w_q, scale, bias, residual, relu,
+                           out_scale, out_dt, g)
+
+
+def _conv3x3_launch(x_pad, w_q, scale, bias, residual, relu, out_scale,
+                    out_dt, g):
+    """One launch of the 3x3 conv body on operands `int8_conv3x3` has
+    checked, at geometry `g` (`conv3x3_geometry`'s; a tool that times the
+    alternatives passes `_conv3_geometry`'s at other product sizes)."""
+    name = "int8_conv3x3"
+    B, Hp, Wp, C = x_pad.shape
+    F = w_q.shape[1]
+    tiles = kmajor_tiles(w_q, 9)
+    vecs = None
+    if not g["staged"]:                 # F too wide for shared memory
+        vecs = torch.zeros(2, g["Fp"], device=x_pad.device)
+        vecs[0, :F], vecs[1, :F] = scale, bias
+    out = torch.empty((B, Hp - 2, Wp - 2, F), dtype=out_dt,
+                      device=x_pad.device)
     _launch(name, _lib().icka_int8_conv3x3, x_pad,
             _kernel_operand(name, "x_pad", x_pad),
-            _kernel_operand(name, "w_q", w_q),
+            _kernel_operand(name, "w_q's tiles", tiles),
             _kernel_operand(name, "scale", scale),
             _kernel_operand(name, "bias", bias),
+            None if vecs is None else vecs.data_ptr(),
             None if residual is None
             else _kernel_operand(name, "residual", residual),
             0 if residual is None else _RES_KIND[residual.dtype],
-            out.data_ptr(), _OUT_KIND[out_dt], B, H, W, C, F, int(relu),
-            1.0 if out_scale is None else 1.0 / out_scale)
+            out.data_ptr(), _OUT_KIND[out_dt], B, Hp - 2, Wp - 2, C, F,
+            int(relu), 1.0 if out_scale is None else 1.0 / out_scale,
+            *(g[k] for k in _CONV3_ARGS))
     int8_conv3x3.launches += 1
     return out
 
@@ -291,12 +320,19 @@ def _shape_ok(mbw: int, nsw: int) -> bool:
     return mbw == 0 or (nsw == 1 and mbw <= 2) or (mbw == 1 and nsw == 2)
 
 
-def _pass_width(channels: int, MB: int) -> int:
+def _pass_width(channels: int, MB: int, shape_ok=None) -> int:
     """The widest pass over a CTA's `channels`: a power-of-two count of
-    64-channel slices that divides them and that both warpgroups hold."""
+    64-channel slices that divides them and whose shares both warpgroups
+    hold (`shape_ok(mbw, nsw, wm)`; the bottleneck's `_shape_ok` by
+    default)."""
+    if shape_ok is None:
+        def shape_ok(mbw, nsw, wm):
+            return _shape_ok(mbw, nsw)
     width, ns = _BNECK_BLOCK, 1
     while (channels // _BNECK_BLOCK) % ns == 0 and ns <= channels // 64:
-        if all(_shape_ok(*bottleneck_units(MB, ns, wg)) for wg in (0, 1)):
+        wm = 2 if ns == 1 or MB % 2 == 0 else 1
+        if all(shape_ok(*bottleneck_units(MB, ns, wg), wm)
+               for wg in (0, 1)):
             width = _BNECK_BLOCK * ns
         ns *= 2
     return width
@@ -438,6 +474,200 @@ def kmajor_tiles(wq, taps: int = 1):
 def bottleneck_weight_tiles(w1, w2, w3):
     """`kmajor_tiles` of the three weights of a bottleneck."""
     return kmajor_tiles(w1), kmajor_tiles(w2, 9), kmajor_tiles(w3)
+
+
+# ---- the stem's and the 3x3 conv's wgmma bodies: their geometry --------
+#
+# Both bodies (`csrc/int8_conv_wgmma.cuh`) run a producer warpgroup and two
+# consumer warpgroups on a persistent grid, as the bottleneck's does. The
+# stem's tiles are 7 x 7 outputs, an 8 x 8 box of pixels with its halo (one
+# 64-row m-block), each consumer warpgroup taking the CTA's tiles in turn;
+# its weight stays in shared memory where it fits (else it streams with the
+# patches) and the patches stream through a ring of one-span slots a
+# warpgroup. The 3x3 conv's work items are passes over tiles of TR
+# x TC outputs whose halo box stays in shared memory while the pass's
+# weight streams through the ring.
+
+_STEM_BOX = 8                    # box side: 7 outputs and the halo
+_STEM_SLOT_BYTES = _BNECK_BLOCK * _BNECK_SPAN
+_STEM_MAX_SLOTS = 4              # a consumer warpgroup's ring
+_CONV3_MAX_ROWS = 256            # of the product and of a box side
+_CONV3_MAX_SLOTS = 4
+# the product's rows to try, largest first: tiles of 256 rows (two
+# m-blocks by one slice a warpgroup) ran slower than 128 (PERF.md)
+_CONV3_ROWS = (128, 64)
+_CONV3_ARGS = ("TR", "TC", "BM", "np", "slots", "boxes", "sg", "grid")
+
+
+def _stem_smem_bytes(g: dict) -> int:
+    """Dynamic shared memory of the stem's body (`stem_smem_bytes` in the
+    CUDA source): up to 1024 bytes to align, the resident weight (N rows of
+    nsp spans of 128 bytes), the two consumer warpgroups' rings (`slots`
+    slots each of one span of one box, and of the weight's span where it
+    streams), the warps' U words (two warpgroups x two tile parities x four
+    warps x F / 8 words x 32 lanes), the output stage (eight warps x 16
+    pixels x F / 2 + 4 words), scales (fp32) and biases (bf16), and a full
+    and an empty barrier a slot and the weight's barriers (`nwb`: one a
+    resident span, else one)."""
+    N = g["N"]
+    return (_BNECK_SWIZZLE_ATOM + g["resident"] * N * g["nsp"] * _BNECK_SPAN
+            + 2 * g["slots"] * g["slot_bytes"] + 64 * N
+            + 8 * 64 * (N // 8 + 4) + 6 * N + 8 * (4 * g["slots"] + g["nwb"]))
+
+
+def stem_geometry(B: int, OB: int, K: int, N: int, sms: int = 132) -> dict:
+    """The stem body's geometry for (B, OB, OB, K) patches and N = 4F
+    columns on a card of `sms` SMs: tiles of 7 x 7 outputs (`tiles_x` a
+    side, `ntiles` in all), the K-spans of 128 bytes (`nsp`) and the stages
+    of two k32 steps that reach K (`nstages`); the weight resident in
+    shared memory where it leaves room for two slots a consumer warpgroup
+    (`resident` 1), else streamed span by span beside the patches in each
+    slot (`resident` 0, K above 512 at 4F = 256, above 1280 at 4F = 128);
+    each warpgroup's ring of 2 to 4 slots within 232,448 bytes; the grid
+    (one CTA a SM, at most one for two tiles)."""
+    nsp = -(-K // _BNECK_SPAN)
+    g = dict(B=B, OB=OB, K=K, N=N, nsp=nsp, nstages=-(-K // 64),
+             tiles_x=-(-OB // (_STEM_BOX - 1)))
+    g["ntiles"] = B * g["tiles_x"] ** 2
+    for resident in (1, 0):
+        g.update(resident=resident, slots=0, nwb=nsp if resident else 1,
+                 slot_bytes=_STEM_SLOT_BYTES
+                 + (1 - resident) * N * _BNECK_SPAN)
+        g["slots"] = min(_STEM_MAX_SLOTS,
+                         (_BNECK_SMEM_LIMIT - _stem_smem_bytes(g))
+                         // (2 * (g["slot_bytes"] + 16)))
+        if g["slots"] >= 2:
+            break
+    g["smem"] = _stem_smem_bytes(g)
+    g["grid"] = min(sms, -(-g["ntiles"] // 2))
+    return g
+
+
+def stem_tensor_map_geometry(B: int, OB: int, K: int):
+    """(dims, byte strides, box) of the 4-D tensor map the stem body reads
+    the patches through (`stem_tensor_map` in the CUDA source): dims (K, OB,
+    OB, B), strides of a pixel, a row and an image, a box of one 128-byte
+    swizzle span by 8 x 8 pixels of one image."""
+    return ((K, OB, OB, B), (K, K * OB, K * OB * OB),
+            (_BNECK_SPAN, _STEM_BOX, _STEM_BOX, 1))
+
+
+def _conv3_smem_bytes(g: dict) -> int:
+    """Dynamic shared memory of the 3x3 conv's body (`conv3_smem_bytes` in
+    the CUDA source): up to 1024 bytes to align, the box buffers (sg spans
+    of (TR + 2) (TC + 2) rows of 128 bytes, each span 1024-aligned), the
+    ring's slots (np rows of 128 bytes), the epilogue's staged rows (16 x
+    72 fp32 words a consumer warp), scale and bias over the padded channels
+    (fp32) where they are staged, a full and an empty barrier a slot and a
+    box."""
+    return (_BNECK_SWIZZLE_ATOM + g["boxes"] * g["box_bytes"]
+            + g["slots"] * g["slot_bytes"] + _BNECK_STAGE_BYTES
+            + 8 * g["Fp"] * g["staged"]
+            + 8 * (2 * g["slots"] + 2 * g["boxes"]))
+
+
+def conv3_shape_ok(mbw: int, nsw: int, wm: int) -> bool:
+    """A warpgroup's share of a pass the 3x3 conv's body has an instance
+    for (`conv3_shape_ok` in the CUDA source): the bottleneck's, or one
+    m-block by two or four neighbouring slices (one m64n128 or m64n256
+    product; neighbours where the warpgroups split the m-blocks, wm = 2)."""
+    return mbw == 0 or (nsw == 1 and mbw <= 2) or \
+        (mbw == 1 and nsw in (2, 4) and wm == 2)
+
+
+def _conv3_tile(H: int, W: int, rows: int):
+    """(TR, TC): whole rows of the image where they fit `rows` and a box of
+    at most 256 rows (the halo adds a row above and below, a column each
+    side), else strips of at most 4 rows by columns; evened out over the
+    image."""
+    if W <= rows and 3 * (W + 2) <= _CONV3_MAX_ROWS:
+        tr, tc = min(H, rows // W, _CONV3_MAX_ROWS // (W + 2) - 2), W
+    else:
+        tr = min(H, 4)
+        tc = min(W, rows // tr, _CONV3_MAX_ROWS // (tr + 2) - 2)
+        tc = -(-W // -(-W // tc))
+    tr = -(-H // -(-H // tr))
+    return tr, tc
+
+
+def conv3x3_geometry(B: int, H: int, W: int, C: int, F: int,
+                     sms: int = 132) -> dict:
+    """The 3x3 conv body's geometry (see `_conv3_geometry`), a fresh dict
+    each call."""
+    return dict(_conv3_geometry(B, H, W, C, F, sms, None))
+
+
+def _box_groups(spans: int):
+    """Spans a box buffer holds, to try in turn: all of them, then about a
+    half, a quarter, ... down to one."""
+    sg = spans
+    while True:
+        yield sg
+        if sg == 1:
+            return
+        sg = -(-sg // 2)
+
+
+@functools.lru_cache(maxsize=256)
+def _conv3_geometry(B: int, H: int, W: int, C: int, F: int, sms: int,
+                    rows: int | None) -> dict:
+    """The 3x3 conv body's geometry for a (B, H, W) output of F channels
+    from C on a card of `sms` SMs: tile rows TR and columns TC (whole rows
+    where they fit, the largest product first: 128 rows, then 64), the
+    product's rows BM (TR TC rounded up to 64), the channels a pass np
+    (the widest both warpgroups hold, `_pass_width` with
+    `conv3_shape_ok`), the ring's slots (2 to 4) and the box buffers (2
+    where they fit beside 2 slots, else 1) within 232,448 bytes, the
+    passes narrowed, then the tiles made smaller, until they fit; where no
+    box of all the channels' spans fits, the spans a box holds (`sg`, of
+    `spans`) halved until one does, the box then coming in `ngroups`
+    groups; scale and bias staged in shared memory (`staged`) unless F is
+    too wide for any of these, and then read from a padded global copy.
+    The work items (one pass of one tile each: `nitems` =
+    `ntiles` x `npass`) and the grid (one CTA a SM, at most one an item).
+    `rows`, where not None, is the only product size tried, 256 too
+    (`tools/int8_conv_launches.py --tiles` times them so)."""
+    Cp, Fp = padded_width(C), padded_width(F)
+    spans = -(-Cp // _BNECK_SPAN)
+    for staged, sg in itertools.product((1, 0), _box_groups(spans)):
+        for r in (rows,) if rows else _CONV3_ROWS:
+            tr, tc = _conv3_tile(H, W, r)
+            g = dict(TR=tr, TC=tc, BM=_round_up(tr * tc, _BNECK_BLOCK),
+                     Cp=Cp, Fp=Fp, spans=spans, sg=sg, staged=staged,
+                     ngroups=-(-spans // sg), BC=tc + 2, nty=-(-H // tr),
+                     ntx=-(-W // tc), kc=-(-9 * Cp // _BNECK_SPAN))
+            g["ntiles"] = B * g["nty"] * g["ntx"]
+            g["span_stride"] = _round_up(g["BC"] * (tr + 2) * _BNECK_SPAN,
+                                         _BNECK_SWIZZLE_ATOM)
+            g["box_bytes"] = sg * g["span_stride"]
+            np_ = _pass_width(Fp, g["BM"] // _BNECK_BLOCK, conv3_shape_ok)
+            while True:
+                g.update(np=np_, slot_bytes=np_ * _BNECK_SPAN)
+                for boxes in (2, 1):
+                    g.update(boxes=boxes, slots=0)
+                    g["slots"] = min(_CONV3_MAX_SLOTS,
+                                     (_BNECK_SMEM_LIMIT
+                                      - _conv3_smem_bytes(g))
+                                     // (g["slot_bytes"] + 16))
+                    if g["slots"] >= 2:
+                        g["smem"] = _conv3_smem_bytes(g)
+                        g["npass"] = Fp // np_
+                        g["nitems"] = g["ntiles"] * g["npass"]
+                        g["grid"] = min(sms, g["nitems"])
+                        return g
+                if np_ == _BNECK_BLOCK:
+                    break
+                np_ //= 2
+    raise AssertionError("a box of one span fits any tile shape")
+
+
+def conv3_tensor_map_geometry(B: int, H: int, W: int, C: int, g: dict):
+    """(dims, byte strides, box) of the 4-D tensor map the 3x3 conv body
+    reads x_pad through (`conv3_tensor_map` in the CUDA source): dims (C,
+    W + 2, H + 2, B), strides of a pixel, a row and an image, a box of one
+    128-byte swizzle span by TC + 2 columns by TR + 2 rows of one image."""
+    return ((C, W + 2, H + 2, B), (C, C * (W + 2), C * (W + 2) * (H + 2)),
+            (_BNECK_SPAN, g["TC"] + 2, g["TR"] + 2, 1))
 
 
 @functools.cache
@@ -607,7 +837,21 @@ def int8_stem_pool(patches, w2, scale, bias, out_dtype=torch.bfloat16):
     `models/resnet.py::StemPoolS2D`; w2 (K, 4F) int8 in the scatter layout
     (sub-pixel-major output columns); scale (4F,) fp32 = act_scale * tiled
     weight scale; bias (4F,) fp32 tiled fused bias. Only the pooled
-    (B, OB, OB, F) output is written."""
+    (B, OB, OB, F) output is written.
+
+    The kernel reads w2 K-major (`kmajor_tiles(w2)`): this wrapper lays it
+    out on the device at every call. `StemPoolS2D` keeps that copy beside
+    its weights and calls `_int8_stem_pool_tiled` instead."""
+    return _int8_stem_pool_tiled(None, patches, w2, scale, bias, out_dtype)
+
+
+def _int8_stem_pool_tiled(tiles, patches, w2, scale, bias,
+                          out_dtype=torch.bfloat16):
+    """`int8_stem_pool` with the kernel's K-major weight given: `tiles` is
+    `kmajor_tiles(w2)` (None: made here). The kernel reads w2 only through
+    `tiles`, and nothing checks that they agree, so only a caller that keeps
+    the copy beside its weights passes it (`StemPoolS2D.forward`, with its
+    `kmajor_tiles()`)."""
     name = "int8_stem_pool"
     if patches.ndim != 4 or w2.ndim != 2 \
             or patches.shape[1] != patches.shape[2]:
@@ -624,17 +868,26 @@ def int8_stem_pool(patches, w2, scale, bias, out_dtype=torch.bfloat16):
         return stem_pool_reference(patches, w2, scale, bias, out_dtype)
     if out_dtype != torch.bfloat16:
         raise TypeError(f"{name} kernel writes bfloat16, not {out_dtype}")
-    if min(B, OB) < 1 or B > _GRID_LIMIT or K % 16 or N % 128 or N > 256:
+    if min(B, OB) < 1 or K % 16 or N not in (128, 256):
         raise ValueError(f"{name} kernel needs K % 16 == 0 and 4F in "
                          f"(128, 256), got B={B} OB={OB} K={K} 4F={N}")
+    g = stem_geometry(B, OB, K, N, _sm_count(patches.device.index or 0))
+    if tiles is None:
+        tiles = kmajor_tiles(w2)
+    want = N * _round_up(padded_width(K), _BNECK_SPAN)
+    if tiles.dtype != torch.int8 or tiles.numel() != want \
+            or tiles.device != patches.device:
+        raise ValueError(f"{name} wants w2's tiles as `kmajor_tiles(w2)` "
+                         f"makes them ({want} int8)")
     out = torch.empty((B, OB, OB, N // 4), dtype=out_dtype,
                       device=patches.device)
     _launch(name, _lib().icka_int8_stem_pool, patches,
             _kernel_operand(name, "patches", patches),
-            _kernel_operand(name, "w2", w2),
+            _kernel_operand(name, "w2's tiles", tiles),
             _kernel_operand(name, "scale", scale),
             _kernel_operand(name, "bias", bias),
-            out.data_ptr(), B, OB, K, N // 4)
+            out.data_ptr(), B, OB, K, N, g["slots"], g["resident"],
+            g["grid"])
     int8_stem_pool.launches += 1
     return out
 

@@ -33,12 +33,13 @@ identity bottleneck through `int8_bottleneck_v2`, int8-resident between the
 blocks of a stage (the flags keep the JAX package's names). The integer
 products outside those kernels are `int8_matmul` (`torch._int_mm`), exact on
 the CPU and on the card. `wq` stays row-major (K, F), the layout of the state
-dict, of the JAX package and of every public kernel wrapper: the stem kernel
-reads it so, and on the card the unfused path's product copies it
-column-major at each call. The bottleneck kernel reads its weights K-major
-instead: each `ConvBN` keeps that copy (`kmajor_tiles()`), derived from `wq`
-and out of the state dict, and `Bottleneck._fused` passes the three copies
-to the kernel.
+dict, of the JAX package and of every public kernel wrapper, and on the
+card the unfused path's product copies it column-major at each call. The
+kernels read their weights K-major instead:
+each `ConvBN` keeps that copy (`kmajor_tiles()`), derived from `wq` and out
+of the state dict; `Bottleneck._fused` passes the three copies to the
+bottleneck kernel and `StemPoolS2D` its own (of its space-to-depth weight)
+to the stem kernel.
 
 `plain_kernels=True` selects the kernels' plain PyTorch versions instead of
 the wrappers. It exists for tests and `chip_smoke.py`; nothing in the
@@ -58,9 +59,9 @@ from torch import nn
 
 from icka_tpu_torch.core.device import generator_for, resolve_device
 from icka_tpu_torch.kernels.conv import (_int8_bottleneck_v2_tiled,
+                                         _int8_stem_pool_tiled,
                                          bottleneck_v2_reference,
-                                         int8_stem_pool, kmajor_tiles,
-                                         stem_pool_reference)
+                                         kmajor_tiles, stem_pool_reference)
 from icka_tpu_torch.nn.layers import QUANT_MODES
 from icka_tpu_torch.nn.quant import (abs_max_scale, int8_matmul,
                                      quantize_activation,
@@ -153,15 +154,18 @@ class ConvBN(nn.Module):
         return wq, w_s, fused_bias, abs_max_scale(amax)
 
     def kmajor_tiles(self):
-        """`wq` as the int8 bottleneck kernel reads it
-        (`kernels.conv.kmajor_tiles`): a derived copy, not in the state
-        dict, made at the first call after `wq` is set, loaded, written in
-        place or moved, and kept until then."""
+        """`wq` as the int8 kernels read it (`kernels.conv.kmajor_tiles`;
+        `_kmajor_layout` says of which weight): a derived copy, not in the
+        state dict, made at the first call after `wq` is set, loaded,
+        written in place or moved, and kept until then."""
         key = (self.wq.device, self.wq.data_ptr(), self.wq._version)
         if getattr(self, "_tiles_key", None) != key:
-            self._tiles = kmajor_tiles(self.wq, self.kernel ** 2)
+            self._tiles = self._kmajor_layout()
             self._tiles_key = key
         return self._tiles
+
+    def _kmajor_layout(self):
+        return kmajor_tiles(self.wq, self.kernel ** 2)
 
     def forward(self, x):
         if self.quant == "none":
@@ -221,7 +225,9 @@ class StemPoolS2D(ConvBN):
     (I-1,p1)). The parameters are those of `ConvBN(3, 64, 7, 2)`. In the
     int8 modes the integer products are those of the im2col stem, so the
     result is bit-identical to it, and `fused_kernel` sends everything
-    after the patches through `int8_stem_pool`. With `quant="none"` the
+    after the patches through `int8_stem_pool` (on the card with the
+    K-major copy of the space-to-depth weight that `kmajor_tiles()` keeps,
+    in "int8_static" mode). With `quant="none"` the
     BatchNorm is folded into the float weights and the product runs in
     `dtype` (the JAX module's float path): it equals `ConvBN` + max-pool up
     to summation order, and `ResNet` keeps the float stem on `ConvBN`.
@@ -246,6 +252,18 @@ class StemPoolS2D(ConvBN):
     def takes(height: int, width: int) -> bool:
         return height % 4 == 0 and height >= 8 and height == width
 
+    def _s2d_weight(self, wmat):
+        """The (147, F) kernel scattered into its s2d-4 (432, 4F)
+        equivalent."""
+        n_out = wmat.shape[1]
+        w2 = torch.zeros((432, 4, n_out), dtype=wmat.dtype,
+                         device=wmat.device)
+        w2[self._dst_r, self._dst_pq] = wmat[self._src]
+        return w2.reshape(432, 4 * n_out)
+
+    def _kmajor_layout(self):
+        return kmajor_tiles(self._s2d_weight(self.wq))
+
     def forward(self, x):
         B, H = x.shape[0], x.shape[1]
         n_out = 64
@@ -257,10 +275,7 @@ class StemPoolS2D(ConvBN):
         else:
             wmat, w_s, fused_bias, a_s = self.int8_operands(x)
             xd = quantize_activation(x, a_s)
-        # scatter the (147, F) kernel into its s2d-4 (432, 4F) equivalent
-        w2 = torch.zeros((432, 4, n_out), dtype=wmat.dtype, device=x.device)
-        w2[self._dst_r, self._dst_pq] = wmat[self._src]
-        w2 = w2.reshape(432, 4 * n_out)
+        w2 = self._s2d_weight(wmat)
         # pad (3, 5) and space-to-depth by 4: 224^2 -> (B, 58, 58, 48)
         nb, ob = H // 4 + 2, H // 4
         xp = F.pad(xd, (0, 0, 3, 5, 3, 5))
@@ -273,8 +288,11 @@ class StemPoolS2D(ConvBN):
         else:
             scale = (a_s * w_s.repeat(4)).float()
             if self.fused_kernel:
-                tail = stem_pool_reference if self.plain_kernels \
-                    else int8_stem_pool
+                tail = stem_pool_reference
+                if not self.plain_kernels:
+                    tiles = self.kmajor_tiles() if x.is_cuda \
+                        and self.quant == "int8_static" else None
+                    tail = functools.partial(_int8_stem_pool_tiled, tiles)
                 return tail(patches, w2, scale, fused_bias.repeat(4).float(),
                             out_dtype=self.dtype)
             y = (int8_matmul(patches, w2).float() * scale).to(self.dtype)

@@ -209,6 +209,62 @@ def test_int8_stem_pool_equals_plain_version(cuda_device, OB):
           _stem_case(gen, 3, OB), cuda_device)
 
 
+def test_int8_stem_pool_at_the_serving_batch(cuda_device):
+    """B = 16 images of 56 x 56 outputs: 1024 tiles of 7 x 7, each
+    consumer warpgroup of the 132 CTAs taking about four in turn; through
+    the private entry with the weight laid out once, as the model calls
+    it."""
+    gen = torch.Generator().manual_seed(12)
+    args = [a.to(cuda_device) for a in _stem_case(gen, 16, 56)]
+    tiles = tconv.kmajor_tiles(args[1])
+    before = tconv.int8_stem_pool.launches
+    got = tconv._int8_stem_pool_tiled(tiles, *args)
+    torch.cuda.synchronize()
+    assert tconv.int8_stem_pool.launches == before + 1
+    assert torch.equal(got, tconv.stem_pool_reference(*args))
+
+
+@pytest.mark.parametrize("K,F", [(640, 64), (2048, 64), (1024, 32),
+                                 (1296, 32)])
+def test_int8_stem_pool_at_every_weight_placement(cuda_device, K, F):
+    """K = 640 and 2048 at 4F = 256, 1296 at 128: the weight streams with
+    the patches; 1024 at 128: resident, eight spans a tile through a ring
+    of four slots a warpgroup. Ragged tiles, several a warpgroup."""
+    gen = torch.Generator().manual_seed(K + F)
+    g = tconv.stem_geometry(5, 20, K, 4 * F)
+    assert g["resident"] == (K == 1024)
+    _held(tconv.int8_stem_pool, tconv.stem_pool_reference,
+          _stem_case(gen, 5, 20, F=F, K=K), cuda_device)
+
+
+@pytest.mark.parametrize("B,H,C,F", [(1, 4, 5248, 16), (2, 7, 12288, 64),
+                                     (1, 2, 16, 24576)])
+def test_int8_conv3x3_at_widths_shared_memory_cannot_hold(cuda_device, B,
+                                                          H, C, F):
+    """A box of 41 spans a tap in two groups of 21 and 20, one of 96 in
+    eight of 12; F = 24576 outputs, their scales and biases read from a
+    padded global copy."""
+    gen = torch.Generator().manual_seed(C + F)
+    g = tconv.conv3x3_geometry(B, H, H, C, F)
+    assert (g["ngroups"] > 1) == (C > 16) and g["staged"] == (F < 24576)
+    *args, res = _conv3_case(gen, B=B, H=H, W=H, C=C, F=F)
+    _held(tconv.int8_conv3x3, tconv.conv3x3_reference,
+          args + [res.bfloat16()], cuda_device, out_scale=0.05)
+
+
+@pytest.mark.parametrize("C", [64, 512])
+def test_int8_conv3x3_at_stage_widths(cuda_device, C):
+    """C = F = 64 at 56 x 56 (strips of whole rows, each tap's channels
+    half a span) and 512 at 7 x 7 (four spans a tap, passes of 256
+    channels), int8 out with a bf16 residual and bf16 out without."""
+    gen = torch.Generator().manual_seed(C)
+    H = 56 if C == 64 else 7
+    *args, res = _conv3_case(gen, B=2, H=H, W=H, C=C, F=C)
+    _held(tconv.int8_conv3x3, tconv.conv3x3_reference,
+          args + [res.bfloat16()], cuda_device, out_scale=0.05)
+    _held(tconv.int8_conv3x3, tconv.conv3x3_reference, args, cuda_device)
+
+
 def test_kernels_refuse_what_they_cannot_take(cuda_device):
     """A CUDA tensor launches the kernel or raises: no silent plain path."""
     gen = torch.Generator().manual_seed(4)
@@ -767,8 +823,9 @@ def test_wide_heads_run_both_kernels(cuda_device, dtype, hd):
                                   "stem"])
 def test_conv_kernels_bit_equal_at_ragged_shapes(cuda_device, case):
     """Pixel counts that no tile divides, F = 64 channels, and the stem's
-    K = 432 (no multiple of the 64-byte chunk): the int8 tensor-core main
-    loop zero-fills the ragged edges."""
+    K = 432 (no multiple of the 128-byte span a TMA box brings): the boxes
+    arrive zero-filled past the image and past K or C, and the stem runs
+    only the k-steps that reach K."""
     gen = torch.Generator().manual_seed(5)
     if case == "conv3x3":            # M = 3 * 7 * 9 = 189, F = 64
         *args, res = _conv3_case(gen, B=3, H=7, W=9, C=32, F=64)

@@ -2,19 +2,28 @@
 call by call and launch by launch, on one NVIDIA GPU.
 
     python tools/int8_conv_launches.py [--batch 128] [--iters 20]
-                                       [--clusters]
+                                       [--clusters] [--tiles]
 
-For the identity bottleneck (`int8_bottleneck_v2`) at each ResNet stage
-shape, the stem (`int8_stem_pool`) and the 3x3 conv (`int8_conv3x3`) at
-layer3: milliseconds per call from CUDA events over `--iters` calls, and the
-device time of each launch of one call from torch.profiler. Each output is
-checked bit-equal to its plain version first. The bottleneck is called as
-the model calls it, its weights laid out for the kernel once
-(`kmajor_tiles`). Inputs are those of `chip_smoke.py` phase 2.
-`--clusters` also times the bottleneck's wgmma body at each stage with
-every cluster size that splits its channels (the measurement behind
-`bottleneck_geometry`'s rule). Imports the port from the tree this file
-lies in, so an unpacked second tree times its own kernels.
+For the identity bottleneck (`int8_bottleneck_v2`) and the 3x3 conv
+(`int8_conv3x3`, C = F = the stage's width) at each ResNet stage shape and
+the stem (`int8_stem_pool`): milliseconds per call from CUDA events over
+`--iters` calls, and the device time of each launch of one call from
+torch.profiler (at the serving batch, `--batch 16`, a call's host time is
+longer than its kernel's: read the device time). Each output is checked
+bit-equal to its plain version first. The bottleneck and the stem are
+called as the model calls them, their weights laid out for the kernel once
+(`kmajor_tiles`), where the tree has that entry; the 3x3 conv, which has no
+model caller, through its public wrapper. Inputs are those of
+`chip_smoke.py` phase 2. `--clusters` also times the bottleneck's wgmma
+body at each stage with every cluster size that splits its channels (the
+measurement behind `bottleneck_geometry`'s rule); `--tiles` times the 3x3
+conv's body at each product size its geometry tries (64, 128, 256 rows).
+The 3x3 conv's public wrapper lays its weight out at every call: its
+kernel is also timed with that layout cached, in turns with the wrapper
+as it is, to show what the layout copies just before each launch cost.
+Imports the port from the tree this file lies in, so an unpacked second
+tree (an earlier version, with this file copied into it) times its own
+kernels.
 """
 
 from __future__ import annotations
@@ -76,11 +85,76 @@ def cluster_times(a, rs, tiles, B, H, Cw, iters):
     print(f"  clusters (* the rule's): {', '.join(times)} ms a call")
 
 
+def device_ms(fn, iters, name):
+    """Mean device time of the kernels named with `name` over `iters`
+    calls of `fn` (the wrapper's host time does not count)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ts = [(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0))
+          / 1e3 for e in prof.events() if name in e.name]
+    return sum(ts) / max(len(ts), 1)
+
+
+def tiles_times(c, B, H, C, iters):
+    """The 3x3 conv's body at each product size of its geometry, by device
+    time a launch."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    a = (c["x_pad"], c["w_q"], c["scale"], c["bias"])
+    chosen = kconv.conv3x3_geometry(B, H, H, C, C, sms)["BM"]
+    want = kconv.conv3x3_reference(*a)
+    times = []
+    for rows in (64, 128, 256):
+        g = kconv._conv3_geometry(B, H, H, C, C, sms, rows)
+        if rows > 64 and g["BM"] <= 64:
+            continue                  # the image fills 64 rows already
+
+        def run():
+            return kconv._conv3x3_launch(*a, None, True, None,
+                                         torch.bfloat16, g)
+        cs.check_equal(f"rows={rows}", run(), want, {}, "tiles")
+        times.append(f"{g['TR']}x{g['TC']} ({g['BM']} rows"
+                     f"{'*' if g['BM'] == chosen else ''}) "
+                     f"{device_ms(run, iters, 'conv3x3'):.4f}")
+    print(f"  tiles (* the rule's): {', '.join(times)} ms device time a "
+          f"launch")
+
+
+def layout_cost(a, iters):
+    """The 3x3 conv kernel's device time a launch through the public
+    wrapper as it is and with `kmajor_tiles` cached, in turns."""
+    real, cache = kconv.kmajor_tiles, {}
+
+    def cached(w, taps=1):
+        key = (w.data_ptr(), taps)
+        if key not in cache:
+            cache[key] = real(w, taps)
+        return cache[key]
+
+    times = {"laid out at each call": [], "cached": []}
+    try:
+        for _ in range(2):
+            for what, fn in zip(times, (real, cached)):
+                kconv.kmajor_tiles = fn
+                times[what].append(device_ms(
+                    lambda: kconv.int8_conv3x3(*a), iters,
+                    "int8_conv3x3_kernel"))
+    finally:
+        kconv.kmajor_tiles = real
+    print("  the kernel with its weight " + ", ".join(
+        f"{what} {' / '.join(f'{t:.4f}' for t in ts)}"
+        for what, ts in times.items()) + " ms device time a launch")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--clusters", action="store_true")
+    ap.add_argument("--tiles", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("int8_conv_launches: needs an NVIDIA GPU", file=sys.stderr)
@@ -104,14 +178,26 @@ def main(argv=None) -> int:
             if args.clusters:
                 cluster_times(a, rs, tiles, B, H, Cw, args.iters)
             del a, tiles
+        # the stem through its private entry where the tree has it (the
+        # weight laid out once), else the public one
+        stem_tiled = getattr(kconv, "_int8_stem_pool_tiled", None)
         a = cs.stem_inputs(gen, B)
-        report(f"int8_stem_pool B={B}", lambda: kconv.int8_stem_pool(*a),
+        t = kconv.kmajor_tiles(a[1]) if stem_tiled else None
+        report(f"int8_stem_pool B={B}",
+               (lambda: stem_tiled(t, *a)) if stem_tiled
+               else (lambda: kconv.int8_stem_pool(*a)),
                lambda: kconv.stem_pool_reference(*a), args.iters)
-        c = cs.conv3x3_inputs(gen, B, 14, 256, 256)
-        a = (c["x_pad"], c["w_q"], c["scale"], c["bias"])
-        report(f"int8_conv3x3 B={B} H=14 C=F=256",
-               lambda: kconv.int8_conv3x3(*a),
-               lambda: kconv.conv3x3_reference(*a), args.iters)
+        for H, C in cs.CONV_STAGES:
+            c = cs.conv3x3_inputs(gen, B, H, C, C)
+            a = (c["x_pad"], c["w_q"], c["scale"], c["bias"])
+            report(f"int8_conv3x3 B={B} H={H} C=F={C}",
+                   lambda: kconv.int8_conv3x3(*a),
+                   lambda: kconv.conv3x3_reference(*a), args.iters)
+            if hasattr(kconv, "_conv3x3_launch"):
+                layout_cost(a, args.iters)
+            if args.tiles and hasattr(kconv, "_conv3x3_launch"):
+                tiles_times(c, B, H, C, args.iters)
+            del c, a
     return 0
 
 
